@@ -1,30 +1,49 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of NeedleTail on one NVIDIA card, end to end.
 
-    python3 chip_smoke.py [--records N] [--seed S]
+    python3 chip_smoke.py [--records N] [--seed S] [--profile]
 
 Phases, each of which fails the run (non-zero exit) on any fault:
 
 1. card   — print the card's name and power limit (``nvidia-smi``).
 2. build  — compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
    ``sm_90a``) and print the build time and ptxas report.
-3. path   — build an airline-like table (``make_real_like_table("airline")``,
+3. data   — build an airline-like table (``make_real_like_table("airline")``,
    10⁸ records by default, the size of the public on-time dataset it
    imitates) in blocks of 8192 records (the paper's 256 KB block at 32-byte
-   records), move it to the card and run a wave of 64 any-k queries through
-   ``NeedleTailEngine(store, device="cuda").any_k_batch(..., device=True)``.
-   The kernels' launch counters are zeroed just before and read just after:
-   each kernel must have run.  Every returned record is re-checked against
-   the host table, ``num_records >= k`` unless a full scan counts fewer
-   matches or ``max_refills`` ran out, ``device_transfers <= rounds + 1``,
-   and the same wave run by the port on the CPU (plain versions) must give
-   identical per-query results.  Round-0 TWO-PRONG windows are held against
-   the float64 ``two_prong_faithful`` under the planner contract.
-4. kernels — each kernel at the path's shapes against its plain PyTorch
-   version on the card (exact for the combine, the gather and the θ-counts,
-   ``rtol=1e-5`` for the θ-sums), timed with CUDA events (median of 25)
-   beside the plain version, a library call where one computes the same
-   function, and the least time the card could take (``bound_ms``).
+   records) and move it to the card.
+
+Then four paths, each through the entry points a user calls.  Before each,
+the kernels' launch counters are zeroed; just after, they are read, and the
+path must have launched each of its own kernels (``PHASE_KERNELS``):
+
+4. wave        — a wave of 64 any-k queries through
+   ``NeedleTailEngine(store, device="cuda").any_k_batch(..., device=True)``,
+   cold and again warm.  Every returned record is re-checked against the
+   host table, ``num_records >= k`` unless a full scan counts fewer matches
+   or ``max_refills`` ran out, ``device_transfers <= rounds + 1``, and the
+   same wave run by the port on the CPU (plain versions) must give identical
+   per-query results.  Round-0 TWO-PRONG windows are held against the
+   float64 ``two_prong_faithful`` under the planner contract.
+5. host-mirror — the same wave through ``any_k_batch(..., device=False)``
+   on a fresh engine: per-query results, rounds, unique blocks, store reads
+   and cache hits must equal the device wave's.
+6. single      — ``engine.any_k`` for at least 8 of the wave's queries
+   (THRESHOLD, TWO-PRONG and ``auto``; AND and OR; at least one refill),
+   each equal to its result in the wave and re-checked on the host table.
+7. bisect      — ``ops.threshold_bisect`` on each of the wave's 64 combined
+   rows with its k, against the same steps on the plain statistics (equal
+   θ, boundary cases where ``recsum·rpb`` lies within ``rtol=1e-5`` of k
+   counted) and against the sort-based THRESHOLD cut, whose density must
+   lie in the bisection's final bracket.
+
+8. kernels — each kernel at the path's shapes against its plain PyTorch
+   version on the card (exact for the combines, the gather, the prefix scan
+   and the θ-counts, ``rtol=1e-5`` for the θ-sums), timed with CUDA events
+   (median of 25) beside the plain version, a library call where one
+   computes the same function, and the least time the card could take
+   (``bound_ms``).  The prefix scan is also held bit for bit at lengths
+   across its chunk edges.
 
 The last lines are the ``{"kernels": [...]}`` JSON, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -39,6 +58,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -49,10 +69,23 @@ Q = 64
 TIMING_RUNS = 25
 
 KERNELS = {
+    "density_combine": ("csrc/density_combine.cu", "src/repro/kernels/density_combine.py:75"),
     "density_combine_batch": ("csrc/density_combine.cu", "src/repro/kernels/density_combine.py:142"),
+    "theta_stats": ("csrc/theta_stats.cu", "src/repro/kernels/theta_stats.py:65"),
     "theta_stats_batch": ("csrc/theta_stats.cu", "src/repro/kernels/theta_stats.py:132"),
+    "prefix_sum": ("csrc/window_scan.cu", "src/repro/kernels/window_scan.py:53"),
     "block_gather": ("csrc/block_gather.cu", "src/repro/kernels/plan_wave.py:325"),
 }
+# the kernels each path must launch; a kernel's "launches" in the JSON line
+# are those of the first path listed here that runs it
+PHASE_KERNELS = {
+    "wave": ("density_combine_batch", "theta_stats_batch", "prefix_sum", "block_gather"),
+    "host_mirror": ("density_combine_batch", "prefix_sum", "block_gather"),
+    "single": ("density_combine", "prefix_sum", "block_gather"),
+    "bisect": ("theta_stats",),
+}
+SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 65_537, 12_208)
+RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -139,16 +172,6 @@ def check_records(table, store, queries, batch, max_refills: int) -> dict:
     return reasons
 
 
-def compare_waves(a, b) -> None:
-    for i, (x, y) in enumerate(zip(a.results, b.results)):
-        assert_same(x.record_block, y.record_block, f"query {i} record_block")
-        assert_same(x.record_row, y.record_row, f"query {i} record_row")
-        assert_same(x.measures, y.measures, f"query {i} measures")
-        assert_same(np.sort(x.blocks_fetched), np.sort(y.blocks_fetched), f"query {i} blocks")
-        if (x.plan_rounds, x.algo) != (y.plan_rounds, y.algo):
-            raise AssertionError(f"query {i}: rounds/algo differ")
-
-
 def window_contract(store, queries) -> dict:
     """Round-0 TWO-PRONG windows of the card against float64 Algorithm 2.
     A window may differ only where the f64 record mass of the card's window
@@ -156,17 +179,10 @@ def window_contract(store, queries) -> dict:
     (the f32 prefix-sum error bound); such boundary cases are counted."""
     import torch
 
-    from repro_torch.core.density_map import pack_row_matrix
     from repro_torch.core.two_prong import two_prong_faithful, two_prong_select_batch
-    from repro_torch.kernels.plan_wave import combine_wave
 
     lam, rpb = store.num_blocks, store.records_per_block
-    rows = torch.empty((len(queries), lam), dtype=torch.float32, device=store.device)
-    for op in ("and", "or"):
-        idx = [i for i, q in enumerate(queries) if q.op == op]
-        if idx:
-            rm = pack_row_matrix(store.index.vocab, [queries[i].predicates for i in idx])
-            rows[idx] = combine_wave(store.index.densities, rm, op)
+    rows = combined_rows(store, queries)
     needs = torch.tensor([float(q.k) for q in queries], device=store.device)
     tp = two_prong_select_batch(rows, needs, rpb)
     starts, ends, host = tp.start.cpu().numpy(), tp.end.cpu().numpy(), rows.cpu().numpy()
@@ -187,60 +203,226 @@ def window_contract(store, queries) -> dict:
     return out
 
 
-def profile_wave(engine, queries) -> None:
-    """Trace one warm wave: device busy time by operator and the share of
-    the wave's wall time the device was busy."""
+def combined_rows(store, queries):
+    """The wave's ``[Q, λ]`` round-0 combined rows (each query's own op)."""
+    import torch
+
+    from repro_torch.core.density_map import combine_densities_batch, pack_row_matrix
+
+    rows = torch.empty((len(queries), store.num_blocks), dtype=torch.float32,
+                       device=store.device)
+    for op in ("and", "or"):
+        idx = [i for i, q in enumerate(queries) if q.op == op]
+        if idx:
+            rm = pack_row_matrix(store.index.vocab, [queries[i].predicates for i in idx])
+            rows[idx] = combine_densities_batch(store.index.densities, rm, op)
+    return rows
+
+
+def compare_results(x, y, what: str) -> None:
+    assert_same(x.record_block, y.record_block, f"{what} record_block")
+    assert_same(x.record_row, y.record_row, f"{what} record_row")
+    assert_same(x.measures, y.measures, f"{what} measures")
+    assert_same(np.sort(x.blocks_fetched), np.sort(y.blocks_fetched), f"{what} blocks")
+    if (x.plan_rounds, x.algo) != (y.plan_rounds, y.algo):
+        raise AssertionError(f"{what}: rounds/algo differ")
+
+
+def compare_waves(a, b) -> None:
+    for i, (x, y) in enumerate(zip(a.results, b.results)):
+        compare_results(x, y, f"query {i}")
+
+
+def pick_single(queries, batch, n: int = 8) -> list[int]:
+    """Wave indices for the single-query path: the first query of each
+    (algo, op) pair the wave has, the first query that refilled, then the
+    next queries in order up to ``n``."""
+    pick = []
+    for algo in ("threshold", "two_prong", "auto"):
+        for op in ("and", "or"):
+            i = next((i for i, q in enumerate(queries)
+                      if (q.algo or "auto") == algo and q.op == op), None)
+            if i is not None:
+                pick.append(i)
+    if not any(batch.results[i].plan_rounds > 1 for i in pick):
+        refill = [i for i, r in enumerate(batch.results) if r.plan_rounds > 1]
+        if not refill:
+            raise AssertionError("no query of the wave refilled")
+        pick.append(refill[0])
+    pick += [i for i in range(len(queries)) if i not in pick][: max(0, n - len(pick))]
+    return sorted(pick)
+
+
+def bisect_check(rows, queries, rpb: int) -> dict:
+    """``ops.threshold_bisect`` on each combined row with its k, on the
+    ``theta_stats`` kernel and on the plain statistics.
+
+    * The two θ* must be equal, except where the rounds first part at a
+      threshold whose ``recsum·rpb`` lies within ``rtol=1e-5`` of k (the
+      f32 sums add in another order): such boundary cases are counted.
+    * The sort-based THRESHOLD cut's density must lie in the final bracket
+      ``[lo, hi)`` of the kernel's bisection (blocks at ≥ lo hold ≥ k
+      expected records, blocks at ≥ hi fewer), or θ* = 0 when all the
+      row's records cannot reach k; a miss whose float64 mass at lo or hi
+      lies within ``rtol`` of k is counted as a boundary case.
+    * ``test_kernels.py``'s criterion ``|n_bisect − n_sort| <= max(2,
+      0.01·n_sort)`` is counted, not required: on rows with many equal
+      densities (a month predicate is 1.0 in every block of its month) or
+      densities closer than the 16³-step grid, the bisection takes whole
+      tie groups by design.
+    """
+    import torch
+
+    from repro_torch.core.threshold import threshold_sort_batch
+    from repro_torch.kernels.ops import bisect_rounds
+    from repro_torch.kernels.theta_stats import theta_stats, theta_stats_plain
+
+    kernel = [bisect_rounds(rows[i], float(q.k), rpb, stats=theta_stats)
+              for i, q in enumerate(queries)]
+    launches = {}
+    if rows.device.type == "cuda":
+        from repro_torch.kernels import _lib
+
+        torch.cuda.synchronize()
+        launches = dict(_lib.LAUNCHES)
+    _, sorted_d, cum = threshold_sort_batch(rows)
+    sd, cum_h = sorted_d.cpu().numpy(), cum.cpu().numpy()
+    host = rows.cpu().numpy().astype(np.float64)
+    out = {"equal": 0, "boundary": 0, "bracket": 0, "bracket_boundary": 0,
+           "criterion_met": 0, "criterion_missed": 0}
+
+    def near(mass: float, k: float) -> bool:
+        return abs(mass - k) <= RTOL * k
+
+    for i, q in enumerate(queries):
+        lo, hi, trace = kernel[i]
+        plo, _, ptrace = bisect_rounds(rows[i], float(q.k), rpb, stats=theta_stats_plain)
+        if float(lo) == float(plo):
+            out["equal"] += 1
+        else:
+            for (ths, rs), (pths, prs) in zip(trace, ptrace):
+                ok, pok = (rs * rpb >= q.k).cpu().numpy(), (prs * rpb >= q.k).cpu().numpy()
+                if not np.array_equal(ok, pok):
+                    t = np.flatnonzero(ok != pok)
+                    if not all(near(float(prs[j]) * rpb, q.k) for j in t):
+                        raise AssertionError(f"query {i}: θ* {float(lo)} vs plain {float(plo)}")
+                    break
+            else:
+                raise AssertionError(f"query {i}: θ* differs with equal rounds")
+            out["boundary"] += 1
+        lo, hi = float(lo), float(hi)
+        x = host[i]
+        # the sort cut, as threshold_cut takes it
+        reached = cum_h[i] * np.float32(rpb) >= np.float32(q.k)
+        n_sort = int(np.argmax(reached)) + 1 if reached.any() else int((sd[i] > 0).sum())
+        if reached.any():
+            theta_sort = float(sd[i][n_sort - 1])
+            inside = lo <= theta_sort < hi
+        else:
+            inside = lo == 0.0
+        if inside:
+            out["bracket"] += 1
+        elif near(x[x >= lo].sum() * rpb, q.k) or near(x[x >= hi].sum() * rpb, q.k):
+            out["bracket_boundary"] += 1
+        else:
+            raise AssertionError(f"query {i}: sort cut outside the bisection bracket "
+                                 f"[{lo}, {hi})")
+        n_bisect = int((x >= lo).sum())
+        met = abs(n_bisect - n_sort) <= max(2, 0.01 * n_sort)
+        out["criterion_met" if met else "criterion_missed"] += 1
+    out["launches"] = launches
+    return out
+
+
+def profile_wave(fn, label: str):
+    """Run ``fn`` (one wave) under ``torch.profiler`` and print its device
+    busy time by operator, the share of its wall time the device was busy,
+    and its host operators and CUDA runtime calls by self CPU time (where a
+    cold wave's first-use set-up shows).  Returns ``fn``'s result."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.any_k_batch(queries, device=True)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    events = prof.key_averages()
     # device-side entries only (kernels, copies): the host ops that launched
     # them report the same device time again
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    log(f"profile: wall {wall * 1e3:.3f} ms under the profiler, device busy "
+    log(f"profile {label}: wall {wall * 1e3:.3f} ms under the profiler, device busy "
         f"{busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}%), {sum(r[2] for r in rows)} device ops")
     for key, ms, n in rows[:12]:
         log(f"  {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in events
+                   if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
+    log(f"profile {label}: host self time by operator")
+    for key, ms, n in host[:12]:
+        log(f"  {ms:9.3f} ms  x{n:<5d} {key[:90]}")
+    return out
 
 
-def kernel_phase(store, queries, batch, launches: dict) -> list[dict]:
+def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict]:
+    """Each kernel at the path's shapes against its plain version, timed;
+    returns the rows of the ``{"kernels": [...]}`` line."""
     import torch
 
     from repro_torch.core.density_map import pack_row_matrix
+    from repro_torch.core.threshold import threshold_sort_batch
     from repro_torch.kernels.density_combine import (
-        density_combine_batch, density_combine_batch_plain,
+        density_combine, density_combine_batch, density_combine_batch_plain,
+        density_combine_plain,
     )
+    from repro_torch.kernels.ops import bisect_rounds
     from repro_torch.kernels.plan_wave import (
         THETA_FANOUT, block_gather, block_gather_plain, plan_wave_from_combined,
     )
-    from repro_torch.kernels.theta_stats import theta_stats_batch, theta_stats_batch_plain
+    from repro_torch.kernels.theta_stats import (
+        theta_stats, theta_stats_batch, theta_stats_batch_plain, theta_stats_plain,
+    )
+    from repro_torch.kernels.window_scan import prefix_sum, prefix_sum_plain
 
     dev = store.device
     lam, rpb = store.num_blocks, store.records_per_block
     dens = store.index.densities
-    entries = []
+    entries = {}
 
-    def entry(name, err, ms, plain, lib, nbytes, ops):
+    def entry(name, err, ms, plain, lib, nbytes, ops, **extra):
         b, by = bound_ms(nbytes, ops)
         src, rep = KERNELS[name]
+        by_phase = {ph: n[name] for ph, n in phase_launches.items()}
+        owner = next(ph for ph, names in PHASE_KERNELS.items() if name in names)
         row = {"name": name, "route": "cuda", "source": f"src/repro_torch/{src}",
-               "replaces": rep, "launches": launches[name], "max_abs_err": err,
+               "replaces": rep, "launches": by_phase[owner], "max_abs_err": err,
                "ms": ms, "kernel_ms": ms, "plain_ms": plain, "bound_ms": b,
-               "bound_by": by, "library_ms": lib}
+               "bound_by": by, "library_ms": lib, "launches_by_phase": by_phase, **extra}
         log(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f}, library "
-            f"{'n/a' if lib is None else f'{lib:.4f}'}, bound {b:.4f} by {by}), "
-            f"max_abs_err {err}")
-        entries.append(row)
+            f"{'n/a' if lib is None else f'{lib:.4f}'}, bound {b:.5f} by {by}), "
+            f"max_abs_err {err}, launches {by_phase}")
+        entries[name] = row
 
-    # ⊕-combine: the wave's [64, γ<=3] row matrix, both ops checked, AND timed
+    # single ⊕-combine: the wave's first 3-predicate AND query
+    q3 = next(q for q in queries if q.op == "and" and len(q.predicates) == 3)
+    r3 = torch.from_numpy(store.index.vocab.rows(q3.predicates)).to(dev)
+    for op in ("and", "or"):
+        if not torch.equal(density_combine(dens, r3, op), density_combine_plain(dens, r3, op)):
+            raise AssertionError(f"density_combine ({op}) differs from its plain version")
+    r3l = r3.long()
+    g = r3.numel()
+    entry(
+        "density_combine", 0.0,
+        time_ms(lambda: density_combine(dens, r3, "and")),
+        time_ms(lambda: density_combine_plain(dens, r3, "and")),
+        time_ms(lambda: torch.prod(dens[r3l], dim=0)),
+        (g + 1) * lam * 4 + g * 4, float(g * lam),
+    )
+
+    # batched ⊕-combine: the wave's [64, γ<=3] row matrix, both ops checked, AND timed
     rm_np = pack_row_matrix(store.index.vocab, [q.predicates for q in queries])
     rm = torch.from_numpy(rm_np).to(dev)
     for op in ("and", "or"):
@@ -259,7 +441,23 @@ def kernel_phase(store, queries, batch, launches: dict) -> list[dict]:
         float(int((rm_np >= 0).sum()) * lam),
     )
 
-    # θ-stats: round 0's masked rows and thresholds θ, 2θ, ..., 8θ
+    # single-row θ-stats: the first bisection round of query 0 (T = 16)
+    ths = bisect_rounds(rows[0], float(queries[0].k), rpb)[2][0][0]
+    T = ths.numel()
+    kc, ks = theta_stats(rows[0], ths)
+    pc, ps = theta_stats_plain(rows[0], ths)
+    if not torch.equal(kc, pc):
+        raise AssertionError("theta_stats counts differ from the plain version")
+    if not torch.allclose(ks, ps, rtol=RTOL, atol=0.0):
+        raise AssertionError("theta_stats sums differ beyond rtol=1e-5")
+    entry(
+        "theta_stats", float((ks - ps).abs().max()),
+        time_ms(lambda: theta_stats(rows[0], ths)),
+        time_ms(lambda: theta_stats_plain(rows[0], ths)),
+        None, (lam + 3 * T) * 4, float(2 * T * lam),
+    )
+
+    # batched θ-stats: round 0's masked rows and thresholds θ, 2θ, ..., 8θ
     combined = density_combine_batch(dens, rm, "and")
     needs = torch.tensor([float(q.k) for q in queries], device=dev)
     excl = torch.zeros_like(combined, dtype=torch.bool)
@@ -272,7 +470,7 @@ def kernel_phase(store, queries, batch, launches: dict) -> list[dict]:
     pc, ps = theta_stats_batch_plain(combined, thetas)
     if not torch.equal(kc, pc):
         raise AssertionError("theta_stats_batch counts differ from the plain version")
-    if not torch.allclose(ks, ps, rtol=1e-5, atol=0.0):
+    if not torch.allclose(ks, ps, rtol=RTOL, atol=0.0):
         raise AssertionError("theta_stats_batch sums differ beyond rtol=1e-5")
     entry(
         "theta_stats_batch", float((ks - ps).abs().max()),
@@ -281,6 +479,34 @@ def kernel_phase(store, queries, batch, launches: dict) -> list[dict]:
         None,
         (Q * lam + 3 * Q * THETA_FANOUT) * 4,
         float(2 * Q * THETA_FANOUT * lam),
+    )
+
+    # prefix scan: bit for bit at lengths across the chunk edges, then the
+    # wave's round-0 sorted rows [64, λ] and one of them alone, timed
+    g = torch.Generator().manual_seed(0)
+    for n in SCAN_LENGTHS:
+        x = (torch.rand(n, generator=g) ** 4).to(dev)
+        if not torch.equal(prefix_sum(x), prefix_sum_plain(x)):
+            raise AssertionError(f"prefix_sum differs from its plain version at n={n}")
+    sd = threshold_sort_batch(rows)[1]
+    sd0 = sd[0].contiguous()
+    if not torch.equal(prefix_sum(sd), prefix_sum_plain(sd)):
+        raise AssertionError("prefix_sum differs from its plain version on [Q, λ]")
+    if not torch.equal(prefix_sum(sd0), prefix_sum_plain(sd0)):
+        raise AssertionError("prefix_sum differs from its plain version on [λ]")
+    b1, by1 = bound_ms(2 * lam * 4, float(lam))
+    single = {"shape": [lam], "ms": time_ms(lambda: prefix_sum(sd0)),
+              "plain_ms": time_ms(lambda: prefix_sum_plain(sd0)),
+              "library_ms": time_ms(lambda: torch.cumsum(sd0, dim=0)),
+              "bound_ms": b1, "bound_by": by1}
+    log(f"kernel prefix_sum [{lam}]: {single}")
+    entry(
+        "prefix_sum", 0.0,
+        time_ms(lambda: prefix_sum(sd)),
+        time_ms(lambda: prefix_sum_plain(sd)),
+        time_ms(lambda: torch.cumsum(sd, dim=1)),
+        2 * Q * lam * 4, float(Q * lam),
+        shape=[Q, lam], single=single, exact_lengths=list(SCAN_LENGTHS),
     )
 
     # union gather: the wave's touched blocks from each slab; dims timed cold
@@ -299,8 +525,29 @@ def kernel_phase(store, queries, batch, launches: dict) -> list[dict]:
         0.0,
     )
     log(f"kernel shapes: Q={Q} λ={lam} γ_max={rm_np.shape[1]} rows={n_rows} "
-        f"T={THETA_FANOUT} U={ids.numel()} R={rpb} d={store.dims.shape[2]}")
-    return entries
+        f"T={THETA_FANOUT} (single {T}) U={ids.numel()} R={rpb} d={store.dims.shape[2]}")
+    return [entries[name] for name in KERNELS]
+
+
+def run_phase(name: str, fn):
+    """Zero the launch counters, run ``fn``, read them: ``name``'s kernels
+    must all have launched.  Returns ``(result, wall seconds, launches)``."""
+    import torch
+
+    from repro_torch.kernels import _lib
+
+    _lib.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    missing = [k for k in PHASE_KERNELS[name] if launches[k] == 0]
+    log(f"{name} launches: {launches}")
+    if missing:
+        raise AssertionError(f"the {name} path launched no {missing}")
+    return out, wall, launches
 
 
 def main(argv=None) -> int:
@@ -308,8 +555,8 @@ def main(argv=None) -> int:
     ap.add_argument("--records", type=int, default=100_000_000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one warm wave with torch.profiler and print "
-                         "the device's busy time by operator")
+                    help="run the first wave under torch.profiler and trace one more "
+                         "warm wave; print device and host time by operator")
     args = ap.parse_args(argv)
 
     import torch
@@ -345,31 +592,33 @@ def main(argv=None) -> int:
         f"({store.data_nbytes() / 1e9:.2f} GB of slabs) on the card in {t2 - t1:.1f} s")
 
     queries = make_wave(table.cards, Q, args.seed)
+    phase_launches = {}
+
+    def counters(b) -> str:
+        return (f"rounds {b.rounds}, unique blocks {b.unique_blocks_fetched.size}, "
+                f"store blocks read {b.store_blocks_fetched}, cache hits {b.cache_hits}, "
+                f"records {sum(r.num_records for r in b.results)}")
+
+    # -- 4. wave: the device-resident any-k wave, cold then warm
     engine = NeedleTailEngine(store, device="cuda")
-    _lib.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    batch = engine.any_k_batch(queries, device=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(_lib.LAUNCHES)
-    log(f"path launches: {launches}")
-    missing = [name for name, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"the wave launched no {missing}")
+
+    def first_wave():
+        if args.profile:
+            return profile_wave(lambda: engine.any_k_batch(queries, device=True), "first wave")
+        return engine.any_k_batch(queries, device=True)
+
+    batch, wall, phase_launches["wave"] = run_phase("wave", first_wave)
     t0 = time.perf_counter()
     warm = engine.any_k_batch(queries, device=True)
     torch.cuda.synchronize()
     warm_wall = time.perf_counter() - t0
     compare_waves(batch, warm)
     if args.profile:
-        profile_wave(engine, queries)
-    log(f"wave: Q={Q} wall {wall:.4f} s (second run {warm_wall:.4f} s), rounds "
-        f"{batch.rounds}, transfers {batch.device_transfers}, unique blocks "
-        f"{batch.unique_blocks_fetched.size}, blocks gathered {batch.store_blocks_fetched}, "
-        f"records {sum(r.num_records for r in batch.results)}")
-    log(f"round seconds: {[round(s, 4) for s in batch.round_seconds]}; second run "
-        f"{[round(s, 4) for s in warm.round_seconds]}")
+        profile_wave(lambda: engine.any_k_batch(queries, device=True), "wave again")
+    log(f"wave: Q={Q} wall {wall} s, transfers {batch.device_transfers}, {counters(batch)}")
+    log(f"wave again (warm cache): wall {warm_wall} s, transfers {warm.device_transfers}, "
+        f"{counters(warm)}")
+    log(f"wave round seconds: {batch.round_seconds}; warm {warm.round_seconds}")
     if not batch.device_transfers <= batch.rounds + 1:
         raise AssertionError("more than one plan transfer per round")
     reasons = check_records(table, store, queries, batch, engine.max_refills)
@@ -381,10 +630,71 @@ def main(argv=None) -> int:
     log(f"cpu wave: {time.perf_counter() - t0:.1f} s")
     compare_waves(batch, cpu)
     log("card wave == cpu wave on every query (boundary cases: 0)")
-    del cpu_store
+    del cpu_store, cpu
     log(f"two-prong contract at round 0: {window_contract(store, queries)}")
 
-    entries = kernel_phase(store, queries, batch, launches)
+    # -- 5. host-mirror: the reference's default loop on a fresh engine
+    host_engine = NeedleTailEngine(store, device="cuda")
+    host, host_wall, phase_launches["host_mirror"] = run_phase(
+        "host_mirror", lambda: host_engine.any_k_batch(queries, device=False))
+    compare_waves(batch, host)
+    same = (host.rounds, host.store_blocks_fetched, host.cache_hits) == \
+        (batch.rounds, batch.store_blocks_fetched, batch.cache_hits)
+    if not same or not np.array_equal(host.unique_blocks_fetched, batch.unique_blocks_fetched):
+        raise AssertionError("host-mirror wave's rounds or cache counters differ from the device wave's")
+    t0 = time.perf_counter()
+    host_warm = host_engine.any_k_batch(queries, device=False)
+    torch.cuda.synchronize()
+    host_warm_wall = time.perf_counter() - t0
+    compare_waves(batch, host_warm)
+    log(f"host-mirror wave: wall {host_wall} s, {counters(host)}; round seconds "
+        f"{host.round_seconds}")
+    log(f"host-mirror again (warm cache and plan memo): wall {host_warm_wall} s, "
+        f"{counters(host_warm)}; plan memo {host_engine.plan_cache.stats}")
+    log("host-mirror wave == device wave on every query, rounds and cache counters")
+
+    # -- 6. single: engine.any_k, the reference's sequential loop
+    pick = pick_single(queries, batch)
+    single_engine = NeedleTailEngine(store, device="cuda")
+    times = []
+
+    def run_single():
+        out = []
+        for i in pick:
+            q = queries[i]
+            t0 = time.perf_counter()
+            out.append(single_engine.any_k(q.predicates, q.k, q.op, q.algo or "auto"))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return out
+
+    singles, single_wall, phase_launches["single"] = run_phase("single", run_single)
+    for i, r in zip(pick, singles):
+        compare_results(r, batch.results[i], f"any_k of query {i}")
+    sub = [queries[i] for i in pick]
+    reasons = check_records(table, store, sub, SimpleNamespace(results=singles),
+                            single_engine.max_refills)
+    for i, r, t in zip(pick, singles, times):
+        q = queries[i]
+        log(f"any_k query {i} ({q.algo or 'auto'} -> {r.algo}, {q.op}, γ={len(q.predicates)}, "
+            f"k={q.k}): {t} s, {r.plan_rounds} rounds, {r.blocks_fetched.size} blocks, "
+            f"{r.num_records} records")
+    log(f"single: {len(pick)} any_k calls in {single_wall} s, each == its wave result; "
+        f"short of k: {reasons}; cache {single_engine.block_cache.stats.snapshot()}")
+
+    # -- 7. bisect: θ-bisection on the kernel against its plain steps
+    rows = combined_rows(store, queries)
+    _lib.reset_launches()
+    t0 = time.perf_counter()
+    bis = bisect_check(rows, queries, RPB)
+    bisect_wall = time.perf_counter() - t0
+    phase_launches["bisect"] = bis.pop("launches")
+    log(f"bisect launches: {phase_launches['bisect']}")
+    if phase_launches["bisect"]["theta_stats"] == 0:
+        raise AssertionError("the bisect path launched no theta_stats")
+    log(f"bisect: {Q} rows in {bisect_wall} s (with its checks): {bis}")
+
+    entries = kernel_phase(store, queries, batch, phase_launches, rows)
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

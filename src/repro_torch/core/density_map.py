@@ -8,7 +8,10 @@ variants (paper §4.1) are built with it, as in the reference.
 
 :func:`build_density_maps` computes the index in numpy with the reference's
 operations in the reference's order, so the bytes are the same, and only
-then moves it to the requested device.
+then moves it to the requested device.  The §3.2 ⊕-combine of a query's
+rows runs on the index's device: :func:`combine_densities` for one query
+(the ``density_combine`` kernel on CUDA), :func:`combine_densities_batch`
+for a ``[Q, γ_max]`` row matrix (``density_combine_batch``).
 """
 from __future__ import annotations
 
@@ -19,11 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-# the batched §3.2 combine in plain form (a left fold over γ in f32, on any
-# device); the CUDA kernel form is kernels.density_combine.density_combine_batch
-from repro_torch.kernels.density_combine import (  # noqa: F401
-    density_combine_batch_plain as combine_densities_batch,
-)
+from repro_torch.kernels.density_combine import density_combine, density_combine_batch
 
 AND = "and"
 OR = "or"
@@ -120,3 +119,32 @@ def pack_row_matrix(vocab: PredicateVocab, predicate_lists) -> np.ndarray:
     for q, r in enumerate(row_lists):
         out[q, : r.size] = r
     return out
+
+
+def _upload_rows(densities: torch.Tensor, rows: np.ndarray) -> torch.Tensor:
+    """Range-check host row ids (``-1`` is the padding slot) and move them
+    to ``densities``' device, so no bad id reaches a kernel."""
+    rows = np.asarray(rows, dtype=np.int32)
+    if rows.size and (rows.min() < PAD_ROW or rows.max() >= densities.shape[0]):
+        raise IndexError(f"row ids out of range [-1, {densities.shape[0]})")
+    return torch.from_numpy(rows).to(densities.device)
+
+
+def combine_densities(densities: torch.Tensor, rows, op: str = AND) -> torch.Tensor:
+    """Paper §3.2 for one query: the ``[λ]`` density of the conjunction
+    (AND: product) or disjunction (OR: sum clipped to 1) of the ``[γ]`` host
+    row ids, on ``densities``' device; bit-identical to the reference's
+    ``combine_densities_np``."""
+    rows = np.asarray(rows, dtype=np.int32)
+    if rows.size and rows.min() < 0:
+        raise IndexError("a query's row ids must be >= 0")
+    return density_combine(densities, _upload_rows(densities, rows), op)
+
+
+def combine_densities_batch(
+    densities: torch.Tensor, row_matrix: np.ndarray, op: str = AND
+) -> torch.Tensor:
+    """Batched §3.2 combine: a host ``[Q, γ_max]`` row matrix padded with
+    :data:`PAD_ROW` -> ``[Q, λ]`` on ``densities``' device, each row
+    bit-identical to its single-query combine."""
+    return density_combine_batch(densities, _upload_rows(densities, row_matrix), op)

@@ -1,33 +1,45 @@
-"""Batched any-k evaluation as a device-resident wave.
+"""Batched any-k evaluation: the device-resident wave and the host-mirror loop.
 
-Counterpart of the device pipeline of ``repro/core/multi_query.py``
-(``run_batch(plan_on_host=False)``).  Q concurrent ``(predicates, k)``
-queries are evaluated as one unit:
+Counterpart of ``repro/core/multi_query.py``.  Q concurrent
+``(predicates, k)`` queries are evaluated as one unit:
 
 1. **One combine** — the wave's predicate rows are ⊕-combined into a
-   ``[Q, λ]`` matrix once, on the device (:func:`repro_torch.kernels.
-   plan_wave.combine_wave`).
-2. **Device plan rounds** — a :class:`DevicePlanState` (base combined
-   matrix, exclusion masks, last round's prefix cursors) stays on the device
-   across refill rounds; each round replays the host's choices onto the
-   exclusion masks, re-plans every query (sort → cut → θ-stats → window)
-   and ships ONE packed ``[Q, λ+3]`` plan to the host
-   (``BatchQueryResult.device_transfers``).  The host decodes the plans and
-   makes the §7.2 ``auto`` cost comparison (the cost model is float64 host
-   code).
-3. **Union fetch** — each round's deduplicated ascending union of planned
-   blocks is gathered from the store's device slabs (one ``block_gather``
-   launch per slab), each query's predicate mask is evaluated there over its
-   own blocks, and the matching records come back to the host in the
-   reference's order: the query's blocks ascending, then rows.
+   ``[Q, λ]`` matrix on the device (:func:`repro_torch.core.density_map.
+   combine_densities_batch`, the ``density_combine_batch`` kernel).
+2. **Plan rounds**, in one of two loops:
+
+   * the **device wave** (``run_batch(plan_on_host=False)``): a
+     :class:`DevicePlanState` (base combined matrix, exclusion masks, last
+     round's prefix cursors) stays on the device across refill rounds; each
+     round replays the host's choices onto the exclusion masks, re-plans
+     every query (sort → prefix scan → cut → θ-stats → window) and ships ONE
+     packed ``[Q, λ+3]`` plan to the host (``BatchQueryResult.
+     device_transfers``);
+   * the **host-mirror loop** (``plan_on_host=True``, the reference's
+     default and oracle): each round combines the active queries on the
+     device, brings the ``[Qa, λ]`` rows to the host to key the
+     :class:`~repro_torch.core.block_cache.PlanOrderCache` by row bytes,
+     sorts and scans only the unique rows the memo misses (and windows only
+     the unique (row, need) pairs it misses) on the device, and cuts each
+     query's THRESHOLD prefix on the host.
+
+   Both make the §7.2 ``auto`` cost comparison on the host (the cost model
+   is float64 host code).
+3. **Union fetch** — each round's deduplicated ascending union goes through
+   the engine-lifetime :class:`~repro_torch.core.block_cache.BlockLRUCache`
+   (one store read of the misses); when the cache holds the whole union, one
+   gather serves the wave, each query's predicate mask is evaluated on the
+   device over its own blocks, and the matching records come back to the
+   host in the reference's order (the query's blocks ascending, then rows).
+   When the byte budget cannot hold the union, each query reads through
+   ``get_many`` as in the reference.
 
 Per-query results (records, blocks, rounds, algorithm) are byte-identical
-to the reference's ``run_batch`` on the same data: the planners compute in
-the reference's f32 order (:mod:`repro_torch.core.scan`) and every other
-step is exact.  Left for later slices of the port: the host-mirror loop
-(``plan_on_host=True``) with its block LRU and plan-order memo,
-``Predicate`` trees and ``forward_optimal``, tiers, the sharded planner and
-the obs hooks.
+to the reference's ``run_batch`` and to Q separate ``any_k`` calls, and the
+batch's ``store_blocks_fetched``, ``cache_hits`` and ``modeled_store_io_s``
+come from the cache's counters with the reference's meaning.  Left for
+later slices of the port: ``Predicate`` trees and ``forward_optimal``,
+tiers, the sharded planner and the obs hooks.
 """
 from __future__ import annotations
 
@@ -38,46 +50,52 @@ from typing import TYPE_CHECKING, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.density_map import AND, OR, pack_row_matrix
+from repro_torch.core.density_map import AND, OR, combine_densities_batch, pack_row_matrix
+from repro_torch.core.threshold import threshold_cut, threshold_sort_batch
+from repro_torch.core.two_prong import two_prong_select_batch
 from repro_torch.kernels.plan_wave import (
-    apply_chosen, combine_wave, join_wave_slots, pack_plan,
-    plan_wave_from_combined, unpack_plan,
+    apply_chosen, join_wave_slots, pack_plan, plan_wave_from_combined, unpack_plan,
 )
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.core.engine import NeedleTailEngine, QueryResult
 
-_DEVICE_ALGOS = ("threshold", "two_prong", "auto")
+_ALGOS = ("threshold", "two_prong", "auto")
 # (query, block) pairs whose predicate masks are evaluated per launch group;
 # bounds the [pairs, R] temporaries (4096 × 8192 rows × 4 B = 128 MiB)
 _PAIR_CHUNK = 4096
 
 
-def _check_algo(algo: str) -> None:
+def check_algo(algo: str) -> None:
+    """Raise for an algorithm this slice of the port does not carry."""
     if algo == "forward_optimal":
         raise NotImplementedError(
             "forward_optimal arrives with the slice that ports core/predicates.py "
-            "and core/forward_optimal.py (ROADMAP Queue 1)"
+            "and core/forward_optimal.py (ROADMAP Queue 1 item 3)"
         )
-    if algo not in _DEVICE_ALGOS:
+    if algo not in _ALGOS:
         raise ValueError(f"unknown algo {algo!r}")
 
 
-def _check_query(q: "BatchQuery") -> None:
-    """Raise for what this slice of the port does not carry."""
-    if q.algo is not None:
-        _check_algo(q.algo)
-    if q.op not in (AND, OR):
-        raise ValueError(f"unknown op {q.op!r}")
-    preds = q.predicates
-    pairs = isinstance(preds, (list, tuple)) and len(preds) > 0 and all(
-        isinstance(p, (list, tuple)) and len(p) == 2 for p in preds
+def check_predicates(predicates, op: str) -> None:
+    """Raise for predicates this slice of the port does not carry: only
+    non-empty lists of ``(attr, value)`` pairs under AND or OR."""
+    if op not in (AND, OR):
+        raise ValueError(f"unknown op {op!r}")
+    pairs = isinstance(predicates, (list, tuple)) and len(predicates) > 0 and all(
+        isinstance(p, (list, tuple)) and len(p) == 2 for p in predicates
     )
     if not pairs:
         raise NotImplementedError(
             "only lists of (attr, value) pairs are supported; Predicate trees "
-            "arrive with the slice that ports core/predicates.py (ROADMAP Queue 1)"
+            "arrive with the slice that ports core/predicates.py (ROADMAP Queue 1 item 3)"
         )
+
+
+def _check_query(q: "BatchQuery") -> None:
+    if q.algo is not None:
+        check_algo(q.algo)
+    check_predicates(q.predicates, q.op)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,17 +122,40 @@ class BatchQueryResult:
     rounds: int  # waves executed
     cpu_time_s: float  # host wall time of the whole wave (ends synchronised)
     modeled_io_s: float  # one shared pass over unique touched blocks
-    # blocks gathered from the store's device slabs, Σ over rounds of the
-    # round's union size (a block planned again in a later round is gathered
-    # again: the block cache arrives with a later slice)
+    # blocks read from the store's slabs this batch: the engine's block
+    # cache misses (0 on a fully warm cache), as in the reference
     store_blocks_fetched: int = 0
-    # device→host plan transfers: one packed plan per planning round, so
-    # rounds <= device_transfers <= rounds + 1 (a last round whose plans
-    # come up empty ends the loop)
+    modeled_store_io_s: float = 0.0  # one pass over only the blocks read
+    cache_hits: int = 0  # block reads served from the engine's block cache
+    # device wave only: device→host plan transfers, one packed plan per
+    # planning round, so rounds <= device_transfers <= rounds + 1 (a last
+    # round whose plans come up empty ends the loop); 0 on the host loop
     device_transfers: int = 0
     active_per_round: list = dataclasses.field(default_factory=list)
     # host wall seconds of each planning round (plan + fetch), synchronised
     round_seconds: list = dataclasses.field(default_factory=list)
+
+    @property
+    def num_queries(self) -> int:
+        return len(self.results)
+
+    @property
+    def dedup_ratio(self) -> float:
+        """Planned block reads per unique block touched (1.0 when empty)."""
+        u = int(self.unique_blocks_fetched.size)
+        if u == 0 or self.blocks_requested_total == 0:
+            return 1.0
+        return float(self.blocks_requested_total) / u
+
+    @property
+    def store_dedup_ratio(self) -> float:
+        """Planned block reads per store read: ``inf`` on a fully warm
+        cache, 1.0 for an empty batch."""
+        if self.blocks_requested_total == 0:
+            return 1.0
+        if self.store_blocks_fetched == 0:
+            return float("inf")
+        return float(self.blocks_requested_total) / self.store_blocks_fetched
 
 
 @dataclasses.dataclass
@@ -181,7 +222,7 @@ class DeviceWave:
 
     def __init__(self, engine: "NeedleTailEngine", n_slots: int,
                  default_algo: str = "auto"):
-        _check_algo(default_algo)
+        check_algo(default_algo)
         self.engine = engine
         self.default_algo = default_algo
         self.n_slots = n_slots
@@ -236,7 +277,7 @@ class DeviceWave:
             groups.setdefault(self.slots[slot].query.op, []).append(j)
         for op, js in groups.items():
             rm = pack_row_matrix(vocab, [self.slots[joining[j]].query.predicates for j in js])
-            rows[torch.as_tensor(js, device=dev)] = combine_wave(dens, rm, op)
+            rows[torch.as_tensor(js, device=dev)] = combine_densities_batch(dens, rm, op)
         excl_rows = np.zeros((len(joining), self.lam), dtype=bool)
         for j, slot in enumerate(joining):
             ex = self.slots[slot].exclude
@@ -319,10 +360,11 @@ def _predicate_table(states: list[_QueryState]):
 
 
 def _wave_records(
-    store, union: np.ndarray, states: list[_QueryState], blocks: list[np.ndarray]
+    slabs, union: np.ndarray, states: list[_QueryState], blocks: list[np.ndarray]
 ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
-    """Fetch the round's union from the device slabs and extract each
-    query's matching records over its own blocks.
+    """Extract each query's matching records over its own blocks from the
+    round's union slabs ``(dims [U, R, r], measures [U, R, s], valid [U, R])``
+    on the device.
 
     Returns, per query, ``(record_block, record_row, measures)`` in the
     reference's order (the query's blocks ascending, then rows).  Each
@@ -330,8 +372,8 @@ def _wave_records(
     (AND over the pairs from ``True``, OR from ``False``; padded slots are
     the identity) ANDed with the valid rows.
     """
-    dev = store.device
-    dims_u, meas_u, valid_u = store.fetch_device(union)
+    dims_u, meas_u, valid_u = slabs
+    dev = dims_u.device
     r = dims_u.shape[1]
     sizes = np.asarray([b.size for b in blocks])
     pos = np.concatenate([np.searchsorted(union, b) for b in blocks])
@@ -376,34 +418,47 @@ def _execute_wave(
     wave_blocks: list[np.ndarray],
     touched: list[int],
     touched_set: set[int],
-) -> tuple[bool, int, int]:
-    """Fetch one round's deduplicated union and apply each query's §4.1
-    post-fetch bookkeeping (records, exclusion growth, refill accounting).
-    Returns ``(progressed, blocks_requested_delta, blocks_gathered)``."""
+) -> tuple[bool, int]:
+    """Read one round's deduplicated union through the engine's block cache
+    and apply each query's §4.1 post-fetch bookkeeping (records, exclusion
+    growth, refill accounting).  Shared by the device and host-mirror loops,
+    so they differ only in where plans are computed.  Returns
+    ``(progressed, blocks_requested_delta)``."""
+    cache = engine.block_cache
     union = np.unique(np.concatenate(wave_blocks)) if wave_blocks else np.asarray([], np.int64)
-    for b in union:
-        if int(b) not in touched_set:
-            touched_set.add(int(b))
-            touched.append(int(b))
+    if union.size:
+        for b in union:
+            if int(b) not in touched_set:
+                touched_set.add(int(b))
+                touched.append(int(b))
+        cache.ensure(engine.store, union)
     members = [(st, b) for st, b in zip(active, wave_blocks) if b.size]
     if not members:
-        return False, 0, 0
-    recs = _wave_records(engine.store, union, [m[0] for m in members],
-                         [m[1] for m in members])
+        return False, 0
+    blocks = [b for _, b in members]
+    slabs = cache.get_wave(union, blocks)
+    if slabs is not None:
+        recs = _wave_records(slabs, union, [st for st, _ in members], blocks)
+    else:  # the budget cannot hold the union: the reference's per-query reads
+        recs = [
+            engine._records(st.query.predicates, st.query.op, b,
+                            cache.get_many(engine.store, b))
+            for st, b in members
+        ]
     requested = 0
-    for (st, blocks), (rb, rr, rm) in zip(members, recs):
+    for (st, b), (rb, rr, rm) in zip(members, recs):
         st.rec_blocks.append(rb)
         st.rec_rows.append(rr)
         st.meas.append(rm)
-        st.planned.append(blocks)
-        requested += int(blocks.size)
+        st.planned.append(b)
+        requested += int(b.size)
         st.got += int(rb.size)
-        st.exclude = np.concatenate([st.exclude, blocks])
+        st.exclude = np.concatenate([st.exclude, b])
         st.need = st.query.k - st.got
         st.rounds += 1
         if st.got >= st.query.k:
             st.done = True
-    return True, requested, int(union.size)
+    return True, requested
 
 
 def _device_plan_loop(
@@ -414,26 +469,23 @@ def _device_plan_loop(
     touched_set: set[int],
     active_counts: list[int],
     round_seconds: list[float],
-) -> tuple[int, int, int, int]:
+) -> tuple[int, int, int]:
     """The device-resident refill loop: one :class:`DeviceWave` slot per
     query, each leaving the round it is satisfied.  Returns ``(waves,
-    blocks_requested_total, device_transfers, blocks_gathered)``."""
+    blocks_requested_total, device_transfers)``."""
     wave = DeviceWave(engine, len(states), default_algo=algo)
     for i, st in enumerate(states):
         if not st.done:
             wave.join(i, st)
-    requested_total = gathered = waves = 0
+    requested_total = waves = 0
     while waves < engine.max_refills:
         t0 = time.perf_counter()
         active, wave_blocks = wave.plan_round()
         if not active:
             break
-        progressed, req, n_gathered = _execute_wave(
-            engine, active, wave_blocks, touched, touched_set
-        )
+        progressed, req = _execute_wave(engine, active, wave_blocks, touched, touched_set)
         round_seconds.append(time.perf_counter() - t0)
         requested_total += req
-        gathered += n_gathered
         for s in wave.busy_slots():
             if wave.slots[s].done:
                 wave.leave(s)
@@ -441,7 +493,180 @@ def _device_plan_loop(
             break
         waves += 1
         active_counts.append(len(active))
-    return waves, requested_total, wave.transfers, gathered
+    return waves, requested_total, wave.transfers
+
+
+# --------------------------------------------------------------------------
+# The host-mirror loop: the reference's default path and byte-identity oracle.
+# --------------------------------------------------------------------------
+
+def _combined_matrix(engine: "NeedleTailEngine", states: list[_QueryState]) -> torch.Tensor:
+    """``[Qa, λ]`` combined densities on the engine's device, exclusions
+    applied: one ``density_combine_batch`` launch per ⊕ group."""
+    lam = engine.store.num_blocks
+    dens = engine.store.index.densities
+    out = torch.empty((len(states), lam), dtype=torch.float32, device=engine.device)
+    groups: dict[str, list[int]] = {}
+    for i, st in enumerate(states):
+        groups.setdefault(st.query.op, []).append(i)
+    vocab = engine.store.index.vocab
+    for op, idxs in groups.items():
+        rm = pack_row_matrix(vocab, [states[i].query.predicates for i in idxs])
+        out[torch.as_tensor(idxs, device=engine.device)] = combine_densities_batch(dens, rm, op)
+    excl = np.zeros((len(states), lam), dtype=bool)
+    for i, st in enumerate(states):
+        if st.exclude.size:
+            excl[i, st.exclude] = True
+    if excl.any():
+        out = torch.where(torch.from_numpy(excl).to(engine.device), 0.0, out)
+    return out
+
+
+def _plan_wave(
+    engine: "NeedleTailEngine", states: list[_QueryState], algo: str
+) -> list[np.ndarray]:
+    """One round's plans for ``states`` (all under ``algo``), each
+    bit-identical to ``engine.plan`` run per query.
+
+    THRESHOLD plans for any k over one combined row are prefixes of one
+    density-sorted order, so the device sorts and scans each *unique* row of
+    the round once (unless the plan-order memo holds it) and each query cuts
+    its own prefix on the host; TWO-PRONG dedups on (row, need) pairs.
+    """
+    combined_dev = _combined_matrix(engine, states)
+    combined = combined_dev.cpu().numpy()  # the host mirror: row bytes key the memo
+    rpb = engine.store.records_per_block
+    needs = np.asarray([float(st.need) for st in states], dtype=np.float32)
+    qa = len(states)
+    row_key = [c.tobytes() for c in combined]
+    row_of: dict[bytes, int] = {}
+    uniq_rows: list[int] = []
+    for i, key in enumerate(row_key):
+        if key not in row_of:
+            row_of[key] = len(uniq_rows)
+            uniq_rows.append(i)
+    u_idx = np.asarray([row_of[key] for key in row_key])
+    plan_cache = engine.plan_cache
+
+    def rows_on_device(idx: list[int]) -> torch.Tensor:
+        return combined_dev[torch.as_tensor(idx, device=engine.device)]
+
+    def threshold_plans() -> list[np.ndarray]:
+        entries: list = [None] * len(uniq_rows)
+        miss: list[int] = []  # positions in uniq_rows needing a fresh sort
+        for j, i in enumerate(uniq_rows):
+            hit = plan_cache.get_threshold(row_key[i])
+            if hit is not None:
+                entries[j] = hit
+            else:
+                miss.append(j)
+        if miss:
+            si, sd, cum = threshold_sort_batch(rows_on_device([uniq_rows[j] for j in miss]))
+            si, sd, cum = si.cpu().numpy(), sd.cpu().numpy(), cum.cpu().numpy()
+            for off, j in enumerate(miss):
+                entries[j] = (si[off], sd[off], cum[off])
+                plan_cache.put_threshold(row_key[uniq_rows[j]], *entries[j])
+        plans = []
+        for i in range(qa):
+            si_u, sd_u, cum_u = entries[u_idx[i]]
+            n = threshold_cut(sd_u, cum_u, needs[i], rpb)
+            plans.append(si_u[:n].astype(np.int64))
+        return plans
+
+    def two_prong_plans() -> list[np.ndarray]:
+        win: dict[tuple[int, float], tuple[int, int]] = {}
+        miss: list[int] = []  # one representative query per missed (row, need)
+        pending: set[tuple[int, float]] = set()
+        for i in range(qa):
+            key = (int(u_idx[i]), float(needs[i]))
+            if key in win or key in pending:
+                continue
+            hit = plan_cache.get_two_prong(row_key[i], float(needs[i]))
+            if hit is not None:
+                win[key] = hit
+            else:
+                miss.append(i)
+                pending.add(key)
+        if miss:
+            r = two_prong_select_batch(
+                rows_on_device(miss), torch.from_numpy(needs[miss]).to(engine.device), rpb)
+            starts, ends = r.start.cpu().numpy(), r.end.cpu().numpy()
+            for off, i in enumerate(miss):
+                w = (int(starts[off]), int(ends[off]))
+                win[(int(u_idx[i]), float(needs[i]))] = w
+                plan_cache.put_two_prong(row_key[i], float(needs[i]), *w)
+        return [np.arange(*win[(int(u_idx[i]), float(needs[i]))], dtype=np.int64)
+                for i in range(qa)]
+
+    if algo == "threshold":
+        plans = threshold_plans()
+    elif algo == "two_prong":
+        plans = two_prong_plans()
+    else:  # auto — §7.2: plan with both, cost both, take the cheaper, per query
+        plans = []
+        for st, bt, b2 in zip(states, threshold_plans(), two_prong_plans()):
+            if engine.plan_cost(bt) <= engine.plan_cost(b2):
+                plans.append(bt)
+                st.used_algo = "threshold"
+            else:
+                plans.append(b2)
+                st.used_algo = "two_prong"
+        return plans
+    for st in states:
+        st.used_algo = algo
+    return plans
+
+
+def plan_round_host(
+    engine: "NeedleTailEngine", active: list[_QueryState], algo: str
+) -> list[np.ndarray]:
+    """Plan ONE refill round for ``active`` (not-done) states on host
+    mirrors: one :func:`_plan_wave` per algorithm group, then each plan
+    diffed against the state's exclusions (``setdiff1d``: ascending fetch
+    order).  A state whose diff comes up empty is marked done.  Returns the
+    per-state block sets, aligned with ``active``."""
+    by_algo: dict[str, list[_QueryState]] = {}
+    for st in active:
+        by_algo.setdefault(st.query.algo or algo, []).append(st)
+    plan_of: dict[int, np.ndarray] = {}
+    for a, group in by_algo.items():
+        for st, plan in zip(group, _plan_wave(engine, group, a)):
+            plan_of[id(st)] = plan
+    wave_blocks: list[np.ndarray] = []
+    for st in active:
+        blocks = np.setdiff1d(plan_of[id(st)], st.exclude)
+        if blocks.size == 0:
+            st.done = True  # plan exhausted: nothing new to read
+        wave_blocks.append(blocks)
+    return wave_blocks
+
+
+def _host_plan_loop(
+    engine: "NeedleTailEngine",
+    states: list[_QueryState],
+    algo: str,
+    touched: list[int],
+    touched_set: set[int],
+    active_counts: list[int],
+    round_seconds: list[float],
+) -> tuple[int, int]:
+    """The host-mirror refill loop: :func:`plan_round_host`, then one shared
+    union read per round.  Returns ``(waves, blocks_requested_total)``."""
+    requested_total = waves = 0
+    while waves < engine.max_refills:
+        active = [st for st in states if not st.done]
+        if not active:
+            break
+        t0 = time.perf_counter()
+        wave_blocks = plan_round_host(engine, active, algo)
+        progressed, req = _execute_wave(engine, active, wave_blocks, touched, touched_set)
+        round_seconds.append(time.perf_counter() - t0)
+        requested_total += req
+        if not progressed:
+            break
+        waves += 1
+        active_counts.append(len(active))
+    return waves, requested_total
 
 
 def finalize_query_result(
@@ -475,30 +700,39 @@ def run_batch(
     algo: str = "auto",
     plan_on_host: bool = False,
 ) -> BatchQueryResult:
-    """Evaluate Q any-k queries as one device wave.
+    """Evaluate Q any-k queries as one wave: the device-resident loop, or
+    with ``plan_on_host=True`` the host-mirror loop.
 
-    Each query's records are byte-identical to the reference's
-    ``run_batch`` on the same data: same blocks planned, same refill
-    rounds, same record order.  ``plan_on_host=True`` (the reference's
-    host-mirror loop) arrives with a later slice of the port.
+    Each query's records are byte-identical to ``engine.any_k(q.predicates,
+    q.k, q.op, q.algo or algo)`` and to the reference's ``run_batch`` on the
+    same data: same blocks planned, same refill rounds, same record order.
+    Reads go through the engine-lifetime block cache; the batch's
+    ``store_blocks_fetched``, ``cache_hits`` and ``modeled_store_io_s`` are
+    its counters' deltas.
     """
-    if plan_on_host:
-        raise NotImplementedError(
-            "the host-mirror loop (plan_on_host=True) with its block LRU and "
-            "plan-order memo arrives with a later slice of the port (ROADMAP Queue 1)"
-        )
-    _check_algo(algo)
+    check_algo(algo)
     t0 = time.perf_counter()
     states = [new_query_state(q) for q in queries]
+    cache = engine.block_cache
+    hits0, store0 = cache.stats.hits, cache.stats.store_blocks_fetched
     touched: list[int] = []  # unique block ids, first-touch order
     touched_set: set[int] = set()
+    missed: list[np.ndarray] = []  # id arrays read from the store
     active_counts: list[int] = []
     round_seconds: list[float] = []
-    waves = requested_total = device_transfers = gathered = 0
-    if engine.store.num_blocks > 0 and any(not st.done for st in states):
-        waves, requested_total, device_transfers, gathered = _device_plan_loop(
-            engine, states, algo, touched, touched_set, active_counts, round_seconds
-        )
+    waves = requested_total = device_transfers = 0
+    prev_log, cache.fetch_log = cache.fetch_log, missed
+    try:
+        if engine.store.num_blocks == 0 or all(st.done for st in states):
+            pass  # a λ=0 store or an all-satisfied wave: nothing to plan or read
+        elif plan_on_host:
+            waves, requested_total = _host_plan_loop(
+                engine, states, algo, touched, touched_set, active_counts, round_seconds)
+        else:
+            waves, requested_total, device_transfers = _device_plan_loop(
+                engine, states, algo, touched, touched_set, active_counts, round_seconds)
+    finally:
+        cache.fetch_log = prev_log
     cpu = time.perf_counter() - t0
     touched_ids = np.asarray(touched, dtype=np.int64)
     return BatchQueryResult(
@@ -509,7 +743,9 @@ def run_batch(
         rounds=waves,
         cpu_time_s=cpu,
         modeled_io_s=engine.cost.io_time(touched_ids),
-        store_blocks_fetched=gathered,
+        store_blocks_fetched=int(cache.stats.store_blocks_fetched - store0),
+        modeled_store_io_s=sum(engine.cost.io_time(m) for m in missed),
+        cache_hits=int(cache.stats.hits - hits0),
         device_transfers=device_transfers,
         active_per_round=active_counts,
         round_seconds=round_seconds,

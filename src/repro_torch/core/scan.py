@@ -42,6 +42,8 @@ def cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive f32 prefix sum of the last axis, bit-identical to
     ``jnp.cumsum`` on JAX's CPU backend."""
     n = x.shape[-1]
+    if n == 0:
+        return torch.empty_like(x)
     if n <= SCAN_BASE:
         return _sequential_inclusive(x)
     m = -(-n // SCAN_BASE)

@@ -1,25 +1,34 @@
 """THRESHOLD — density-optimal any-k block selection (paper §4.1, Algorithm 1).
 
-Counterpart of ``repro/core/threshold.py`` for the device wave:
+Counterpart of ``repro/core/threshold.py``:
 
-* :func:`threshold_sort_batch` — the k-independent core of the sort + cut
-  form, batched over a ``[Q, λ]`` matrix: stable sort of ``-x`` ascending
-  (ties by lower block id, as ``jnp.argsort(-x, stable=True)``), the sorted
-  densities and their f32 prefix sums (:func:`repro_torch.core.scan.cumsum`,
-  in the reference's order).
+* :func:`threshold_select` — the sort + prefix-cut form for one ``[λ]`` row
+  (the single-query planner): a fixed-shape id vector, -1 past
+  ``num_selected``; :func:`threshold_refill` re-plans over the blocks not yet
+  fetched.
+* :func:`threshold_sort_batch` — the k-independent core of that form,
+  batched over a ``[Q, λ]`` matrix: stable sort of ``-x`` ascending (ties by
+  lower block id, as ``jnp.argsort(-x, stable=True)``), the sorted densities
+  and their f32 prefix sums.
 * :func:`threshold_cut` — the host-side prefix cut over one sorted row.
+
+Prefix sums go through :func:`repro_torch.kernels.window_scan.prefix_sum`
+(the scan kernel on CUDA, :func:`repro_torch.core.scan.cumsum` on the CPU),
+in the reference's order, so every row and cut is bit-identical to the
+reference's on the CPU.
 * :func:`threshold_faithful` — Algorithm 1 line for line (numpy), copied
   from the reference as the tests' oracle.
 """
 from __future__ import annotations
 
 import heapq
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.density_map import AND
-from repro_torch.core.scan import cumsum
+from repro_torch.kernels.window_scan import prefix_sum
 
 
 def _combine(vals: np.ndarray, op: str) -> float:
@@ -66,10 +75,16 @@ def threshold_faithful(
     return R
 
 
+class ThresholdResult(NamedTuple):
+    block_ids: torch.Tensor  # [λ] int32, density-desc order; -1 past num_selected
+    num_selected: torch.Tensor  # [] int32
+    expected_records: torch.Tensor  # [] f32 expected valid records in selection
+
+
 def threshold_sort_batch(
-    combined: torch.Tensor,  # [Q, λ] f32
+    combined: torch.Tensor,  # [Q, λ] (or [λ]) f32
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(sort_idx [Q, λ] int32, sorted_d [Q, λ] f32, cum [Q, λ] f32)``, each
+    """``(sort_idx int32, sorted_d f32, cum f32)`` along the last axis, each
     row bit-identical to the reference's ``_threshold_sort`` on the CPU.
 
     ``-x`` is sorted ascending with ``stable=True`` rather than ``x`` with
@@ -79,7 +94,41 @@ def threshold_sort_batch(
     """
     sort_idx = torch.sort(-combined, dim=-1, stable=True).indices
     sorted_d = torch.gather(combined, -1, sort_idx)
-    return sort_idx.to(torch.int32), sorted_d, cumsum(sorted_d)
+    return sort_idx.to(torch.int32), sorted_d, prefix_sum(sorted_d)
+
+
+def threshold_select(
+    combined: torch.Tensor, k: float, records_per_block: int
+) -> ThresholdResult:
+    """THRESHOLD for one ``[λ]`` row: sort by density descending, then the
+    minimal prefix holding ≥ k expected records (every nonzero block if none
+    does), bit-identical to the reference's ``threshold_select`` on the CPU.
+    The data stays on ``combined``'s device."""
+    lam = combined.shape[0]
+    dev = combined.device
+    if lam == 0:
+        z = torch.zeros((), dtype=torch.int32, device=dev)
+        return ThresholdResult(combined.to(torch.int32), z, torch.zeros((), device=dev))
+    sort_idx, sorted_d, cum = threshold_sort_batch(combined)
+    cum_records = cum * torch.tensor(float(records_per_block), dtype=torch.float32, device=dev)
+    reached = cum_records >= torch.tensor(float(k), dtype=torch.float32, device=dev)
+    pos = torch.arange(lam, device=dev)
+    first_hit = torch.where(reached, pos, lam).min()
+    n_sel = torch.where(reached.any(), first_hit + 1, (sorted_d > 0.0).sum()).to(torch.int32)
+    ids = torch.where(pos < n_sel, sort_idx, -1)
+    exp = torch.where(n_sel > 0, cum_records[(n_sel.long() - 1).clamp(min=0)], 0.0)
+    return ThresholdResult(block_ids=ids, num_selected=n_sel, expected_records=exp)
+
+
+def threshold_refill(
+    combined: torch.Tensor,  # [λ] f32
+    excluded: torch.Tensor,  # [λ] bool, blocks already fetched
+    k: float,
+    records_per_block: int,
+) -> ThresholdResult:
+    """Re-execution step (paper §4.1): THRESHOLD over the blocks not yet
+    looked up."""
+    return threshold_select(torch.where(excluded, 0.0, combined), k, records_per_block)
 
 
 def threshold_cut(

@@ -5,9 +5,12 @@ planner; here the batch dimension is written out:
 
 * :func:`two_prong_select_batch` — prefix sums, then for every start block
   the smallest end with ``c[e] >= c[i] + k`` by binary search, then the
-  shortest window (ties to the smallest start).  The scan and the search run
-  in the reference's order (:mod:`repro_torch.core.scan`), so windows match
-  even where a long f32 prefix sum is not monotone.
+  shortest window (ties to the smallest start).  The scan
+  (:func:`repro_torch.kernels.window_scan.prefix_sum`: the scan kernel on
+  CUDA) and the search (:mod:`repro_torch.core.scan`) run in the
+  reference's order, so windows match even where a long f32 prefix sum is
+  not monotone.
+* :func:`two_prong_select` — the single-query planner, a one-row batch.
 * :func:`two_prong_faithful` — Algorithm 2 line for line in float64 (numpy),
   copied from the reference: the oracle a window is judged against at
   full size.
@@ -19,7 +22,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.scan import cumsum, searchsorted_left
+from repro_torch.core.scan import searchsorted_left
+from repro_torch.kernels.window_scan import prefix_sum
 
 _INT32_MAX = 2**31 - 1
 
@@ -67,7 +71,7 @@ def two_prong_select_batch(
         z = torch.zeros((nq,), dtype=torch.int64, device=dev)
         return TwoProngResult(z, z, torch.zeros((nq,), dtype=torch.float32, device=dev))
     m = combined * records_per_block
-    c = torch.nn.functional.pad(cumsum(m), (1, 0))  # [Q, λ+1], c[:, 0] = 0
+    c = torch.nn.functional.pad(prefix_sum(m), (1, 0))  # [Q, λ+1], c[:, 0] = 0
     targets = c[:, :-1] + k.to(torch.float32)[:, None]
     ends = searchsorted_left(c, targets)  # [Q, λ]
     starts = torch.arange(lam, dtype=torch.int64, device=dev)[None, :]

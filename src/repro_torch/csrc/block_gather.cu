@@ -10,8 +10,9 @@
 // it, threads move 16 bytes each (uint4), neighbouring threads on
 // neighbouring addresses; otherwise 4 bytes, otherwise 1.  Repeated ids just
 // copy the same block twice; U = 0 launches nothing (the wrapper returns
-// early).  Ids are validated on the host before upload (BlockStore.
-// fetch_device), so the kernel does no bounds check of its own.
+// early).  Ids are validated on the host before upload (BlockStore.fetch;
+// the block cache gathers only slots of its own pool), so the kernel does no
+// bounds check of its own.
 //
 // Bound on an H100 (3.35 TB/s): U·R·d·size bytes read plus the same written,
 // plus 4·U bytes of ids — a pure copy, bound by bytes.  At the path's block

@@ -1,8 +1,10 @@
-// Batched ⊕-combine of predicate density rows (paper §3.2), for Hopper.
+// ⊕-combine of predicate density rows (paper §3.2), for Hopper.
 //
-// Replaces the Pallas kernel density_combine_batch
+// Replaces two Pallas kernels: density_combine_batch
 // (src/repro/kernels/density_combine.py:142, grid (Q, λ-tiles, γ) with the
-// γ axis carried in the output tile across sequential grid steps).
+// γ axis carried in the output tile across sequential grid steps) and the
+// single-query density_combine (density_combine.py:75, grid (λ-tiles, γ)),
+// which nt_density_combine runs as a Q = 1 launch of the same kernel.
 //
 // out[q, b] = ⊕_{j < γ, rows[q, j] >= 0} dens[rows[q, j], b]
 //   AND: product, starting from 1.0
@@ -23,7 +25,10 @@
 // γ·Q·λ flops are far below the f32 rate, so the kernel is bound by bytes.
 // Threads of a warp read neighbouring b of one row, so every load and store
 // is coalesced; rows shared by several queries are re-read from L2, not HBM
-// (91 rows × λ=12,208 × 4 B = 4.4 MB fits the 50 MB L2).
+// (91 rows × λ=12,208 × 4 B = 4.4 MB fits the 50 MB L2).  For one query
+// (γ rows, no padding) the bound is (γ+1)·λ·4 bytes, the TPU kernel's own;
+// the fold is np.prod / np.clip(np.sum) along axis 0, left to right, so it
+// is bit-identical to the reference's combine_densities_np as well.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,4 +64,11 @@ extern "C" int nt_density_combine_batch(
   density_combine_batch_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       dens, lam, rows, gamma, op_or, out);
   return (int)cudaGetLastError();
+}
+
+// one query: rows [γ] int32 in [0, rows) -> out [λ]
+extern "C" int nt_density_combine(const float* dens, int64_t lam,
+                                  const int32_t* rows, int64_t gamma, int op_or,
+                                  float* out, void* stream) {
+  return nt_density_combine_batch(dens, lam, rows, 1, gamma, op_or, out, stream);
 }

@@ -4,12 +4,16 @@ Counterpart of ``repro/data/block_store.py``.  A :class:`Table` is the logical
 table (dimension attributes + measures, numpy).  A :class:`BlockStore` is its
 physical layout on one device: fixed-size blocks of ``records_per_block``
 rows held as ``[λ, R, ·]`` tensors, with the DensityMap index beside them.
-The any-k wave reads blocks through :meth:`BlockStore.fetch_device`, one
-:func:`repro_torch.kernels.plan_wave.block_gather` launch per tensor.
+Every read goes through :meth:`BlockStore.fetch`, one
+:func:`repro_torch.kernels.plan_wave.block_gather` launch per tensor, usually
+behind the engine's :class:`repro_torch.core.block_cache.BlockLRUCache`.
+A store tells registered listeners which blocks were rewritten
+(:meth:`BlockStore.notify_invalidated`), so a cache can evict just those.
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Sequence
 
 import numpy as np
@@ -45,6 +49,10 @@ class BlockStore:
     records_per_block: int
     num_records: int
 
+    def __post_init__(self):
+        # callbacks fired with the dirtied block ids when blocks are rewritten
+        self._invalidation_listeners: list = []
+
     @property
     def num_blocks(self) -> int:
         return int(self.dims.shape[0])
@@ -64,14 +72,49 @@ class BlockStore:
             index=self.index.to(dev),
         )
 
-    def fetch_device(
+    # ------------------------------------------------- cache invalidation
+    def register_invalidation_listener(self, callback) -> None:
+        """Register ``callback(block_ids)`` to run when blocks are rewritten.
+
+        Bound methods are held weakly: a store outlives throwaway engines,
+        and a strong reference here would pin every dead engine's block
+        cache (on the card, up to the store's own size in device memory).
+        """
+        if any(ref() == callback for ref in self._invalidation_listeners):
+            return
+        if hasattr(callback, "__self__"):
+            ref = weakref.WeakMethod(callback)
+        else:  # a plain function or lambda: kept strongly (it pins nothing big)
+            ref = lambda cb=callback: cb  # noqa: E731
+        self._invalidation_listeners.append(ref)
+
+    def unregister_invalidation_listener(self, callback) -> None:
+        self._invalidation_listeners = [
+            ref for ref in self._invalidation_listeners
+            if ref() is not None and ref() != callback
+        ]
+
+    def notify_invalidated(self, block_ids) -> None:
+        """Call every live listener with ``block_ids`` (int64); dead weak
+        references are dropped."""
+        alive = []
+        for ref in self._invalidation_listeners:
+            cb = ref()
+            if cb is not None:
+                cb(np.asarray(block_ids, dtype=np.int64))
+                alive.append(ref)
+        self._invalidation_listeners = alive
+
+    # ------------------------------------------------------------- reads
+    def fetch(
         self, block_ids
     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Gather a wave's deduplicated union from the store's slabs:
-        ``(dims [U, R, r], measures [U, R, s], valid [U, R] bool)`` on the
-        store's device, one ``block_gather`` launch each (valid rows travel
-        as int8, a zero-copy view of the bool slab).  Values are
-        byte-identical to ``slab[block_ids]``.
+        """Gather blocks from the store's slabs: ``(dims [B, R, r],
+        measures [B, R, s], valid [B, R] bool)`` on the store's device, one
+        ``block_gather`` launch each (valid rows travel as int8, a zero-copy
+        view of the bool slab).  Values are byte-identical to
+        ``slab[block_ids]``; the reference returns host arrays, the port
+        keeps the slabs on the card.
 
         ``block_ids`` is host data (a list or numpy array); the ids are
         range-checked here, before they reach the card.

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("density_combine.cu", "theta_stats.cu", "block_gather.cu")
+SOURCES = ("density_combine.cu", "theta_stats.cu", "block_gather.cu", "window_scan.cu")
 # -fmad=false: no multiply-add contraction, so f32 results keep the plain
 # versions' rounding; no fast-math flag for the same reason.
 NVCC_FLAGS = (
@@ -35,7 +35,8 @@ NVCC_FLAGS = (
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {
-    "density_combine_batch": 0, "theta_stats_batch": 0, "block_gather": 0,
+    "density_combine": 0, "density_combine_batch": 0, "theta_stats": 0,
+    "theta_stats_batch": 0, "prefix_sum": 0, "block_gather": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -45,12 +46,18 @@ build_seconds = 0.0
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
+    # (dens, lam, rows, gamma, op_or, out, stream)
+    "nt_density_combine": (_P, _I64, _P, _I64, ctypes.c_int, _P, _P),
     # (dens, lam, rows, nq, gamma, op_or, out, stream)
     "nt_density_combine_batch": (_P, _I64, _P, _I64, _I64, ctypes.c_int, _P, _P),
+    # (x, lam, thetas, T, pcnt, psum, counts, recsum, stream)
+    "nt_theta_stats": (_P, _I64, _P, _I64, _P, _P, _P, _P, _P),
     # (x, nq, lam, thetas, T, counts, recsum, stream)
     "nt_theta_stats_batch": (_P, _I64, _I64, _P, _I64, _P, _P, _P),
     # (slab, ids, u, nbytes, out, stream)
     "nt_block_gather": (_P, _P, _I64, _I64, _P, _P),
+    # (x, rows, n, out, scratch, scratch_stride, stream)
+    "nt_prefix_sum": (_P, _I64, _I64, _P, _P, _I64, _P),
 }
 
 
@@ -123,6 +130,8 @@ def load() -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
+    lib.nt_theta_stats_tiles.argtypes = [_I64]
+    lib.nt_theta_stats_tiles.restype = _I64
     _lib = lib
     return lib
 

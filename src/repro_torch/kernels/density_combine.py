@@ -1,13 +1,16 @@
-"""Batched ⊕-combine of predicate density rows (paper §3.2).
+"""⊕-combine of predicate density rows (paper §3.2).
 
 Counterpart of ``repro/kernels/density_combine.py``: a ``[Q, γ_max]`` row
 matrix (padded with -1) selects γ rows of the ``[rows, λ]`` density tensor per
 query and folds them into ``[Q, λ]``: AND is the product, OR the sum clipped
 to 1 after the last row, and padded slots contribute the ⊕-identity.
+:func:`density_combine` is the single-query form, ``[γ]`` row ids → ``[λ]``.
 
-On CUDA the fold is the kernel in ``csrc/density_combine.cu``; on the CPU it
-is :func:`density_combine_batch_plain`.  Both fold γ left to right in f32,
-like the reference's ``_combine_local``, so all three agree bit for bit.
+On CUDA the fold is the kernel in ``csrc/density_combine.cu`` (the single
+query a Q = 1 launch of it, counted under its own name); on the CPU it is
+:func:`density_combine_batch_plain` / :func:`density_combine_plain`.  Both
+fold γ left to right in f32, like the reference's ``_combine_local`` and
+``combine_densities_np``, so all agree bit for bit.
 """
 from __future__ import annotations
 
@@ -35,6 +38,50 @@ def density_combine_batch_plain(
     return acc
 
 
+def density_combine_plain(
+    densities: torch.Tensor, row_ids: torch.Tensor, op: str = "and"
+) -> torch.Tensor:
+    """Plain PyTorch single-query fold; any device."""
+    return density_combine_batch_plain(densities, row_ids[None, :], op)[0]
+
+
+def _check(densities: torch.Tensor, rows: torch.Tensor, op: str, rows_dim: int) -> None:
+    if op not in ("and", "or"):
+        raise ValueError(f"unknown op {op!r}")
+    if densities.dtype != torch.float32 or densities.dim() != 2:
+        raise ValueError("densities must be a [rows, λ] float32 tensor")
+    if rows.dtype != torch.int32 or rows.dim() != rows_dim:
+        shape = "[γ]" if rows_dim == 1 else "[Q, γ_max]"
+        raise ValueError(f"row ids must be a {shape} int32 tensor")
+
+
+def density_combine(
+    densities: torch.Tensor,  # [rows, λ] f32
+    row_ids: torch.Tensor,  # [γ] int32, each in [0, rows)
+    op: str = "and",
+) -> torch.Tensor:
+    """``[λ]`` ⊕-combined density of one query, bit-identical to the
+    reference's ``combine_densities_np``.  Row ids must lie in ``[0, rows)``:
+    :func:`repro_torch.core.density_map.combine_densities` checks them on the
+    host before they reach the card."""
+    _check(densities, row_ids, op, 1)
+    if densities.device.type == "cpu" and row_ids.device.type == "cpu":
+        return density_combine_plain(densities, row_ids, op)
+    _lib.require_cuda("density_combine", densities, row_ids)
+    lam = densities.shape[1]
+    out = torch.empty((lam,), dtype=torch.float32, device=densities.device)
+    if lam == 0:
+        return out
+    lib = _lib.load()
+    with torch.cuda.device(densities.device):
+        rc = lib.nt_density_combine(
+            densities.data_ptr(), lam, row_ids.data_ptr(), row_ids.shape[0],
+            int(op == "or"), out.data_ptr(), _lib.stream_of(densities),
+        )
+    _lib.launched("density_combine", rc)
+    return out
+
+
 def density_combine_batch(
     densities: torch.Tensor,  # [rows, λ] f32
     row_matrix: torch.Tensor,  # [Q, γ_max] int32, padded with -1
@@ -42,15 +89,11 @@ def density_combine_batch(
 ) -> torch.Tensor:
     """``[Q, λ]`` ⊕-combined densities.
 
-    Row ids must lie in ``[-1, rows)``; :func:`repro_torch.kernels.plan_wave.
-    combine_wave` checks them on the host before they reach the card.
+    Row ids must lie in ``[-1, rows)``; :func:`repro_torch.core.density_map.
+    combine_densities_batch` checks them on the host before they reach the
+    card.
     """
-    if op not in ("and", "or"):
-        raise ValueError(f"unknown op {op!r}")
-    if densities.dtype != torch.float32 or densities.dim() != 2:
-        raise ValueError("densities must be a [rows, λ] float32 tensor")
-    if row_matrix.dtype != torch.int32 or row_matrix.dim() != 2:
-        raise ValueError("row_matrix must be a [Q, γ_max] int32 tensor")
+    _check(densities, row_matrix, op, 2)
     if densities.device.type == "cpu" and row_matrix.device.type == "cpu":
         return density_combine_batch_plain(densities, row_matrix, op)
     _lib.require_cuda("density_combine_batch", densities, row_matrix)

@@ -4,7 +4,8 @@ Counterpart of ``repro/kernels/plan_wave.py``.  :func:`plan_wave` turns a
 wave's ``[Q, λ]`` densities, exclusion masks and record needs into each
 query's THRESHOLD prefix and TWO-PRONG window on the device:
 
-1. **combine** — :func:`combine_wave`, the
+1. **combine** — :func:`repro_torch.core.density_map.combine_densities_batch`
+   (host-checked row ids), the
    :func:`repro_torch.kernels.density_combine.density_combine_batch` kernel.
 2. **sort + cut** — :func:`repro_torch.core.threshold.threshold_sort_batch`
    over the exclusion-masked rows and the prefix cut :func:`_cut_batch`,
@@ -36,10 +37,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.density_map import combine_densities_batch
 from repro_torch.core.threshold import threshold_sort_batch
 from repro_torch.core.two_prong import two_prong_select_batch
 from repro_torch.kernels import _lib
-from repro_torch.kernels.density_combine import density_combine_batch
 from repro_torch.kernels.theta_stats import theta_stats_batch
 
 THETA_FANOUT = 8  # θ-stats candidate count
@@ -56,22 +57,6 @@ class PlanWaveResult(NamedTuple):
     expected_records: torch.Tensor  # [Q] f32 record mass clearing θ_q (§4.1 τ)
     tp_start: torch.Tensor  # [Q] i32 TWO-PRONG window start (inclusive)
     tp_end: torch.Tensor  # [Q] i32 TWO-PRONG window end (exclusive)
-
-
-def combine_wave(
-    densities: torch.Tensor,  # [rows, λ] f32, on the wave's device
-    row_matrix: np.ndarray,  # [Q, γ_max] int32 host row matrix, padded with -1
-    op: str = "and",
-) -> torch.Tensor:
-    """``[Q, λ]`` ⊕-combined wave matrix, bit-identical per row to the
-    reference's ``combine_wave``.  The row ids are range-checked on the host,
-    then uploaded."""
-    rm = np.asarray(row_matrix, dtype=np.int32)
-    if rm.size and (rm.min() < -1 or rm.max() >= densities.shape[0]):
-        raise IndexError(f"row ids out of range [-1, {densities.shape[0]})")
-    return density_combine_batch(
-        densities, torch.from_numpy(rm).to(densities.device), op
-    )
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -152,7 +137,7 @@ def plan_wave(
     op: str = "and",
 ) -> PlanWaveResult:
     """Combine, then plan: the single-shot form (round 0 of a wave)."""
-    combined0 = combine_wave(densities, row_matrix, op)
+    combined0 = combine_densities_batch(densities, row_matrix, op)
     return plan_wave_from_combined(combined0, excl, needs, records_per_block)
 
 
@@ -251,7 +236,7 @@ def block_gather(slab: torch.Tensor, block_ids: torch.Tensor) -> torch.Tensor:
     """``slab[block_ids]`` for a ``[λ, R, d]`` or ``[λ, R]`` slab of int32,
     float32 or int8 and ``[U]`` int32 ids (repeats allowed, ``U = 0`` gives
     an empty result with no launch).  Ids must lie in ``[0, λ)``:
-    :meth:`repro_torch.data.block_store.BlockStore.fetch_device` checks them
+    :meth:`repro_torch.data.block_store.BlockStore.fetch` checks them
     on the host."""
     if slab.dtype not in _GATHER_DTYPES or slab.dim() not in (2, 3):
         raise ValueError("slab must be a [λ, R(, d)] int32/float32/int8 tensor")

@@ -1,4 +1,4 @@
-"""Batched multi-threshold statistics (paper §4.1).
+"""Multi-threshold statistics (paper §4.1).
 
 Counterpart of ``repro/kernels/theta_stats.py``: for ``[Q, λ]`` combined rows
 and ``[Q, T]`` per-query thresholds,
@@ -6,8 +6,13 @@ and ``[Q, T]`` per-query thresholds,
     counts[q, t] = #{b : x[q, b] >= θ[q, t]}
     recsum[q, t] = Σ_{b : x[q, b] >= θ[q, t]} x[q, b]
 
-On CUDA this is the kernel in ``csrc/theta_stats.cu`` (one block per query,
-fixed-order reduction); on the CPU it is :func:`theta_stats_batch_plain`.
+and :func:`theta_stats`, the same for one ``[λ]`` row and ``[T]``
+thresholds (the statistics of the θ-bisection ``ops.threshold_bisect``).
+
+On CUDA these are the kernels in ``csrc/theta_stats.cu`` (batched: one block
+per query; single row: λ split over blocks, partials added in a second pass;
+fixed-order reductions, no atomics); on the CPU they are
+:func:`theta_stats_batch_plain` and :func:`theta_stats_plain`.
 ``counts`` agree exactly.  ``recsum`` adds the same f32 terms in another order
 than the reference, so it agrees to rounding only: the tests hold it with
 ``rtol=1e-5``.
@@ -61,4 +66,42 @@ def theta_stats_batch(
             counts.data_ptr(), recsum.data_ptr(), _lib.stream_of(combined),
         )
     _lib.launched("theta_stats_batch", rc)
+    return counts, recsum
+
+
+def theta_stats_plain(
+    combined: torch.Tensor, thetas: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch single-row version; any device."""
+    counts, recsum = theta_stats_batch_plain(combined[None, :], thetas[None, :])
+    return counts[0], recsum[0]
+
+
+def theta_stats(
+    combined: torch.Tensor,  # [λ] f32
+    thetas: torch.Tensor,  # [T] f32, any T >= 1
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(counts [T], recsum [T])``, both float32, of one row."""
+    if combined.dtype != torch.float32 or combined.dim() != 1:
+        raise ValueError("combined must be a [λ] float32 tensor")
+    if thetas.dtype != torch.float32 or thetas.dim() != 1 or thetas.shape[0] < 1:
+        raise ValueError("thetas must be a [T] float32 tensor with T >= 1")
+    if combined.device.type == "cpu" and thetas.device.type == "cpu":
+        return theta_stats_plain(combined, thetas)
+    _lib.require_cuda("theta_stats", combined, thetas)
+    lam, T = combined.shape[0], thetas.shape[0]
+    dev = combined.device
+    lib = _lib.load()
+    tiles = int(lib.nt_theta_stats_tiles(lam))
+    pcnt = torch.empty((max(tiles * T, 1),), dtype=torch.int32, device=dev)
+    psum = torch.empty((max(tiles * T, 1),), dtype=torch.float32, device=dev)
+    counts = torch.empty((T,), dtype=torch.float32, device=dev)
+    recsum = torch.empty((T,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.nt_theta_stats(
+            combined.data_ptr(), lam, thetas.data_ptr(), T, pcnt.data_ptr(),
+            psum.data_ptr(), counts.data_ptr(), recsum.data_ptr(),
+            _lib.stream_of(combined),
+        )
+    _lib.launched("theta_stats", rc)
     return counts, recsum

@@ -267,9 +267,16 @@ def test_what_this_slice_does_not_carry_raises(bad, exc):
 
 
 def test_host_mirror_loop_is_a_later_slice():
-    (_, pstore), _ = _fixture("skewed")
-    with pytest.raises(NotImplementedError, match="host-mirror"):
-        NeedleTailEngine(pstore, device="cpu").any_k_batch([BatchQuery([(0, 1)], 5)], device=False)
+    """The host-mirror loop, left by the first slice to a later one, has
+    landed: ``device=False`` runs it and returns the reference's wave."""
+    (jstore, pstore), qs = _fixture("skewed")
+    mine = NeedleTailEngine(pstore, device="cpu").any_k_batch(
+        [BatchQuery(p, k, op) for p, k, op in qs], device=False)
+    ref = JaxEngine(jstore).any_k_batch([JaxQuery(p, k, op) for p, k, op in qs])
+    for m, r in zip(mine.results, ref.results):
+        _assert_query_equal(m, r)
+    assert (mine.rounds, mine.device_transfers) == (ref.rounds, 0)
+    assert (mine.store_blocks_fetched, mine.cache_hits) == (ref.store_blocks_fetched, ref.cache_hits)
 
 
 @pytest.mark.parametrize("kind", ["hdd", "ssd"])
@@ -290,12 +297,12 @@ def test_cost_presets_price_plans_as_the_reference(kind):
 def test_predicate_mask_matches_reference(preds, op):
     (jstore, pstore), _ = _fixture("clustered")
     ids = np.asarray([0, 5, 17, 159])
-    bd = pstore.fetch_device(ids)[0]
+    bd = pstore.fetch(ids)[0]
     mine = pstore.predicate_mask(bd, preds, op).numpy()
     ref = np.asarray(jstore.predicate_mask(np.asarray(jstore.dims)[ids], preds, op))
     np.testing.assert_array_equal(mine, ref)
     with pytest.raises(IndexError):
-        pstore.fetch_device([0, pstore.num_blocks])
+        pstore.fetch([0, pstore.num_blocks])
 
 
 def test_chip_smoke_path_checks_pass_on_a_small_cpu_store():
@@ -324,3 +331,50 @@ def test_chip_smoke_path_checks_pass_on_a_small_cpu_store():
     r0.measures = r0.measures + 1.0  # a record that no longer carries its row's measures
     with pytest.raises(AssertionError):
         cs.check_records(table, store, queries, batch, eng.max_refills)
+
+
+def test_chip_smoke_host_single_and_bisect_phases_pass_on_a_small_cpu_store():
+    """chip_smoke.py's host-mirror, single-query and bisect checks and its
+    kernel phase run here on the plain versions at a small size (CUDA-event
+    timing replaced by a call)."""
+    import importlib.util
+    import pathlib
+    from types import SimpleNamespace
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    table = synthetic.make_real_like_table("airline", num_records=300_000, seed=0)
+    store = build_block_store(table, cs.RPB, device="cpu")
+    queries = cs.make_wave(table.cards, 32, seed=0)  # queries 28 and 29 refill
+    batch = NeedleTailEngine(store, device="cpu").any_k_batch(queries)
+    host = NeedleTailEngine(store, device="cpu").any_k_batch(queries, device=False)
+    cs.compare_waves(batch, host)
+    assert (host.store_blocks_fetched, host.cache_hits) == (batch.store_blocks_fetched,
+                                                            batch.cache_hits)
+    pick = cs.pick_single(queries, batch)
+    assert len(pick) >= 8 and any(batch.results[i].plan_rounds > 1 for i in pick)
+    assert {(queries[i].algo or "auto", queries[i].op) for i in pick} >= {
+        ("threshold", "or"), ("two_prong", "and"), ("auto", "and"), ("auto", "or")}
+    eng = NeedleTailEngine(store, device="cpu")
+    singles = [eng.any_k(queries[i].predicates, queries[i].k, queries[i].op,
+                         queries[i].algo or "auto") for i in pick]
+    for i, r in zip(pick, singles):
+        cs.compare_results(r, batch.results[i], f"query {i}")
+    cs.check_records(table, store, [queries[i] for i in pick],
+                     SimpleNamespace(results=singles), eng.max_refills)
+    rows = cs.combined_rows(store, queries)
+    bis = cs.bisect_check(rows, queries, cs.RPB)
+    assert bis["equal"] == bis["bracket"] == len(queries)
+    assert bis["criterion_met"] + bis["criterion_missed"] == len(queries)
+    with pytest.raises(AssertionError, match="refilled"):
+        cs.pick_single(queries, SimpleNamespace(results=[
+            SimpleNamespace(plan_rounds=1)] * len(queries)))
+    cs.time_ms = lambda fn, flush=None: (fn(), 0.0)[1]
+    launches = {ph: {k: 1 for k in cs.KERNELS} for ph in cs.PHASE_KERNELS}
+    rows_out = cs.kernel_phase(store, queries, batch, launches, rows)
+    assert [r["name"] for r in rows_out] == list(cs.KERNELS)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert all(keys <= set(r) for r in rows_out)

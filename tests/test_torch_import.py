@@ -40,7 +40,9 @@ def test_importing_every_port_module_leaves_jax_and_repro_out():
         env={**os.environ, "PYTHONPATH": str(REPO / "src")}, timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    assert len(mods) >= 15
+    assert len(mods) >= 18
+    assert {'repro_torch.core.block_cache', 'repro_torch.kernels.ops',
+            'repro_torch.kernels.window_scan'} <= set(mods)
 
 
 @pytest.mark.parametrize(
@@ -125,9 +127,10 @@ def test_engine_on_cpu_runs_only_when_asked_and_checks_the_store_device():
 def test_wrappers_refuse_devices_they_have_no_kernel_for():
     """No fallback: a tensor on neither the CPU nor CUDA raises instead of
     silently running the plain version."""
-    from repro_torch.kernels.density_combine import density_combine_batch
+    from repro_torch.kernels.density_combine import density_combine, density_combine_batch
     from repro_torch.kernels.plan_wave import block_gather
-    from repro_torch.kernels.theta_stats import theta_stats_batch
+    from repro_torch.kernels.theta_stats import theta_stats, theta_stats_batch
+    from repro_torch.kernels.window_scan import prefix_sum
 
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -138,6 +141,13 @@ def test_wrappers_refuse_devices_they_have_no_kernel_for():
     with pytest.raises(ValueError, match="no kernel"):
         block_gather(torch.empty((4, 3, 2), dtype=torch.int32, device=meta),
                      torch.empty((2,), dtype=torch.int32, device=meta))
+    with pytest.raises(ValueError, match="no kernel"):
+        density_combine(torch.empty((4, 8), device=meta),
+                        torch.empty((2,), dtype=torch.int32, device=meta))
+    with pytest.raises(ValueError, match="no kernel"):
+        theta_stats(torch.empty((8,), device=meta), torch.empty((3,), device=meta))
+    with pytest.raises(ValueError, match="no kernel"):
+        prefix_sum(torch.empty((2, 8), device=meta))
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch):

@@ -1,12 +1,14 @@
-"""The port's three kernels against the JAX package's.
+"""The port's kernels against the JAX package's.
 
 Inputs come from numpy with a seed and go through both packages.  On the CPU
 each wrapper runs its plain PyTorch version, held here against the Pallas
 kernel in interpret mode (``repro.kernels.ops``) and the reference's jnp
-forms: the ⊕-combine and the gather bit for bit, the θ-counts exactly and
-the θ-sums to ``rtol=1e-5`` (the same f32 terms added in another order;
-at λ ≤ 1024 the observed gap is far smaller).  The CUDA kernels themselves
-are held against these plain versions on the card by
+forms: the ⊕-combines and the gather bit for bit, the prefix scan bit for
+bit against ``jnp.cumsum`` (and to the reference test's tolerance against
+the Pallas scan, whose triangular matmul adds in another order), the
+θ-counts exactly and the θ-sums to ``rtol=1e-5`` (the same f32 terms added
+in another order; at λ ≤ 1024 the observed gap is far smaller).  The CUDA
+kernels themselves are held against these plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 import jax.numpy as jnp
@@ -14,14 +16,17 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core.density_map import combine_densities_batch_np
+from repro.core.density_map import combine_densities_batch_np, combine_densities_np
+from repro.core.threshold import threshold_select
 from repro.kernels import ops
 from repro.kernels.density_combine import _combine_local
 from repro.kernels.ref import theta_stats_batch_ref
 from repro_torch.kernels import _lib
-from repro_torch.kernels.density_combine import density_combine_batch
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.density_combine import density_combine, density_combine_batch
 from repro_torch.kernels.plan_wave import block_gather
-from repro_torch.kernels.theta_stats import theta_stats_batch
+from repro_torch.kernels.theta_stats import theta_stats, theta_stats_batch
+from repro_torch.kernels.window_scan import prefix_sum
 
 
 def _combine_inputs(seed: int, q: int, gamma: int, lam: int, rows: int = 12):
@@ -102,6 +107,10 @@ def test_cpu_wrappers_launch_nothing():
     x, th = _theta_inputs(0, 4, 64)
     theta_stats_batch(torch.from_numpy(x), torch.from_numpy(th))
     block_gather(torch.from_numpy(_slab("i8_2d", 10, 8, 0)), torch.tensor([1, 2], dtype=torch.int32))
+    density_combine(torch.from_numpy(dens), torch.tensor([1, 0], dtype=torch.int32))
+    theta_stats(torch.from_numpy(x[0]), torch.from_numpy(th[0]))
+    prefix_sum(torch.from_numpy(x))
+    tops.threshold_bisect(torch.from_numpy(x[0]), 5.0, 10)
     assert _lib.LAUNCHES == before
 
 
@@ -115,8 +124,81 @@ def test_cpu_wrappers_launch_nothing():
     lambda: block_gather(torch.zeros((4, 3, 2), dtype=torch.int64), torch.zeros((1,), dtype=torch.int32)),
     lambda: block_gather(torch.zeros((4, 3, 2), dtype=torch.int32), torch.zeros((1,), dtype=torch.int64)),
     lambda: block_gather(torch.zeros((4,), dtype=torch.int32), torch.zeros((1,), dtype=torch.int32)),
+    lambda: density_combine(torch.zeros((4, 8)), torch.zeros((1, 2), dtype=torch.int32)),
+    lambda: density_combine(torch.zeros((4, 8)), torch.zeros((2,), dtype=torch.int64)),
+    lambda: theta_stats(torch.zeros((2, 8)), torch.zeros((8,))),
+    lambda: theta_stats(torch.zeros((8,)), torch.zeros((0,))),
+    lambda: prefix_sum(torch.zeros((8,), dtype=torch.float64)),
+    lambda: prefix_sum(torch.zeros((2, 3, 8))),
 ], ids=["combine_f64", "combine_i64_rows", "combine_op", "theta_q_mismatch",
-        "theta_f16", "gather_i64_slab", "gather_i64_ids", "gather_1d_slab"])
+        "theta_f16", "gather_i64_slab", "gather_i64_ids", "gather_1d_slab",
+        "single_combine_2d_rows", "single_combine_i64_rows", "single_theta_2d",
+        "single_theta_no_thresholds", "scan_f64", "scan_3d"])
 def test_wrappers_reject_what_the_kernels_do_not_take(call):
     with pytest.raises(ValueError):
         call()
+
+
+@pytest.mark.parametrize("n", [1, 100, 1024, 5000])
+def test_prefix_sum_plain_against_pallas_and_jnp_cumsum(n):
+    rng = np.random.default_rng(n)
+    x = rng.random(n).astype(np.float32)
+    mine = prefix_sum(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(mine, np.asarray(ops.prefix_sum(jnp.asarray(x))),
+                               rtol=1e-4, atol=1e-3)
+    np.testing.assert_array_equal(mine, np.asarray(jnp.cumsum(jnp.asarray(x))))
+    rows = rng.random((3, n)).astype(np.float32)
+    np.testing.assert_array_equal(prefix_sum(torch.from_numpy(rows)).numpy(),
+                                  np.asarray(jnp.cumsum(jnp.asarray(rows), axis=1)))
+
+
+@pytest.mark.parametrize("op", ["and", "or"])
+@pytest.mark.parametrize("gamma", [1, 2, 5])
+def test_single_combine_plain_bit_identical_to_pallas(op, gamma):
+    dens, _ = _combine_inputs(gamma, 1, 1, 1000)
+    rows = np.random.default_rng(gamma).integers(0, dens.shape[0], gamma).astype(np.int32)
+    mine = density_combine(torch.from_numpy(dens), torch.from_numpy(rows), op).numpy()
+    np.testing.assert_array_equal(mine, np.asarray(ops.density_combine(
+        jnp.asarray(dens), jnp.asarray(rows), op)))
+    np.testing.assert_array_equal(mine, combine_densities_np(dens, rows, op))
+
+
+@pytest.mark.parametrize("lam,T", [(100, 8), (1000, 16), (1024, 8)])
+def test_single_theta_stats_plain_against_pallas(lam, T):
+    rng = np.random.default_rng(lam)
+    comb = (rng.random(lam) * (rng.random(lam) < 0.4)).astype(np.float32)
+    ths = np.linspace(0.01, 0.95, T).astype(np.float32)
+    counts, recsum = theta_stats(torch.from_numpy(comb), torch.from_numpy(ths))
+    rc, rs = ops.theta_stats(jnp.asarray(comb), jnp.asarray(ths))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(rc))
+    np.testing.assert_allclose(recsum.numpy(), np.asarray(rs), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("seed,lam", [(0, 5000), (1, 64), (2, 1024)])
+def test_threshold_bisect_equals_pallas_and_matches_sort_selection(seed, lam):
+    """θ* equals the reference's on every row (boundary cases counted: 0
+    here), and where the row's records can reach k the selection
+    ``combined >= θ*`` is the sort-based one to the reference test's bound
+    (``tests/test_kernels.py``, whose λ = 5000 row reaches every k it asks)."""
+    rng = np.random.default_rng(seed)
+    comb = (rng.random(lam) * (rng.random(lam) < 0.3)).astype(np.float32)
+    boundary = 0
+    for k in (10.0, 200.0, 3000.0, 1e9):
+        theta = float(tops.threshold_bisect(torch.from_numpy(comb), k, 10))
+        boundary += theta != float(ops.threshold_bisect(jnp.asarray(comb), k, 10))
+        n_bisect = int(np.sum(comb >= theta))
+        n_sort = int(threshold_select(jnp.asarray(comb), k, 10).num_selected)
+        if float(comb.astype(np.float64).sum()) * 10 >= k:
+            assert abs(n_bisect - n_sort) <= max(2, 0.01 * n_sort)
+        else:  # unreachable k: θ* = 0 takes every block
+            assert theta == 0.0
+    assert boundary == 0
+
+
+def test_ops_exposes_the_reference_names_and_defers_the_lm_kernels():
+    for name in ("density_combine", "density_combine_batch", "prefix_sum", "theta_stats",
+                 "theta_stats_batch", "threshold_bisect", "plan_wave", "block_gather"):
+        assert callable(getattr(tops, name))
+    for fn in (tops.flash_attention, tops.ssd_scan):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            fn()
