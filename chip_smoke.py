@@ -13,7 +13,7 @@ Phases, each of which fails the run (non-zero exit) on any fault:
    imitates) in blocks of 8192 records (the paper's 256 KB block at 32-byte
    records) and move it to the card.
 
-Then four paths, each through the entry points a user calls.  Before each,
+Then the paths, each through the entry points a user calls.  Before each,
 the kernels' launch counters are zeroed; just after, they are read, and the
 path must have launched each of its own kernels (``PHASE_KERNELS``):
 
@@ -37,13 +37,33 @@ path must have launched each of its own kernels (``PHASE_KERNELS``):
    counted) and against the sort-based THRESHOLD cut, whose density must
    lie in the bisection's final bracket.
 
-8. kernels — each kernel at the path's shapes against its plain PyTorch
+Then the LM serving path, on zamba2-7b at its published widths and full
+depth (81 layers, ~5.74·10⁹ parameters, f32, random weights from
+``--seed``; the any-k data stays on the card beside it):
+
+8. lm_forward — ``LM.forward`` on a ``[1, 2048]`` token batch with
+   ``impl="kernel"``: flash attention (#8) must launch once per ``A``
+   occurrence (13) and the SSD scan (#9) once per ``M`` sublayer (68).
+   The logits are held against the same forward with ``impl="plain"`` on
+   the card within ``LM_ATOL``/``LM_RTOL``.
+9. lm_serve — ``ServeEngine(cfg, model, device="cuda").run_until_drained``
+   on the launcher's traffic (8 requests, prompts of 4-23 tokens, 16 new
+   tokens, 4 slots, ``max_seq`` 128) and on long prompts (4 requests of
+   1024-2048 tokens, ``max_seq`` 2176), each beside the same engine with
+   ``impl="plain"``: the first wave's prefill logits and caches within
+   tolerance, and greedy tokens equal except at near-ties (the plain run's
+   top-2 logit gap within twice the tolerance), which are counted.  With
+   ``--profile``, one more wave of each traffic runs under the profiler.
+
+10. kernels — each kernel at its path's shapes against its plain PyTorch
    version on the card (exact for the combines, the gather, the prefix scan
-   and the θ-counts, ``rtol=1e-5`` for the θ-sums), timed with CUDA events
-   (median of 25) beside the plain version, a library call where one
-   computes the same function, and the least time the card could take
-   (``bound_ms``).  The prefix scan is also held bit for bit at lengths
-   across its chunk edges.
+   and the θ-counts, ``rtol=1e-5`` for the θ-sums; the reference's own
+   tolerances for #8 and #9), timed with CUDA events (median of 25) beside
+   the plain version, a library call where one computes the same function,
+   and the least time the card could take (``bound_ms``).  The prefix scan
+   is also held bit for bit at lengths across its chunk edges; #8 also at
+   h2o-danube-3-4b's GQA sliding-window shape and in bf16, #9 also at
+   mamba2-130m's d_state 128.
 
 The last lines are the ``{"kernels": [...]}`` JSON, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -75,7 +95,10 @@ KERNELS = {
     "theta_stats_batch": ("csrc/theta_stats.cu", "src/repro/kernels/theta_stats.py:132"),
     "prefix_sum": ("csrc/window_scan.cu", "src/repro/kernels/window_scan.py:53"),
     "block_gather": ("csrc/block_gather.cu", "src/repro/kernels/plan_wave.py:325"),
+    "flash_attention": ("csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:108"),
+    "ssd_scan": ("csrc/ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:78"),
 }
+LM_KERNELS = ("flash_attention", "ssd_scan")
 # the kernels each path must launch; a kernel's "launches" in the JSON line
 # are those of the first path listed here that runs it
 PHASE_KERNELS = {
@@ -83,9 +106,38 @@ PHASE_KERNELS = {
     "host_mirror": ("density_combine_batch", "prefix_sum", "block_gather"),
     "single": ("density_combine", "prefix_sum", "block_gather"),
     "bisect": ("theta_stats",),
+    "lm_forward": LM_KERNELS,
+    "lm_serve": LM_KERNELS,
 }
 SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 65_537, 12_208)
 RTOL = 1e-5
+
+LM_ARCH = "zamba2-7b"
+LM_FORWARD_SEQ = 2048
+# logits and caches of the kernel path against the plain path, both f32 on
+# the card (TF32 off): the two differ only in the order of the f32 sums
+# inside attention and the SSD, carried through 81 residual layers; held
+# per tensor, |a − b| <= atol + rtol·max|b| (check_close(scale="tensor"))
+LM_ATOL = LM_RTOL = 2e-3
+# the reference's own kernel tolerances (tests/test_kernels.py:160-189)
+FA_TOL = 2e-3
+SSD_ATOL, SSD_RTOL = 2e-3, 1e-2
+# #8 in bf16 reads bf16 values and sums in f32: held against the f32 plain
+# version on the same values upcast, to the rounding of its bf16 output
+# (one bf16 ulp, 2^-7 relative; atol far below the outputs' ~0.04 at S ~ 1900)
+FA_BF16_ATOL, FA_BF16_RTOL = 1e-4, 2.0**-7
+# #9's slow-decay check must weigh the carried state: without it the output
+# moves by more than this many SSD_ATOL
+SSD_CARRY_MIN = 50
+# extra kernel checks: h2o-danube-3-4b's attention (B, Hq, Hkv, S = T, D,
+# window) and mamba2-130m's SSD (B, H, S, dh, ds)
+DANUBE_ATTN = (1, 32, 8, 6144, 120, 4096)
+MAMBA2_130M_SSD = (1, 24, 2048, 64, 128)
+# the launcher's traffic (repro/launch/serve.py defaults) and long prompts
+SERVE_TRAFFIC = {
+    "launcher": {"requests": 8, "plen": (4, 24), "max_new": 16, "slots": 4, "max_seq": 128},
+    "long": {"requests": 4, "plen": (1024, 2049), "max_new": 16, "slots": 4, "max_seq": 2176},
+}
 
 
 def log(msg: str) -> None:
@@ -367,6 +419,22 @@ def profile_wave(fn, label: str):
     return out
 
 
+def kernel_row(name, phase_launches: dict, err, ms, plain, lib, nbytes, ops, **extra) -> dict:
+    """One row of the ``{"kernels": [...]}`` line; ``launches`` are those of
+    the first path in ``PHASE_KERNELS`` that runs the kernel."""
+    b, by = bound_ms(nbytes, ops)
+    src, rep = KERNELS[name]
+    by_phase = {ph: n[name] for ph, n in phase_launches.items()}
+    owner = next(ph for ph, names in PHASE_KERNELS.items() if name in names)
+    log(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f}, library "
+        f"{'n/a' if lib is None else f'{lib:.4f}'}, bound {b:.5f} by {by}), "
+        f"max_abs_err {err}, launches {by_phase}")
+    return {"name": name, "route": "cuda", "source": f"src/repro_torch/{src}",
+            "replaces": rep, "launches": by_phase[owner], "max_abs_err": err,
+            "ms": ms, "kernel_ms": ms, "plain_ms": plain, "bound_ms": b,
+            "bound_by": by, "library_ms": lib, "launches_by_phase": by_phase, **extra}
+
+
 def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict]:
     """Each kernel at the path's shapes against its plain version, timed;
     returns the rows of the ``{"kernels": [...]}`` line."""
@@ -392,19 +460,8 @@ def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict
     dens = store.index.densities
     entries = {}
 
-    def entry(name, err, ms, plain, lib, nbytes, ops, **extra):
-        b, by = bound_ms(nbytes, ops)
-        src, rep = KERNELS[name]
-        by_phase = {ph: n[name] for ph, n in phase_launches.items()}
-        owner = next(ph for ph, names in PHASE_KERNELS.items() if name in names)
-        row = {"name": name, "route": "cuda", "source": f"src/repro_torch/{src}",
-               "replaces": rep, "launches": by_phase[owner], "max_abs_err": err,
-               "ms": ms, "kernel_ms": ms, "plain_ms": plain, "bound_ms": b,
-               "bound_by": by, "library_ms": lib, "launches_by_phase": by_phase, **extra}
-        log(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f}, library "
-            f"{'n/a' if lib is None else f'{lib:.4f}'}, bound {b:.5f} by {by}), "
-            f"max_abs_err {err}, launches {by_phase}")
-        entries[name] = row
+    def entry(name, *args, **extra):
+        entries[name] = kernel_row(name, phase_launches, *args, **extra)
 
     # single ⊕-combine: the wave's first 3-predicate AND query
     q3 = next(q for q in queries if q.op == "and" and len(q.predicates) == 3)
@@ -526,7 +583,277 @@ def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict
     )
     log(f"kernel shapes: Q={Q} λ={lam} γ_max={rm_np.shape[1]} rows={n_rows} "
         f"T={THETA_FANOUT} (single {T}) U={ids.numel()} R={rpb} d={store.dims.shape[2]}")
-    return [entries[name] for name in KERNELS]
+    return [entries[name] for name in KERNELS if name not in LM_KERNELS]
+
+
+def sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def lm_layer_counts(cfg) -> dict:
+    """Kernel launches of one forward or prefill of ``cfg``: #8 per
+    attention sublayer, #9 per Mamba sublayer."""
+    from repro_torch.configs.base import _full_pattern
+
+    pat = _full_pattern(cfg)
+    return {"flash_attention": sum(ch in "GA" for ch in pat), "ssd_scan": pat.count("M")}
+
+
+def check_launches(launches: dict, want: dict, what: str) -> None:
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def check_close(a, b, atol: float, rtol: float, what: str, scale: str = "element") -> float:
+    """``max |a − b|``; raises unless both are finite and ``|a − b| <= atol +
+    rtol·|b|`` elementwise (``scale="element"``, the kernels' checks, as
+    ``allclose``) or ``max |a − b| <= atol + rtol·max |b|`` (``scale=
+    "tensor"``, the model's logits and caches: f32 sums in another order
+    err in proportion to the magnitudes summed, not to each element)."""
+    import torch
+
+    a, b = a.float(), b.float()
+    if a.shape != b.shape:
+        raise AssertionError(f"{what}: shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+        raise AssertionError(f"{what}: non-finite values (kernel {not bool(torch.isfinite(a).all())}"
+                             f", plain {not bool(torch.isfinite(b).all())})")
+    if not a.numel():
+        return 0.0
+    err = float((a - b).abs().max())
+    if scale == "tensor":
+        ok = err <= atol + rtol * float(b.abs().max())
+    else:
+        ok = torch.allclose(a, b, atol=atol, rtol=rtol)
+    if not ok:
+        raise AssertionError(f"{what}: max |kernel − plain| {err} beyond atol {atol}, rtol {rtol}"
+                             f" ({scale})")
+    return err
+
+
+def peak_gb(dev) -> float | None:
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if torch.device(dev).type == "cuda" else None
+
+
+def lm_forward_check(model, seq: int, seed: int, run) -> dict:
+    """``model(tokens, impl="kernel")`` on ``[1, seq]`` tokens through ``run``
+    (``run_phase``), held against ``impl="plain"``; #8 and #9 must launch
+    once per attention and Mamba sublayer."""
+    import torch
+
+    cfg, dev = model.cfg, model.device
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, seq))).to(dev)
+    def timed(impl):
+        t0 = time.perf_counter()
+        out = model(tokens, impl=impl)
+        sync(dev)
+        return out, time.perf_counter() - t0
+
+    with torch.inference_mode():
+        logits, wall, launches = run("lm_forward", lambda: model(tokens, impl="kernel"))
+        plain, plain_wall = timed("plain")
+        warm = {impl: timed(impl)[1] for impl in ("kernel", "plain")}  # cuBLAS and modules loaded
+    check_launches(launches, lm_layer_counts(cfg), "lm_forward")
+    if tuple(logits.shape) != (1, seq, cfg.vocab):
+        raise AssertionError(f"lm_forward: logits of shape {tuple(logits.shape)}")
+    err = check_close(logits, plain, LM_ATOL, LM_RTOL, "lm_forward logits", "tensor")
+    return {"wall_s": wall, "plain_wall_s": plain_wall, "warm_wall_s": warm, "max_abs_err": err,
+            "logits_absmax": float(plain.abs().max()), "launches": launches}
+
+
+def serve_prompts(cfg, traffic: dict, seed: int) -> list[np.ndarray]:
+    """The launcher's request draws: a length, then its tokens, per request."""
+    rng = np.random.default_rng(seed)
+    lo, hi = traffic["plen"]
+    return [rng.integers(0, cfg.vocab, int(rng.integers(lo, hi)))
+            for _ in range(traffic["requests"])]
+
+
+def run_engine(model, traffic: dict, prompts, impl: str):
+    from repro_torch.serving import ServeEngine
+
+    eng = ServeEngine(model.cfg, model, max_slots=traffic["slots"],
+                      max_seq=traffic["max_seq"], impl=impl, device=model.device)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=traffic["max_new"])
+    return eng, eng.run_until_drained()
+
+
+def compare_streams(done, plain, tol: float) -> dict:
+    """Greedy tokens of the kernel run against the plain run's.  A request's
+    streams may part only where the plain run's top-2 logit gap is within
+    ``2·tol`` (a near-tie, counted); after that its contexts differ, so the
+    rest of that request is not compared."""
+    out = {"tokens_equal": 0, "near_ties": 0, "tokens": sum(len(r.out_tokens) for r in plain)}
+    for rk, rp in zip(done, plain):
+        for j, (a, b) in enumerate(zip(rk.out_tokens, rp.out_tokens)):
+            if a == b:
+                out["tokens_equal"] += 1
+                continue
+            if rp.top2_gap[j] > 2 * tol:
+                raise AssertionError(f"request {rp.rid} token {j}: {a} vs plain {b} with a "
+                                     f"top-2 gap of {rp.top2_gap[j]}")
+            out["near_ties"] += 1
+            break
+        else:
+            if len(rk.out_tokens) != len(rp.out_tokens):
+                raise AssertionError(f"request {rp.rid}: streams of different lengths")
+    return out
+
+
+def prefill_check(model, traffic: dict, prompts) -> dict:
+    """The first wave's prefill as the engine pads it, kernel against plain:
+    last-token logits and every layer's cache after prefill."""
+    import torch
+
+    from repro_torch.models.decode import prefill
+    from repro_torch.serving.engine import Request, pad_wave
+
+    wave = [Request(i, np.asarray(p, np.int32)) for i, p in enumerate(prompts[:traffic["slots"]])]
+    toks = torch.from_numpy(pad_wave(wave, traffic["slots"], 0)).to(model.device)
+    with torch.inference_mode():
+        lk, ck = prefill(model, toks, impl="kernel", max_seq=traffic["max_seq"])
+        lp, cp = prefill(model, toks, impl="plain", max_seq=traffic["max_seq"])
+        logits_err = check_close(lk, lp, LM_ATOL, LM_RTOL, "prefill last-token logits",
+                                 "tensor")
+        cache_err = {}
+        for i, (a, b) in enumerate(zip(ck, cp)):
+            for key in a:
+                e = check_close(a[key], b[key], LM_ATOL, LM_RTOL, f"layer {i} cache {key}",
+                                "tensor")
+                cache_err[key] = max(cache_err.get(key, 0.0), e)
+    return {"prompt_len": int(toks.shape[1]), "logits_max_abs_err": logits_err,
+            "cache_max_abs_err": cache_err}
+
+
+def lm_serve_check(model, traffic: dict, seed: int, run) -> dict:
+    """One traffic through ``ServeEngine`` with the kernels (through ``run``)
+    and again with ``impl="plain"``; the first wave's prefill compared."""
+    cfg = model.cfg
+    prompts = serve_prompts(cfg, traffic, seed)
+    pre = prefill_check(model, traffic, prompts)
+    (eng, done), wall, launches = run("lm_serve", lambda: run_engine(model, traffic, prompts,
+                                                                      "kernel"))
+    waves = len(eng.wave_stats)
+    check_launches(launches, {k: n * waves for k, n in lm_layer_counts(cfg).items()},
+                   "lm_serve")
+    eng_p, plain = run_engine(model, traffic, prompts, "plain")
+    streams = compare_streams(done, plain, LM_ATOL)
+    new = sum(w["new_tokens"] for w in eng.wave_stats)
+    return {"wall_s": wall, "waves": eng.wave_stats, "plain_waves": eng_p.wave_stats,
+            "tokens_per_s": new / wall if wall > 0 else None, "prefill": pre,
+            "streams": streams, "launches": launches}
+
+
+def lm_kernel_rows(cfg, phase_launches: dict, seq: int, seed: int, dev) -> list[dict]:
+    """#8 and #9 at the long serving wave's prefill shapes (batch 4, S = T =
+    the wave's padded prompt length) against their plain versions, timed;
+    #8 also at h2o-danube-3-4b's GQA sliding-window shape and in bf16, #9
+    also at mamba2-130m's d_state 128."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+    from repro_torch.kernels.ssd_chunk import CHUNK, ssd_chunked, ssd_scan
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = torch.float32
+
+    def randn(*shape, scale=1.0, dtype=f32):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    # -- #8
+    b, h, d = SERVE_TRAFFIC["long"]["slots"], cfg.num_heads, cfg.head_dim
+    q, k, v = (randn(b, h, seq, d) for _ in range(3))
+    tol = FA_TOL
+    err = check_close(flash_attention(q, k, v), attention_plain(q, k, v), tol, tol,
+                      "flash_attention")
+    checks = {}
+    db, dhq, dhkv, ds_, dd, dw = DANUBE_ATTN
+    qd, kd, vd = randn(db, dhq, ds_, dd), randn(db, dhkv, ds_, dd), randn(db, dhkv, ds_, dd)
+    checks["gqa_window_danube"] = check_close(
+        flash_attention(qd, kd, vd, window=dw), attention_plain(qd, kd, vd, window=dw),
+        tol, tol, "flash_attention (GQA, window)")
+    del qd, kd, vd
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    checks["bf16"] = check_close(
+        flash_attention(qb, kb, vb), attention_plain(qb.float(), kb.float(), vb.float()),
+        FA_BF16_ATOL, FA_BF16_RTOL, "flash_attention (bf16)")
+    del qb, kb, vb
+    fa = kernel_row(
+        "flash_attention", phase_launches, err,
+        time_ms(lambda: flash_attention(q, k, v)),
+        time_ms(lambda: attention_plain(q, k, v)),
+        time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+        4 * b * h * seq * d * 4,  # q, k, v read and o written, f32
+        4.0 * b * h * d * seq * (seq + 1) / 2,  # QKᵀ and PV over the causal pairs
+        shape={"B": b, "Hq": h, "Hkv": cfg.num_kv_heads, "S": seq, "T": seq, "D": d},
+        checks=checks,
+    )
+    del q, k, v
+
+    # -- #9: u, log-decays and the [B, S, ds] projections broadcast to the heads
+    sc = cfg.ssm
+    nh, dh, ds = cfg.n_ssm_heads, sc.head_dim, sc.d_state
+    sp = -(-seq // CHUNK) * CHUNK
+
+    def ssd_inputs(b, nh, sp, dh, ds, slow=False):
+        u = randn(b, nh, sp, dh, scale=0.1)
+        if slow:  # ~-1e-3 a step, as trained heads: a chunk keeps ~90% of its state
+            ld = -randn(b, nh, sp).abs() * 1e-3
+        else:  # dt·A with A = -1, as initialised: ~e^-25 over a chunk
+            ld = -F.softplus(randn(b, nh, sp) - 2.0)
+        bm = randn(b, sp, ds)[:, None].expand(b, nh, sp, ds)
+        cm = randn(b, sp, ds)[:, None].expand(b, nh, sp, ds)
+        return u, ld, bm, cm
+
+    def plain(*a):
+        return ssd_chunked(*a, CHUNK)
+
+    def chunks_alone(u, ld, bm, cm):  # the state reset at every chunk boundary
+        b, nh, sp, dh = u.shape
+
+        def split(t):
+            return t.reshape(b, nh * (sp // CHUNK), CHUNK, *t.shape[3:])
+
+        return plain(split(u), split(ld), split(bm), split(cm)).reshape(u.shape)
+
+    args = ssd_inputs(b, nh, sp, dh, ds)
+    err = check_close(ssd_scan(*args), plain(*args), SSD_ATOL, SSD_RTOL, "ssd_scan")
+    slow = ssd_inputs(b, nh, sp, dh, ds, slow=True)
+    y_slow = plain(*slow)
+    checks = {"slow_decay": check_close(ssd_scan(*slow), y_slow, SSD_ATOL, SSD_RTOL,
+                                        "ssd_scan (slow decay)")}
+    carry = float((chunks_alone(*slow) - y_slow).abs().max())
+    checks["slow_decay_carry_weight"] = carry
+    if not carry > SSD_CARRY_MIN * SSD_ATOL:
+        raise AssertionError(f"ssd_scan (slow decay): the carried state moves the output by "
+                             f"only {carry}; the check cannot see a wrong carry")
+    del slow, y_slow
+    small = ssd_inputs(*MAMBA2_130M_SSD)
+    checks["mamba2_130m_ds128"] = check_close(ssd_scan(*small), plain(*small),
+                                              SSD_ATOL, SSD_RTOL, "ssd_scan (ds 128)")
+    del small
+    qn = CHUNK
+    per_chunk = qn * (qn + 1) * ds + qn * (qn + 1) * dh + 4 * qn * ds * dh
+    ssd = kernel_row(
+        "ssd_scan", phase_launches, err,
+        time_ms(lambda: ssd_scan(*args)),
+        time_ms(lambda: plain(*args)),
+        None,
+        (2 * b * nh * sp * dh + b * nh * sp + 2 * b * sp * ds) * 4,
+        float(per_chunk * (sp // qn) * b * nh),
+        shape={"B": b, "H": nh, "S": sp, "dh": dh, "ds": ds, "bc_head_stride": 0},
+        checks=checks,
+    )
+    return [fa, ssd]
 
 
 def run_phase(name: str, fn):
@@ -556,8 +883,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="run the first wave under torch.profiler and trace one more "
-                         "warm wave; print device and host time by operator")
+                         "warm wave and one LM serving wave of each traffic; print device "
+                         "and host time by operator")
     args = ap.parse_args(argv)
+    started = time.perf_counter()
 
     import torch
 
@@ -694,7 +1023,61 @@ def main(argv=None) -> int:
         raise AssertionError("the bisect path launched no theta_stats")
     log(f"bisect: {Q} rows in {bisect_wall} s (with its checks): {bis}")
 
+    # -- 8. lm_forward and 9. lm_serve: zamba2-7b at full width on the card
+    # f32 products stay f32 on the card, as in the reference (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, args.seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"lm: {cfg.name} {cfg.num_layers} layers ({model.pattern.count('M')} M, "
+        f"{model.pattern.count('A')} A), d_model {cfg.d_model}, {n_params} parameters "
+        f"(param_count() {cfg.param_count()}) in f32 on the card in "
+        f"{time.perf_counter() - t0:.1f} s; peak {peak_gb('cuda'):.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    fwd = lm_forward_check(model, LM_FORWARD_SEQ, args.seed, run_phase)
+    phase_launches["lm_forward"] = fwd.pop("launches")
+    log(f"lm_forward [1, {LM_FORWARD_SEQ}]: kernel {fwd['wall_s']} s, plain "
+        f"{fwd['plain_wall_s']} s (first calls); again {fwd['warm_wall_s']} s; logits max "
+        f"|kernel − plain| {fwd['max_abs_err']} "
+        f"(|logits| ≤ {fwd['logits_absmax']}), peak {peak_gb('cuda'):.2f} GB")
+    serve_launches = dict.fromkeys(_lib.LAUNCHES, 0)
+    long_seq = 0
+    for name, traffic in SERVE_TRAFFIC.items():
+        torch.cuda.reset_peak_memory_stats()
+        res = lm_serve_check(model, traffic, args.seed, run_phase)
+        for k, n in res.pop("launches").items():
+            serve_launches[k] += n
+        for label, waves in (("kernel", res["waves"]), ("plain", res["plain_waves"])):
+            for w in waves:
+                log(f"lm_serve {name} {label} wave: {w['size']} requests, prompt_len "
+                    f"{w['prompt_len']}, prefill {w['prefill_s']} s, decode "
+                    f"{w['decode_s'] / max(w['decode_steps'], 1)} s/step over "
+                    f"{w['decode_steps']} steps, {w['new_tokens']} tokens")
+        log(f"lm_serve {name}: {res['wall_s']} s, {res['tokens_per_s']} tokens/s; prefill "
+            f"check {res['prefill']}; streams {res['streams']}; peak "
+            f"{peak_gb('cuda'):.2f} GB")
+        if name == "long":
+            long_seq = res["waves"][0]["prompt_len"]
+    phase_launches["lm_serve"] = serve_launches
+    log(f"lm_serve launches (both traffics): {serve_launches}")
+    if args.profile:  # one warm wave of each traffic, with the kernels
+        for name, traffic in SERVE_TRAFFIC.items():
+            prompts = serve_prompts(cfg, traffic, args.seed)[:traffic["slots"]]
+            profile_wave(lambda: run_engine(model, traffic, prompts, "kernel"),
+                         f"lm_serve {name} wave")
+    del model
+    torch.cuda.empty_cache()
+
     entries = kernel_phase(store, queries, batch, phase_launches, rows)
+    entries += lm_kernel_rows(cfg, phase_launches, long_seq, args.seed, torch.device("cuda"))
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,11 @@
 
 :func:`store_from_reference` builds the port's :class:`BlockStore` and
 DensityMap index from the numpy arrays of a reference store, so both
-packages answer the same queries on the same bytes.  The caller does the
-``np.asarray`` on the reference side; this module imports nothing of it.
+packages answer the same queries on the same bytes;
+:func:`lm_params_from_reference` builds the port's :class:`LM` from a
+reference parameter tree, so both packages compute the same function.  The
+caller does the ``np.asarray`` on the reference side; this module imports
+nothing of it.
 """
 from __future__ import annotations
 
@@ -12,9 +15,11 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.density_map import DensityMapIndex, PredicateVocab
 from repro_torch.data.block_store import BlockStore
 from repro_torch.device import resolve_device
+from repro_torch.models.lm import LM
 
 #: the arrays a reference store hands over
 REFERENCE_ARRAYS = (
@@ -62,3 +67,47 @@ def store_from_reference(
         records_per_block=records_per_block,
         num_records=num_records,
     )
+
+
+@torch.no_grad()
+def lm_params_from_reference(params_np: Mapping, cfg: ArchConfig,
+                             device: str | torch.device = "cuda") -> LM:
+    """The port's :class:`LM` holding a reference parameter tree
+    (``repro.models.init_params``'s dicts and lists, leaves handed over as
+    numpy arrays).  ``params["cycles"]`` holds one dict per pattern position
+    with leaves stacked ``[n_cycles, ...]``: cycle ``c``'s position ``i``
+    becomes layer ``c·len(pattern) + i``.  ``params["rest"]`` fills the
+    trailing partial cycle, ``params["shared_attn"]`` the shared block.
+    Every parameter of the model must be filled exactly once."""
+    model = LM(cfg, device, torch.float32)
+    filled: set[int] = set()
+
+    def put(module, tree: Mapping, index=None) -> None:
+        for name, leaf in tree.items():
+            if isinstance(leaf, Mapping):
+                put(getattr(module, name), leaf, index)
+                continue
+            param = getattr(module, name)
+            arr = np.asarray(leaf if index is None else leaf[index])
+            if tuple(arr.shape) != tuple(param.shape):
+                raise ValueError(f"{name}: reference shape {arr.shape}, port {tuple(param.shape)}")
+            param.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)).to(param.dtype))
+            if id(param) in filled:
+                raise ValueError(f"{name} filled twice")
+            filled.add(id(param))
+
+    top = {k: v for k, v in params_np.items() if k in ("embed", "final_norm", "lm_head")}
+    put(model, top)
+    period = len(cfg.layer_pattern)
+    n_cycles = cfg.num_layers // period
+    for i, sub in enumerate(params_np.get("cycles", [])):
+        for c in range(n_cycles):
+            put(model.layers[c * period + i], sub, c)
+    for i, sub in enumerate(params_np.get("rest", [])):
+        put(model.layers[n_cycles * period + i], sub)
+    if "shared_attn" in params_np:
+        put(model.shared_attn, params_np["shared_attn"])
+    missing = [n for n, p in model.named_parameters() if id(p) not in filled]
+    if missing:
+        raise ValueError(f"the reference tree left {missing} unfilled")
+    return model

@@ -2,7 +2,8 @@
 
 ``density_combine.density_combine`` / ``density_combine_batch``,
 ``theta_stats.theta_stats`` / ``theta_stats_batch``, ``window_scan.
-prefix_sum`` and ``plan_wave.block_gather`` are CUDA C++
+prefix_sum``, ``plan_wave.block_gather``, ``flash_attention.
+flash_attention`` and ``ssd_chunk.ssd_scan`` are CUDA C++
 (``src/repro_torch/csrc/``), built at first use by
 :mod:`repro_torch.kernels._lib`; :mod:`repro_torch.kernels.ops` exposes them
 under the reference's names.  A wrapper given CPU tensors runs its plain

@@ -25,9 +25,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("density_combine.cu", "theta_stats.cu", "block_gather.cu", "window_scan.cu")
-# -fmad=false: no multiply-add contraction, so f32 results keep the plain
-# versions' rounding; no fast-math flag for the same reason.
+SOURCES = ("density_combine.cu", "theta_stats.cu", "block_gather.cu", "window_scan.cu",
+           "flash_attention.cu", "ssd_chunk.cu")
+# -fmad=false: no multiply-add contraction, so the plan-path kernels' f32
+# results keep the plain versions' rounding bit for bit; no fast-math flag
+# for the same reason.  One flag set serves every source: the LM kernels
+# (flash_attention.cu, ssd_chunk.cu) are held to tolerances, not bits, and
+# write their products as explicit fmaf calls, which the flag leaves alone.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,6 +41,7 @@ NVCC_FLAGS = (
 LAUNCHES: dict[str, int] = {
     "density_combine": 0, "density_combine_batch": 0, "theta_stats": 0,
     "theta_stats_batch": 0, "prefix_sum": 0, "block_gather": 0,
+    "flash_attention": 0, "ssd_scan": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -58,6 +63,12 @@ _SIGNATURES = {
     "nt_block_gather": (_P, _P, _I64, _I64, _P, _P),
     # (x, rows, n, out, scratch, scratch_stride, stream)
     "nt_prefix_sum": (_P, _I64, _I64, _P, _P, _I64, _P),
+    # (q, k, v, o, B, Hq, Hkv, S, T, D, causal, window, scale, bf16, stream)
+    "nt_flash_attention": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                           ctypes.c_int, _I64, ctypes.c_float, ctypes.c_int, _P),
+    # (u, ld, B, C, y, B, H, S, dh, ds, B's batch/head strides, C's, stream)
+    "nt_ssd_scan": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                    _I64, _I64, _P),
 }
 
 

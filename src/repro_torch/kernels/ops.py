@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/kernels/ops.py``.  Each function calls the port's
 wrapper, which launches its hand-written CUDA kernel for CUDA tensors and
-runs its plain PyTorch version for CPU tensors.  :func:`threshold_bisect`
+runs its plain PyTorch version for CPU tensors; ``flash_attention`` and
+``ssd_scan`` are the LM substrate's kernels.  :func:`threshold_bisect`
 is the θ-bisection THRESHOLD planner on :func:`theta_stats`, with the
 reference's f32 steps in the reference's order.
 """
@@ -12,7 +13,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.density_combine import density_combine, density_combine_batch
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.plan_wave import block_gather, plan_wave
+from repro_torch.kernels.ssd_chunk import ssd_scan
 from repro_torch.kernels.theta_stats import theta_stats, theta_stats_batch, theta_stats_plain
 from repro_torch.kernels.window_scan import prefix_sum
 
@@ -90,16 +93,3 @@ def threshold_bisect_plain(
     return bisect_rounds(combined, k, records_per_block, rounds, fanout,
                          stats=theta_stats_plain)[0]
 
-
-def flash_attention(*args, **kwargs):
-    raise NotImplementedError(
-        "flash_attention arrives with the LM-substrate slice of the port "
-        "(ROADMAP Queue 1 item 8)"
-    )
-
-
-def ssd_scan(*args, **kwargs):
-    raise NotImplementedError(
-        "ssd_scan arrives with the LM-substrate slice of the port "
-        "(ROADMAP Queue 1 item 8)"
-    )

@@ -1,0 +1,194 @@
+"""Serving path: KV/state caches, prefill, and single-token ``decode_step``.
+
+Counterpart of ``repro/models/decode.py``.  The cache is a list with one
+dict per layer, in pattern order (the reference stacks whole cycles):
+
+  'G' global attn : {k, v} of [B, T_max, Kv, hd]
+  'A' shared attn : as 'G' (weights shared, caches per occurrence)
+  'M' mamba2      : {conv: [B, cw-1, d_inner], ssd: [B, nh, ds, hd] f32}
+
+:func:`prefill` runs the forward pass while it fills the cache: attention
+through ``impl`` (kernel #8 on the card by default) and each Mamba
+sublayer's output through ``impl`` (kernel #9).  The reference's prefill
+runs its Mamba outputs on its default path whatever ``impl`` says; the
+port honours ``impl`` there, so a prefill on the card launches #9 once per
+``M`` sublayer.  The final SSD state is then computed again by
+:func:`_mamba_final_state` with the plain ``ssd_chunked(return_state=True)``,
+as in the reference (double SSD work per prefill, left as it is).
+
+Decoding is plain PyTorch, as the reference's is outside Pallas: one token
+of attention over the cache (``xla_flash_attention`` with the cache's
+positions) and one step of the SSD recurrence.  Where JAX returns new
+arrays, :func:`decode_step` writes the new K/V row and the new Mamba state
+into ``cache`` in place and returns it: a copy of every layer's cache per
+token would cost the card as much time as the step itself.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.lm import LM, check_supported
+
+Cache = list[dict[str, torch.Tensor]]
+
+
+def init_cache(
+    cfg: ArchConfig, batch: int, max_seq: int, dtype: torch.dtype = torch.bfloat16,
+    device: str | torch.device = "cuda",
+) -> Cache:
+    """Zeroed caches for ``batch`` rows of ``max_seq`` positions."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    cache: Cache = []
+    for ch in cfg.layer_pattern * -(-cfg.num_layers // len(cfg.layer_pattern)):
+        if len(cache) == cfg.num_layers:
+            break
+        if ch == "M":
+            sc = cfg.ssm
+            cache.append({
+                "conv": torch.zeros((batch, sc.conv_width - 1, cfg.d_inner), dtype=dtype, device=dev),
+                "ssd": torch.zeros((batch, cfg.n_ssm_heads, sc.d_state, sc.head_dim),
+                                   dtype=torch.float32, device=dev),
+            })
+        else:
+            cache.append({
+                "k": torch.zeros((batch, max_seq, kv, hd), dtype=dtype, device=dev),
+                "v": torch.zeros((batch, max_seq, kv, hd), dtype=dtype, device=dev),
+            })
+    return cache
+
+
+# ----------------------------------------------------------------------------
+# Single-token decode blocks
+# ----------------------------------------------------------------------------
+
+
+def _attn_decode(x, p, cache: dict, pos: int, cfg: ArchConfig) -> torch.Tensor:
+    """x [B, 1, D]; writes the new K/V at ``pos`` into ``cache`` in place."""
+    b = x.shape[0]
+    q = torch.einsum("bsd,dhq->bshq", x, p.wq)
+    k = torch.einsum("bsd,dhq->bshq", x, p.wk)
+    v = torch.einsum("bsd,dhq->bshq", x, p.wv)
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    posb = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    q = L.rope(q, posb, cfg.rope_theta)
+    k = L.rope(k, posb, cfg.rope_theta)
+    t = cache["k"].shape[1]
+    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+    idx = torch.arange(t, device=x.device)
+    k_pos = torch.where(idx <= pos, idx, -(10**9)).expand(b, t)
+    o = L.xla_flash_attention(
+        q, cache["k"], cache["v"], causal=True, k_positions=k_pos, q_positions=posb,
+    )
+    return torch.einsum("bshq,hqd->bsd", o, p.wo)
+
+
+def _mamba_decode(x, p, cache: dict, cfg: ArchConfig) -> torch.Tensor:
+    """x [B, 1, D]; replaces ``cache``'s conv and ssd states in place."""
+    sc = cfg.ssm
+    b = x.shape[0]
+    di, nh, hd = cfg.d_inner, cfg.n_ssm_heads, sc.head_dim
+    x0 = x[:, 0]
+    z = torch.einsum("bd,de->be", x0, p.w_z)
+    xin = torch.einsum("bd,de->be", x0, p.w_x)  # [B, di]
+    bvec = torch.einsum("bd,dn->bn", x0, p.w_B)
+    cvec = torch.einsum("bd,dn->bn", x0, p.w_C)
+    dt = F.softplus(torch.einsum("bd,dh->bh", x0, p.w_dt) + p.dt_bias)
+    # causal conv over the last cw-1 inputs + the current one
+    hist = torch.cat([cache["conv"], xin[:, None, :].to(cache["conv"].dtype)], dim=1)
+    xc = F.silu(torch.einsum("bcd,cd->bd", hist, p.conv_w))
+    u = xc.reshape(b, nh, hd) * dt[..., None]
+    a = -torch.exp(p.a_log)  # [nh]
+    decay = torch.exp(dt * a)  # [B, nh]
+    h = cache["ssd"] * decay[..., None, None] + bvec[:, None, :, None] * u[..., None, :]
+    y = torch.einsum("bn,bhnd->bhd", cvec, h.to(cvec.dtype))
+    y = y.reshape(b, di) + xc * p.d_skip
+    cache["conv"] = hist[:, 1:]
+    cache["ssd"] = h
+    return torch.einsum("be,ed->bd", y * F.silu(z), p.w_out)[:, None, :]
+
+
+def _sub_decode(x, p, cache: dict, pos: int, cfg: ArchConfig, shared) -> torch.Tensor:
+    if p.ch == "M":
+        return x + _mamba_decode(L.apply_norm(x, p.norm, cfg.norm), p.mamba, cache, cfg)
+    ap = shared.attn if p.ch == "A" else p.attn
+    x = x + _attn_decode(L.apply_norm(x, p.norm1, cfg.norm), ap, cache, pos, cfg)
+    h = L.apply_norm(x, p.norm2, cfg.norm)
+    return x + L.mlp(h, shared.mlp if p.ch == "A" else p.mlp, cfg.act)
+
+
+def decode_step(
+    model: LM, cache: Cache, tokens: torch.Tensor, pos: int,
+) -> tuple[torch.Tensor, Cache]:
+    """One decode step for the whole batch: ``tokens [B]`` at position
+    ``pos``.  Returns ``(logits [B, vocab], cache)``, ``cache`` updated in
+    place."""
+    cfg = model.cfg
+    pos = int(pos)
+    h = model.embed_tokens(tokens)[:, None, :]
+    for layer, c in zip(model.layers, cache):
+        h = _sub_decode(h, layer, c, pos, cfg, model.shared_attn)
+    h = L.apply_norm(h, model.final_norm, cfg.norm)
+    logits = torch.einsum("bsd,dv->bsv", h, model.head())[:, 0, : cfg.vocab]
+    return logits, cache
+
+
+def prefill(
+    model: LM,
+    tokens: torch.Tensor,  # [B, S]
+    impl: str = "kernel",
+    max_seq: int | None = None,  # cache capacity (>= S; default S)
+) -> tuple[torch.Tensor, Cache]:
+    """Full-sequence prefill: returns ``(last-token logits [B, vocab],
+    filled cache)``; the attention caches are padded to ``max_seq``."""
+    L.check_impl(impl)
+    cfg = model.cfg
+    b, s = tokens.shape
+    max_seq = max_seq or s
+    if max_seq < s:
+        raise ValueError(f"max_seq={max_seq} is shorter than the prompt ({s})")
+    shared = model.shared_attn
+    h = model.embed_tokens(tokens)
+    positions = torch.arange(s, device=h.device).expand(b, s)
+    cache: Cache = []
+    for p in model.layers:
+        if p.ch == "M":
+            hh = L.apply_norm(h, p.norm, cfg.norm)
+            out = L.mamba_block(hh, p.mamba, cfg, impl)
+            cache.append(_mamba_final_state(hh, p.mamba, cfg))
+            h = h + out
+            continue
+        ap = shared.attn if p.ch == "A" else p.attn
+        hh = L.apply_norm(h, p.norm1, cfg.norm)
+        o, (k, v) = L.attention(hh, ap, cfg, causal=True, window=None,
+                                positions=positions, impl=impl, return_kv=True)
+        h = h + o
+        hh = L.apply_norm(h, p.norm2, cfg.norm)
+        h = h + L.mlp(hh, shared.mlp if p.ch == "A" else p.mlp, cfg.act)
+        if max_seq > s:  # pad to full capacity
+            k = F.pad(k, (0, 0, 0, 0, 0, max_seq - s))
+            v = F.pad(v, (0, 0, 0, 0, 0, max_seq - s))
+        cache.append({"k": k, "v": v})
+    h = L.apply_norm(h, model.final_norm, cfg.norm)
+    logits = torch.einsum("bd,dv->bv", h[:, -1], model.head())[:, : cfg.vocab]
+    return logits, cache
+
+
+def _mamba_final_state(x, p, cfg: ArchConfig) -> dict:
+    """Final SSD + conv state after a prefill pass, by the plain chunked SSD
+    (``ssd_chunked(return_state=True)``), as the reference computes it."""
+    s = x.shape[1]
+    _, xin, xc, bmat, cmat, dt = L.mamba_inputs(x, p, cfg)
+    uh, ld, bh, ch = L.ssd_operands(xc, bmat, cmat, dt, p, cfg)
+    _, hfin = L.ssd_chunked(uh, ld, bh, ch, cfg.ssm.chunk, return_state=True)
+    cw = cfg.ssm.conv_width
+    # a copy, not a view: a view would keep the whole [B, S, d_inner] xin of
+    # every Mamba layer alive for as long as the cache lives
+    return {"conv": xin[:, s - (cw - 1):, :].clone(), "ssd": hfin}

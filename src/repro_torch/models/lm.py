@@ -1,0 +1,272 @@
+"""Decoder-only LMs: dense (``G``), Mamba2 (``M``) and the zamba2 hybrid
+(``M`` with the shared attention block ``A``).
+
+Counterpart of ``repro/models/lm.py``.  :class:`LM` holds one module per
+layer in pattern order (the reference stacks whole cycles and scans them;
+eager PyTorch has no trace to keep small, so the layers are a plain
+``ModuleList``).  The ``A`` sublayers are zamba2's *shared* attention block:
+one ``shared_attn`` module whose weights every ``A`` occurrence uses, while
+each occurrence keeps its own norms and, in decoding, its own cache.
+Parameter names and layouts are the reference's, so
+``repro_torch.convert.lm_params_from_reference`` carries a reference
+parameter tree across one to one.
+
+This slice supports the ``G``, ``A`` and ``M`` patterns of the dense, ssm
+and hybrid families (qwen1.5-4b, yi-9b, mamba2-130m, zamba2-7b).  MoE,
+encoder-decoder and VLM families and the ``L`` sliding-window ring raise
+``NotImplementedError`` naming their later slice.
+
+``impl`` is as in :mod:`repro_torch.models.layers`: ``"kernel"`` (the
+default) runs attention and the SSD through the hand-written kernels on the
+card, ``"plain"`` through the reference's pure-tensor forms.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig, _full_pattern
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not carry."""
+    later = {
+        "moe": "MoE layers arrive with the MoE slice",
+        "encdec": "encoder-decoder models arrive with the enc-dec slice",
+        "vlm": "VLM prefixes arrive with the VLM slice",
+    }
+    if cfg.family in later or cfg.moe is not None:
+        why = later.get(cfg.family, later["moe"])
+        raise NotImplementedError(f"{cfg.name}: {why} of the LM substrate (ROADMAP Queue 1)")
+    if "L" in cfg.layer_pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: the 'L' sliding-window ring cache arrives with the 'L' "
+            "slice of the LM substrate (ROADMAP Queue 1)")
+    bad = set(cfg.layer_pattern) - set("GAM")
+    if bad:
+        raise NotImplementedError(f"{cfg.name}: layer pattern chars {sorted(bad)}")
+
+
+def _param(shape, device, dtype) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype), requires_grad=False)
+
+
+class Norm(nn.Module):
+    def __init__(self, cfg: ArchConfig, device, dtype):
+        super().__init__()
+        self.w = _param((cfg.d_model,), device, dtype)
+        if cfg.norm == "ln":
+            self.b = _param((cfg.d_model,), device, dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ArchConfig, device, dtype):
+        super().__init__()
+        d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        self.wq = _param((d, h, hd), device, dtype)
+        self.wk = _param((d, kv, hd), device, dtype)
+        self.wv = _param((d, kv, hd), device, dtype)
+        self.wo = _param((h, hd, d), device, dtype)
+        if cfg.qkv_bias:
+            self.bq = _param((h, hd), device, dtype)
+            self.bk = _param((kv, hd), device, dtype)
+            self.bv = _param((kv, hd), device, dtype)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ArchConfig, device, dtype):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        if cfg.act == "gelu":  # whisper/phi-style 2-matrix MLP
+            self.w_in = _param((d, f), device, dtype)
+        else:
+            self.w_gate = _param((d, f), device, dtype)
+            self.w_up = _param((d, f), device, dtype)
+        self.w_down = _param((f, d), device, dtype)
+
+
+class Mamba(nn.Module):
+    def __init__(self, cfg: ArchConfig, device, dtype):
+        super().__init__()
+        d, di, sc = cfg.d_model, cfg.d_inner, cfg.ssm
+        nh = cfg.n_ssm_heads
+        self.w_z = _param((d, di), device, dtype)
+        self.w_x = _param((d, di), device, dtype)
+        self.w_B = _param((d, sc.d_state), device, dtype)
+        self.w_C = _param((d, sc.d_state), device, dtype)
+        self.w_dt = _param((d, nh), device, dtype)
+        self.dt_bias = _param((nh,), device, dtype)
+        self.conv_w = _param((sc.conv_width, di), device, dtype)
+        self.a_log = _param((nh,), device, torch.float32)
+        self.d_skip = _param((di,), device, dtype)
+        self.w_out = _param((di, d), device, dtype)
+
+
+class Sublayer(nn.Module):
+    """One pattern position: ``M`` {norm, mamba}; ``A`` {norm1, norm2} (its
+    attention and MLP are the model's ``shared_attn``); ``G`` {norm1,
+    norm2, attn, mlp}."""
+
+    def __init__(self, ch: str, cfg: ArchConfig, device, dtype):
+        super().__init__()
+        self.ch = ch
+        if ch == "M":
+            self.norm = Norm(cfg, device, dtype)
+            self.mamba = Mamba(cfg, device, dtype)
+            return
+        self.norm1 = Norm(cfg, device, dtype)
+        self.norm2 = Norm(cfg, device, dtype)
+        if ch == "G":
+            self.attn = Attention(cfg, device, dtype)
+            self.mlp = MLP(cfg, device, dtype)
+
+
+class SharedAttention(nn.Module):
+    def __init__(self, cfg: ArchConfig, device, dtype):
+        super().__init__()
+        self.attn = Attention(cfg, device, dtype)
+        self.mlp = MLP(cfg, device, dtype)
+
+
+class LM(nn.Module):
+    """A decoder-only LM with uninitialised parameters on ``device``; build
+    one with :func:`init_params` or ``convert.lm_params_from_reference``."""
+
+    def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        check_supported(cfg)
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.pattern = _full_pattern(cfg)
+        self.embed = _param((cfg.vocab_padded, cfg.d_model), dev, dtype)
+        self.layers = nn.ModuleList(Sublayer(ch, cfg, dev, dtype) for ch in self.pattern)
+        self.shared_attn = SharedAttention(cfg, dev, dtype) if "A" in self.pattern else None
+        self.final_norm = Norm(cfg, dev, dtype)
+        self.lm_head = None if cfg.tie_embeddings else _param((cfg.d_model, cfg.vocab_padded),
+                                                               dev, dtype)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def head(self) -> torch.Tensor:
+        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        idx = torch.as_tensor(tokens, device=self.device).long()
+        return self.embed[idx] * (self.cfg.d_model**0.5)
+
+    def forward(self, tokens: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
+        """``tokens [B, S]`` -> logits ``[B, S, vocab]``."""
+        h = self.embed_tokens(tokens)
+        for layer in self.layers:
+            h = block(h, layer, self.cfg, self.shared_attn, impl)
+        h = L.apply_norm(h, self.final_norm, self.cfg.norm)
+        logits = torch.einsum("bsd,dv->bsv", h, self.head())
+        return logits[..., : self.cfg.vocab]
+
+
+def block(x: torch.Tensor, p: Sublayer, cfg: ArchConfig, shared, impl: str) -> torch.Tensor:
+    """One pattern sublayer (the reference's ``lm._block``)."""
+    if p.ch == "M":
+        return x + L.mamba_block(L.apply_norm(x, p.norm, cfg.norm), p.mamba, cfg, impl)
+    ap = shared.attn if p.ch == "A" else p.attn
+    h = L.apply_norm(x, p.norm1, cfg.norm)
+    x = x + L.attention(h, ap, cfg, causal=True, window=None, impl=impl)
+    h = L.apply_norm(x, p.norm2, cfg.norm)
+    return x + L.mlp(h, shared.mlp if p.ch == "A" else p.mlp, cfg.act)
+
+
+def forward(model: LM, tokens: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
+    """Returns logits ``[B, S, vocab]`` (the reference's ``lm.forward``)."""
+    return model(tokens, impl=impl)
+
+
+# ----------------------------------------------------------------------------
+# Init (the reference's distributions, drawn on the device)
+# ----------------------------------------------------------------------------
+
+
+def _dense_(t: torch.Tensor, g: torch.Generator, scale: float | None = None) -> None:
+    """Fan-in-scaled normal, in place: N(0, 1)·scale, scale = shape[0]^-0.5."""
+    fan_in = t.shape[0] if t.dim() >= 2 else 1
+    scale = scale if scale is not None else fan_in**-0.5
+    if t.dtype == torch.float32:
+        t.normal_(generator=g).mul_(scale)
+    else:  # draw in f32 and round once, as the reference does
+        t.copy_(torch.empty(t.shape, device=t.device).normal_(generator=g).mul_(scale))
+
+
+def _init_norm(p: Norm) -> None:
+    p.w.fill_(1.0)
+    if hasattr(p, "b"):
+        p.b.zero_()
+
+
+def _init_attn(p: Attention, cfg: ArchConfig, g) -> None:
+    _dense_(p.wq, g)
+    _dense_(p.wk, g)
+    _dense_(p.wv, g)
+    _dense_(p.wo, g, scale=(cfg.num_heads * cfg.head_dim) ** -0.5)
+    for name in ("bq", "bk", "bv"):
+        if hasattr(p, name):
+            getattr(p, name).zero_()
+
+
+def _init_mlp(p: MLP, g) -> None:
+    for name in ("w_in", "w_gate", "w_up", "w_down"):
+        if hasattr(p, name):
+            _dense_(getattr(p, name), g)
+
+
+def _init_mamba(p: Mamba, cfg: ArchConfig, g) -> None:
+    for name in ("w_z", "w_x", "w_B", "w_C", "w_dt"):
+        _dense_(getattr(p, name), g)
+    p.dt_bias.fill_(-2.0)
+    _dense_(p.conv_w, g, scale=0.5)
+    p.a_log.zero_()  # A = -exp(0) = -1
+    p.d_skip.zero_()
+    _dense_(p.w_out, g, scale=cfg.d_inner**-0.5)
+
+
+@torch.no_grad()
+def init_params(
+    cfg: ArchConfig,
+    generator: torch.Generator | int = 0,
+    device: str | torch.device = "cuda",
+    dtype: torch.dtype = torch.float32,
+) -> LM:
+    """An :class:`LM` with the reference's initial distributions
+    (``repro/models/lm.py:34-125``): fan-in-scaled normals, ``wo`` at
+    ``(h·hd)^-0.5``, the embedding at ``d^-0.5``, ``conv_w`` at 0.5,
+    ``w_out`` at ``d_inner^-0.5``, ``dt_bias`` −2, ``a_log`` 0, ``d_skip``
+    0, norms at 1 (bias 0), QKV biases 0.  Every tensor is drawn on
+    ``device`` (a full-width model never passes through host memory) from
+    ``generator``, or from a generator on the device seeded with the given
+    int.  The draws are not JAX's: the tests carry the reference's
+    parameters across instead."""
+    model = LM(cfg, device, dtype)
+    if isinstance(generator, int):
+        generator = torch.Generator(device=model.device).manual_seed(generator)
+    g = generator
+    _dense_(model.embed, g, scale=cfg.d_model**-0.5)
+    if model.lm_head is not None:
+        _dense_(model.lm_head, g)
+    _init_norm(model.final_norm)
+    for layer in model.layers:
+        if layer.ch == "M":
+            _init_norm(layer.norm)
+            _init_mamba(layer.mamba, cfg, g)
+            continue
+        _init_norm(layer.norm1)
+        _init_norm(layer.norm2)
+        if layer.ch == "G":
+            _init_attn(layer.attn, cfg, g)
+            _init_mlp(layer.mlp, g)
+    if model.shared_attn is not None:
+        _init_attn(model.shared_attn.attn, cfg, g)
+        _init_mlp(model.shared_attn.mlp, g)
+    return model

@@ -8,7 +8,13 @@ JAX nor the JAX package, so it runs on the machine with the card:
 
 The combines, the gather and the prefix scan must match bit for bit, the
 θ-counts exactly and the θ-sums to ``rtol=1e-5`` (the same f32 terms in
-another order).
+another order).  Flash attention (#8) in f32 and the SSD scan (#9) are held
+at the reference's own tolerances (``tests/test_kernels.py``): attention
+2e-3, the SSD atol 2e-3 / rtol 1e-2.  #8 in bf16 reads bf16 values and sums
+in f32, so it is held against the f32 plain version on the same values
+upcast, to the output's own bf16 rounding: rtol 2⁻⁷ (one bf16 ulp), atol
+1e-4.  #9 also runs with slow decay, where the state carried across
+chunks is most of the output.
 """
 import numpy as np
 import pytest
@@ -16,6 +22,8 @@ import torch
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+from repro_torch.kernels.ssd_chunk import CHUNK, ssd_chunked, ssd_scan
 from repro_torch.kernels.density_combine import (
     density_combine, density_combine_batch, density_combine_batch_plain, density_combine_plain,
 )
@@ -143,3 +151,85 @@ def test_threshold_bisect_on_the_kernel_matches_the_plain_steps(cuda):
         theta = ops.threshold_bisect(xc, k, 10)
         assert _lib.LAUNCHES["theta_stats"] == n0 + 3
         assert float(theta) == float(ops.threshold_bisect_plain(xc, k, 10))
+
+
+@pytest.mark.parametrize(
+    "b,hq,hkv,s,t,causal,win,d,dtype",
+    [
+        (1, 2, 1, 128, 128, True, None, 64, torch.float32),
+        (2, 4, 4, 100, 100, True, None, 112, torch.float32),  # kv padding
+        (1, 4, 2, 128, 256, True, None, 128, torch.float32),  # S < T, right-aligned
+        # window: in the visible kv tile 0 of q tile 1, rows 64..127 see nothing
+        (1, 2, 1, 200, 200, True, 64, 112, torch.float32),
+        (1, 2, 2, 64, 192, False, None, 64, torch.float32),  # cross-attention
+        (1, 8, 2, 300, 300, True, 128, 120, torch.float32),  # GQA + window
+        (1, 2, 1, 1, 77, True, None, 128, torch.float32),  # one decode query
+        (2, 4, 2, 129, 129, True, None, 112, torch.bfloat16),
+        (1, 4, 1, 256, 256, True, 100, 64, torch.bfloat16),
+        (1, 2, 2, 70, 70, True, None, 7, torch.float32),  # D not a multiple of 16
+    ],
+)
+def test_flash_attention_kernel_against_plain(cuda, b, hq, hkv, s, t, causal, win, d, dtype):
+    g = torch.Generator().manual_seed(s * 1000 + t + d)
+    q = torch.randn((b, hq, s, d), generator=g).to(dtype).to(cuda)
+    k = torch.randn((b, hkv, t, d), generator=g).to(dtype).to(cuda)
+    v = torch.randn((b, hkv, t, d), generator=g).to(dtype).to(cuda)
+    n0 = _lib.LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["flash_attention"] == n0 + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = attention_plain(q.float(), k.float(), v.float(), causal, win)
+    atol, rtol = (2e-3, 2e-3) if dtype == torch.float32 else (1e-4, 2.0**-7)
+    torch.testing.assert_close(out.float(), want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize(
+    "b,h,s,dh,ds",
+    [(1, 2, 128, 64, 16), (2, 3, 2048, 64, 64), (1, 2, 256, 64, 128), (1, 4, 128, 16, 16),
+     (2, 1, 384, 32, 32), (4, 112, 1920, 64, 64)],
+)
+@pytest.mark.parametrize("broadcast", [True, False], ids=["head_stride_0", "contiguous"])
+@pytest.mark.parametrize("decay", ["fast", "slow"])
+def test_ssd_scan_kernel_against_plain(cuda, b, h, s, dh, ds, broadcast, decay):
+    g = torch.Generator().manual_seed(s + dh + ds)
+    u = (torch.randn((b, h, s, dh), generator=g) * 0.1).to(cuda)
+    if decay == "fast":  # dt·A at the reference's init: ~e^-25 over a chunk
+        ld = -torch.nn.functional.softplus(torch.randn((b, h, s), generator=g) - 2.0)
+    else:  # ~-1e-3 a step, as trained heads: a chunk keeps ~90% of the carried state
+        ld = -torch.randn((b, h, s), generator=g).abs() * 1e-3
+    ld = ld.to(cuda)
+    if broadcast:  # mamba_block's layout: one [B, S, ds] projection for every head
+        bm = torch.randn((b, s, ds), generator=g).to(cuda)[:, None].expand(b, h, s, ds)
+        cm = torch.randn((b, s, ds), generator=g).to(cuda)[:, None].expand(b, h, s, ds)
+    else:
+        bm = (torch.randn((b, h, s, ds), generator=g) * 0.3).to(cuda)
+        cm = (torch.randn((b, h, s, ds), generator=g) * 0.3).to(cuda)
+    n0 = _lib.LAUNCHES["ssd_scan"]
+    y = ssd_scan(u, ld, bm, cm)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["ssd_scan"] == n0 + 1
+    torch.testing.assert_close(y, ssd_chunked(u, ld, bm, cm, CHUNK), atol=2e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m", "qwen1.5-4b"])
+def test_reduced_lm_on_the_card_runs_the_kernels(cuda, arch):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import decode_step, init_params, prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products, as in the reference
+    cfg = reduced(get_config(arch))
+    model = init_params(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 200), generator=torch.Generator().manual_seed(0))
+    _lib.reset_launches()
+    with torch.inference_mode():
+        logits = model(toks)
+        torch.cuda.synchronize()
+        pat = model.pattern
+        assert _lib.LAUNCHES["flash_attention"] == sum(c in "GA" for c in pat)
+        assert _lib.LAUNCHES["ssd_scan"] == pat.count("M")
+        torch.testing.assert_close(logits, model(toks, impl="plain"), atol=2e-3, rtol=2e-3)
+        last, cache = prefill(model, toks[:, :199], max_seq=200)
+        torch.testing.assert_close(last, logits[:, 198], atol=2e-3, rtol=2e-3)
+        lg, _ = decode_step(model, cache, toks[:, 199], 199)
+        torch.testing.assert_close(lg, logits[:, 199], atol=2e-3, rtol=2e-3)

@@ -42,7 +42,10 @@ def test_importing_every_port_module_leaves_jax_and_repro_out():
     assert out.returncode == 0, out.stdout + out.stderr
     assert len(mods) >= 18
     assert {'repro_torch.core.block_cache', 'repro_torch.kernels.ops',
-            'repro_torch.kernels.window_scan'} <= set(mods)
+            'repro_torch.kernels.window_scan', 'repro_torch.kernels.flash_attention',
+            'repro_torch.kernels.ssd_chunk', 'repro_torch.configs', 'repro_torch.models.lm',
+            'repro_torch.models.decode', 'repro_torch.serving.engine',
+            'repro_torch.launch.serve', 'repro_torch.launch.steps'} <= set(mods)
 
 
 @pytest.mark.parametrize(
@@ -92,7 +95,22 @@ def _entry_points():
         "attr_offsets": cpu_store.index.vocab.attr_offsets,
         "attr_cards": cpu_store.index.vocab.attr_cards,
     }
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.convert import lm_params_from_reference
+    from repro_torch.launch import serve
+    from repro_torch.models import LM, init_cache, init_params
+    from repro_torch.serving import ServeEngine
+
+    lm_cfg = reduced(get_config("zamba2-7b"))
+    cpu_lm = init_params(lm_cfg, 0, device="cpu")
+    lm_tree = {"embed": cpu_lm.embed.numpy()}
     return {
+        "init_params": lambda: init_params(lm_cfg),
+        "LM": lambda: LM(lm_cfg),
+        "init_cache": lambda: init_cache(lm_cfg, 1, 8),
+        "ServeEngine": lambda: ServeEngine(lm_cfg, cpu_lm),
+        "lm_params_from_reference": lambda: lm_params_from_reference(lm_tree, lm_cfg),
+        "launch.serve.main": lambda: serve.main(["--arch", "zamba2-7b", "--requests", "1"]),
         "resolve_device": lambda: resolve_device(),
         "build_density_maps": lambda: build_density_maps(t.dims, t.cards, 16),
         "build_block_store": lambda: build_block_store(t, 16),
@@ -104,7 +122,8 @@ def _entry_points():
 
 @pytest.mark.parametrize(
     "name", ["resolve_device", "build_density_maps", "build_block_store",
-             "store_from_reference", "NeedleTailEngine", "store.to"],
+             "store_from_reference", "NeedleTailEngine", "store.to", "init_params", "LM",
+             "init_cache", "ServeEngine", "lm_params_from_reference", "launch.serve.main"],
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():

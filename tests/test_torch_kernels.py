@@ -196,9 +196,13 @@ def test_threshold_bisect_equals_pallas_and_matches_sort_selection(seed, lam):
 
 
 def test_ops_exposes_the_reference_names_and_defers_the_lm_kernels():
+    """Every name of the reference's ``ops``; the LM kernels landed with the
+    LM serving slice and are the wrappers of their kernel modules."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import ssd_scan
+
     for name in ("density_combine", "density_combine_batch", "prefix_sum", "theta_stats",
-                 "theta_stats_batch", "threshold_bisect", "plan_wave", "block_gather"):
+                 "theta_stats_batch", "threshold_bisect", "plan_wave", "block_gather",
+                 "flash_attention", "ssd_scan"):
         assert callable(getattr(tops, name))
-    for fn in (tops.flash_attention, tops.ssd_scan):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            fn()
+    assert tops.flash_attention is flash_attention and tops.ssd_scan is ssd_scan

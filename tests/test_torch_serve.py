@@ -1,0 +1,198 @@
+"""The port's ``ServeEngine`` and serving launcher against the reference's, on
+the CPU.
+
+Reduced zamba2-7b, parameters carried across from the reference, the
+launcher's traffic (``repro/launch/serve.py``: 8 requests of 4-23 tokens
+drawn from ``default_rng(seed)``, 16 new tokens, 4 slots, ``max_seq`` 128).
+Greedy tokens must equal the reference's, except where the two parts at a
+near-tie: the top-2 logit gap at that token within 2·2e-3 (twice the
+prefill-vs-forward tolerance of ``tests/test_models.py``); such a request
+is compared up to there and the near-ties counted.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config, reduced
+from repro.models import init_params
+from repro.serving import ServeEngine as JaxServeEngine
+from repro_torch import configs as tconfigs
+from repro_torch.convert import lm_params_from_reference
+from repro_torch.launch import serve as tserve
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models import init_params as init_lm
+from repro_torch.serving import ServeEngine
+
+TOL = 2e-3
+
+
+def _launcher_prompts(vocab: int, seed: int = 0, n: int = 8):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(rng.integers(4, 24))) for _ in range(n)]
+
+
+def _serve(eng, prompts):
+    for p in prompts:
+        eng.submit(p, max_new_tokens=16)
+    return eng.run_until_drained()
+
+
+@pytest.fixture(scope="module")
+def zamba():
+    cfg = reduced(get_config("zamba2-7b"))
+    params = init_params(cfg, jax.random.PRNGKey(0))
+    tcfg = tconfigs.reduced(tconfigs.get_config("zamba2-7b"))
+    model = lm_params_from_reference(jax.tree.map(np.asarray, params), tcfg, device="cpu")
+    return cfg, params, tcfg, model
+
+
+def test_serve_engine_gives_the_reference_tokens(zamba):
+    cfg, params, tcfg, model = zamba
+    prompts = _launcher_prompts(cfg.vocab)
+    ref = _serve(JaxServeEngine(cfg, params, max_slots=4, max_seq=128), prompts)
+    eng = ServeEngine(tcfg, model, max_slots=4, max_seq=128, device="cpu")
+    mine = _serve(eng, prompts)
+    assert [r.rid for r in mine] == [r.rid for r in ref]
+    compared = near_ties = 0
+    for rm, rr in zip(mine, ref):
+        assert rm.done and len(rm.top2_gap) == len(rm.out_tokens)
+        for j, (a, b) in enumerate(zip(rm.out_tokens, rr.out_tokens)):
+            if a != b:
+                assert rm.top2_gap[j] <= 2 * TOL, (rm.rid, j, rm.top2_gap[j])
+                near_ties += 1
+                break
+            compared += 1
+        else:
+            assert len(rm.out_tokens) == len(rr.out_tokens) == 16
+    assert compared >= 100 and near_ties <= 1, (compared, near_ties)
+    assert [w["size"] for w in eng.wave_stats] == [4, 4]
+    assert all(w["decode_steps"] == 15 for w in eng.wave_stats)
+
+
+def test_serve_engine_plain_impl_gives_the_same_tokens_on_cpu(zamba):
+    _, _, tcfg, model = zamba
+    prompts = _launcher_prompts(tcfg.vocab, seed=1, n=3)
+    a = _serve(ServeEngine(tcfg, model, max_slots=2, max_seq=64, device="cpu"), prompts)
+    b = _serve(ServeEngine(tcfg, model, max_slots=2, max_seq=64, impl="plain", device="cpu"),
+               prompts)
+    assert [r.out_tokens for r in a] == [r.out_tokens for r in b]
+
+
+def test_serve_engine_checks_its_arguments_and_defers_later_pools(zamba):
+    _, _, tcfg, model = zamba
+    with pytest.raises(NotImplementedError, match="serving slice"):
+        ServeEngine(tcfg, model, device="cpu", exemplar_device=True)
+    with pytest.raises(ValueError, match="impl"):
+        ServeEngine(tcfg, model, device="cpu", impl="xla")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ServeEngine(tcfg, model, device="meta")
+    eng = ServeEngine(tcfg, model, device="cpu")
+    for name in ("select_exemplars", "submit_exemplar_request", "pump_exemplar_requests",
+                 "drain_exemplar_requests", "exemplar_tick", "submit_aggregate_request",
+                 "aggregate_tick", "lm_tick", "step", "run_continuous"):
+        with pytest.raises(NotImplementedError, match="serving slice"):
+            getattr(eng, name)()
+
+
+def test_step_factories_run_prefill_and_decode(zamba):
+    _, _, tcfg, model = zamba
+    toks = torch.from_numpy(np.arange(12, dtype=np.int64)[None] + 3)
+    with torch.inference_mode():
+        last, cache = make_prefill_step(tcfg, max_seq=13)(model, {"tokens": toks})
+        lg, _ = make_decode_step(tcfg)(model, cache, torch.tensor([5]), 12)
+        full = model(torch.cat([toks, torch.tensor([[5]])], dim=1))
+    np.testing.assert_allclose(last.numpy(), full[:, 11].numpy(), atol=TOL)
+    np.testing.assert_allclose(lg.numpy(), full[:, 12].numpy(), atol=TOL)
+
+
+def test_serve_launcher_runs_on_the_cpu_when_asked(capsys):
+    n = tserve.main(["--arch", "zamba2-7b", "--requests", "3", "--max-new", "4", "--slots", "2",
+                     "--max-seq", "48", "--device", "cpu"])
+    assert n == 3
+    assert "on cpu: 3 requests" in capsys.readouterr().out
+
+
+def test_serve_launcher_reduced_flag_can_be_turned_off(monkeypatch):
+    built = []
+
+    def spy(cfg, *args, **kwargs):
+        built.append(cfg)
+        raise SystemExit(0)
+
+    monkeypatch.setattr(tserve, "init_params", spy)
+    for flag, want in (([], "zamba2-7b-reduced"), (["--no-reduced"], "zamba2-7b")):
+        with pytest.raises(SystemExit):
+            tserve.main(["--arch", "zamba2-7b", "--device", "cpu", *flag])
+        assert built[-1].name == want
+    assert built[-1].d_model == 3584
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def test_chip_smoke_lm_phases_pass_on_a_reduced_cpu_model(monkeypatch):
+    """chip_smoke.py's lm_forward, lm_serve and LM kernel-row functions on
+    reduced zamba2 on the CPU (the kernels' plain versions; the launch
+    counts a card run would read are handed in, CUDA-event timing replaced
+    by a call), and its checks failing where they should."""
+    cs = _chip_smoke()
+    tcfg = tconfigs.reduced(tconfigs.get_config(cs.LM_ARCH))
+    model = init_lm(tcfg, 0, device="cpu")
+    want = cs.lm_layer_counts(tcfg)
+    assert want == {"flash_attention": 1, "ssd_scan": 5}
+    waves = []
+
+    def run(name, fn):
+        out = fn()
+        n = len(out[0].wave_stats) if name == "lm_serve" else 1
+        waves.append(name)
+        return out, 0.5, {**dict.fromkeys(cs.KERNELS, 0), **{k: v * n for k, v in want.items()}}
+
+    fwd = cs.lm_forward_check(model, 40, 0, run)
+    assert fwd["max_abs_err"] < 1e-4 and fwd["launches"]["ssd_scan"] == 5
+    long = {**cs.SERVE_TRAFFIC["long"], "plen": (100, 140), "max_seq": 160}
+    for traffic in (cs.SERVE_TRAFFIC["launcher"], long):
+        res = cs.lm_serve_check(model, traffic, 0, run)
+        assert res["streams"]["tokens_equal"] == res["streams"]["tokens"] > 0
+        assert res["prefill"]["logits_max_abs_err"] < 1e-4
+        assert set(res["prefill"]["cache_max_abs_err"]) == {"conv", "ssd", "k", "v"}
+    assert waves == ["lm_forward", "lm_serve", "lm_serve"]
+    monkeypatch.setattr(cs, "time_ms", lambda fn, flush=None: (fn(), 0.0)[1])
+    monkeypatch.setattr(cs, "DANUBE_ATTN", (1, 4, 2, 80, 24, 32))
+    monkeypatch.setattr(cs, "MAMBA2_130M_SSD", (1, 2, 256, 64, 128))
+    # on the CPU the bf16 wrapper is attention_ref's bf16 arithmetic, not the
+    # kernel's f32 sums: held at the reference's bf16 tolerance
+    monkeypatch.setattr(cs, "FA_BF16_ATOL", 3e-2)
+    monkeypatch.setattr(cs, "FA_BF16_RTOL", 3e-2)
+    launches = {ph: {k: 1 for k in cs.KERNELS} for ph in cs.PHASE_KERNELS}
+    rows = cs.lm_kernel_rows(tcfg, launches, 300, 0, torch.device("cpu"))  # 3 SSD chunks
+    assert [r["name"] for r in rows] == list(cs.LM_KERNELS)
+    assert rows[1]["checks"]["slow_decay_carry_weight"] > cs.SSD_CARRY_MIN * cs.SSD_ATOL
+    with pytest.raises(AssertionError, match="cannot see a wrong carry"):
+        cs.lm_kernel_rows(tcfg, launches, 40, 0, torch.device("cpu"))  # one chunk: no carry
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert all(keys <= set(r) for r in rows)
+    assert rows[0]["library_ms"] == 0.0 and rows[1]["library_ms"] is None
+    # the checks fail where they should
+    with pytest.raises(AssertionError, match="non-finite"):
+        cs.check_close(torch.tensor([float("nan")]), torch.tensor([0.0]), 1e-3, 1e-3, "x")
+    with pytest.raises(AssertionError, match="beyond"):
+        cs.check_close(torch.tensor([1.0]), torch.tensor([0.9]), 1e-3, 1e-3, "x", "tensor")
+    with pytest.raises(AssertionError, match="expected"):
+        cs.check_launches({"flash_attention": 0, "ssd_scan": 5}, want, "lm")
+    a = [type("R", (), {"rid": 0, "out_tokens": [1, 2], "top2_gap": [1.0, 1.0]})()]
+    b = [type("R", (), {"rid": 0, "out_tokens": [1, 3], "top2_gap": [1.0, 1.0]})()]
+    with pytest.raises(AssertionError, match="top-2 gap"):
+        cs.compare_streams(a, b, 2e-3)
+    b[0].top2_gap = [1.0, 1e-3]  # a near-tie: counted, not failed
+    assert cs.compare_streams(a, b, 2e-3) == {"tokens_equal": 1, "near_ties": 1, "tokens": 2}
