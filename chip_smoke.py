@@ -36,17 +36,31 @@ path must have launched each of its own kernels (``PHASE_KERNELS``):
    θ, boundary cases where ``recsum·rpb`` lies within ``rtol=1e-5`` of k
    counted) and against the sort-based THRESHOLD cut, whose density must
    lie in the bisection's final bracket.
+8. sharded     — a world of one over NCCL (``tcp://127.0.0.1``),
+   ``make_host_mesh()`` and ``engine.attach_mesh(mesh)``: the same wave
+   through ``any_k_batch(device=True)``, cold and warm, then
+   ``device=False`` on a fresh engine; per-query results, rounds, unique
+   blocks, store reads and cache hits must equal the wave phase's.  The
+   joiners' rows are combined on the rank's λ-shard (#3).
+   ``bisect_stats_wave`` on the 64 combined rows against the unsharded
+   ``ops.threshold_bisect`` (θ equal, boundary cases counted).  An NCCL
+   failure fails the run.
+9. sharded_ranks — P = 4 ranks on the same card, started by this script as
+   subprocesses under a time limit (gloo: NCCL refuses two ranks on one
+   card; the collectives' CUDA tensors cross the host, the compute stays on
+   the card), each building the same table and running the same wave: every
+   rank's per-query digest must equal the sharded phase's.
 
 Then the LM serving path, on zamba2-7b at its published widths and full
 depth (81 layers, ~5.74·10⁹ parameters, f32, random weights from
 ``--seed``; the any-k data stays on the card beside it):
 
-8. lm_forward — ``LM.forward`` on a ``[1, 2048]`` token batch with
+10. lm_forward — ``LM.forward`` on a ``[1, 2048]`` token batch with
    ``impl="kernel"``: flash attention (#8) must launch once per ``A``
    occurrence (13) and the SSD scan (#9) once per ``M`` sublayer (68).
    The logits are held against the same forward with ``impl="plain"`` on
    the card within ``LM_ATOL``/``LM_RTOL``.
-9. lm_serve — ``ServeEngine(cfg, model, device="cuda").run_until_drained``
+11. lm_serve — ``ServeEngine(cfg, model, device="cuda").run_until_drained``
    on the launcher's traffic (8 requests, prompts of 4-23 tokens, 16 new
    tokens, 4 slots, ``max_seq`` 128) and on long prompts (4 requests of
    1024-2048 tokens, ``max_seq`` 2176), each beside the same engine with
@@ -55,7 +69,7 @@ depth (81 layers, ~5.74·10⁹ parameters, f32, random weights from
    top-2 logit gap within twice the tolerance), which are counted.  With
    ``--profile``, one more wave of each traffic runs under the profiler.
 
-10. kernels — each kernel at its path's shapes against its plain PyTorch
+12. kernels — each kernel at its path's shapes against its plain PyTorch
    version on the card (exact for the combines, the gather, the prefix scan
    and the θ-counts, ``rtol=1e-5`` for the θ-sums; the reference's own
    tolerances for #8 and #9), timed with CUDA events (median of 25) beside
@@ -63,7 +77,8 @@ depth (81 layers, ~5.74·10⁹ parameters, f32, random weights from
    and the least time the card could take (``bound_ms``).  The prefix scan
    is also held bit for bit at lengths across its chunk edges; #8 also at
    h2o-danube-3-4b's GQA sliding-window shape and in bf16, #9 also at
-   mamba2-130m's d_state 128.
+   mamba2-130m's d_state 128; the sharded combine (#3) at the slab of one of
+   P = 4 ranks and of a world of one.
 
 The last lines are the ``{"kernels": [...]}`` JSON, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -73,9 +88,13 @@ result.
 from __future__ import annotations
 
 import argparse
+import datetime
+import hashlib
 import json
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -91,6 +110,8 @@ TIMING_RUNS = 25
 KERNELS = {
     "density_combine": ("csrc/density_combine.cu", "src/repro/kernels/density_combine.py:75"),
     "density_combine_batch": ("csrc/density_combine.cu", "src/repro/kernels/density_combine.py:142"),
+    "density_combine_batch_sharded": ("csrc/density_combine.cu",
+                                      "src/repro/kernels/density_combine.py:222"),
     "theta_stats": ("csrc/theta_stats.cu", "src/repro/kernels/theta_stats.py:65"),
     "theta_stats_batch": ("csrc/theta_stats.cu", "src/repro/kernels/theta_stats.py:132"),
     "prefix_sum": ("csrc/window_scan.cu", "src/repro/kernels/window_scan.py:53"),
@@ -106,11 +127,16 @@ PHASE_KERNELS = {
     "host_mirror": ("density_combine_batch", "prefix_sum", "block_gather"),
     "single": ("density_combine", "prefix_sum", "block_gather"),
     "bisect": ("theta_stats",),
+    "sharded": ("density_combine_batch_sharded", "theta_stats_batch", "prefix_sum",
+                "block_gather"),
+    "sharded_ranks": ("density_combine_batch_sharded", "prefix_sum", "block_gather"),
     "lm_forward": LM_KERNELS,
     "lm_serve": LM_KERNELS,
 }
 SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 65_537, 12_208)
 RTOL = 1e-5
+SHARDS = 4  # ranks of the sharded_ranks phase, all on the one card
+RANK_TIMEOUT_S = 300  # the sharded_ranks phase fails rather than hang
 
 LM_ARCH = "zamba2-7b"
 LM_FORWARD_SEQ = 2048
@@ -386,6 +412,205 @@ def bisect_check(rows, queries, rpb: int) -> dict:
     return out
 
 
+def wave_digest(batch) -> dict:
+    """Per query a hash of its records, measures, blocks, rounds and
+    algorithm, and the wave's rounds, unique blocks, store reads and cache
+    hits: what two runs of one wave must share."""
+    queries = []
+    for r in batch.results:
+        h = hashlib.sha256()
+        for a in (r.record_block.astype(np.int64), r.record_row.astype(np.int64),
+                  np.ascontiguousarray(r.measures, np.float32),
+                  np.sort(r.blocks_fetched).astype(np.int64)):
+            h.update(a.tobytes())
+        h.update(f"{r.plan_rounds}/{r.algo}".encode())
+        queries.append(h.hexdigest()[:16])
+    return {"queries": queries, "counters": [batch.rounds, int(batch.unique_blocks_fetched.size),
+                                             batch.store_blocks_fetched, batch.cache_hits]}
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def collective_ms(dev, rows: int, lam_local: int, world: int) -> float:
+    """One all-gather of the device round's THRESHOLD frontier (``[Q,
+    2·λ_local]`` int32 from every rank), host clock over 10 calls ending
+    synchronised."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.zeros((rows, 2 * lam_local), dtype=torch.int32, device=dev)
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x)
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        dist.all_gather(parts, x)
+    sync(dev)
+    return (time.perf_counter() - t0) / 10 * 1e3
+
+
+def sharded_check(store, queries, batch, warm, rows, run, device: str = "cuda",
+                  profile: bool = False) -> dict:
+    """The sharded phase on an initialised world of one: ``attach_mesh``,
+    then the wave cold and warm (with ``bisect_stats_wave`` on the combined
+    rows inside the counted run) and the host-mirror loop on a fresh engine,
+    each held against the unsharded waves; θ against ``ops.threshold_bisect``
+    per row.  ``profile`` traces one more warm wave."""
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.kernels.ops import bisect_rounds
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(device_type=device)
+    engine = NeedleTailEngine(store, device=device)
+    planner = engine.attach_mesh(mesh)
+    needs = np.asarray([float(q.k) for q in queries], np.float32)
+    walls = {}
+
+    def cold_wave():
+        t0 = time.perf_counter()
+        out = engine.any_k_batch(queries, device=True)
+        sync(device)
+        walls["cold"] = time.perf_counter() - t0
+        return out, planner.bisect_stats_wave(rows, needs)
+
+    (sh, bis), _, launches = run("sharded", cold_wave)
+    t0 = time.perf_counter()
+    sh_warm = engine.any_k_batch(queries, device=True)
+    sync(device)
+    walls["warm"] = time.perf_counter() - t0
+    if profile:
+        profile_wave(lambda: engine.any_k_batch(queries, device=True), "sharded wave again")
+    host_engine = NeedleTailEngine(store, device=device)
+    host_engine.attach_mesh(mesh)
+    t0 = time.perf_counter()
+    sh_host = host_engine.any_k_batch(queries, device=False)
+    sync(device)
+    walls["host_mirror"] = time.perf_counter() - t0
+    for what, (mine, ref) in {"cold": (sh, batch), "warm": (sh_warm, warm),
+                              "host_mirror": (sh_host, batch)}.items():
+        compare_waves(mine, ref)
+        if wave_digest(mine) != wave_digest(ref):
+            raise AssertionError(f"sharded {what} wave: counters differ from the unsharded wave's")
+    theta = bis.theta.cpu().numpy()
+    out = {"equal": 0, "boundary": 0}
+    for i, q in enumerate(queries):
+        lo, _, trace = bisect_rounds(rows[i], float(q.k), store.records_per_block)
+        if float(lo) == float(theta[i]):
+            out["equal"] += 1
+        elif any(abs(float(r) * store.records_per_block - q.k) <= RTOL * q.k
+                 for _, rs in trace for r in rs.cpu().numpy()):
+            out["boundary"] += 1
+        else:
+            raise AssertionError(f"query {i}: sharded θ {theta[i]} vs threshold_bisect {float(lo)}")
+    return {"walls": walls, "transfers": sh.device_transfers, "round_seconds": sh.round_seconds,
+            "warm_round_seconds": sh_warm.round_seconds, "bisect": out,
+            "collective_ms": collective_ms(device, len(queries), planner.local_width(
+                store.num_blocks), 1),
+            "digest": wave_digest(sh), "launches": launches}
+
+
+def launch_ranks(records: int, seed: int, world: int, device: str = "cuda",
+                 timeout: float = RANK_TIMEOUT_S, profile: bool = False) -> list[dict]:
+    """Start ``world`` ranks of this script (gloo, ``file://`` rendezvous)
+    and return each one's result, with the profiler's lines of its log
+    under ``"profile"``; every rank is killed when the phase ends or
+    outlives ``timeout``."""
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [open(Path(tmp) / f"rank{r}.log", "w+") for r in range(world)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank", str(r), "--world",
+             str(world), "--init", f"file://{tmp}/rendezvous", "--records", str(records),
+             "--seed", str(seed), "--device", device, *(["--profile"] if profile else [])],
+            stdout=logs[r], stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        deadline = time.monotonic() + timeout
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        out = []
+        for r, (p, f) in enumerate(zip(procs, logs)):
+            f.seek(0)
+            text = f.read()
+            f.close()
+            lines = [ln[5:] for ln in text.splitlines() if ln.startswith("RANK ")]
+            if p.returncode != 0 or not lines:
+                raise AssertionError(f"rank {r} exited {p.returncode}:\n{text[-3000:]}")
+            out.append(json.loads(lines[-1]))
+            out[-1]["profile"] = [ln for ln in text.splitlines()
+                                  if ln.startswith(("profile", "  "))]
+    return out
+
+
+def rank_main(args) -> int:
+    """One rank of the sharded_ranks phase: the table, then the wave through
+    ``attach_mesh`` on both loops; prints ``RANK {json}``.  With
+    ``--profile`` every rank runs one more warm wave, rank 0 under the
+    profiler."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.data.block_store import build_block_store
+    from repro_torch.data.synthetic import make_real_like_table
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if args.device == "cuda":
+        torch.cuda.set_device(args.rank % torch.cuda.device_count())
+    dist.init_process_group("gloo", init_method=args.init, world_size=args.world,
+                            rank=args.rank, timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        mesh = make_host_mesh(device_type=args.device)
+        t0 = time.perf_counter()
+        table = make_real_like_table("airline", num_records=args.records, seed=args.seed)
+        store = build_block_store(table, RPB, device=args.device)
+        sync(args.device)
+        data_s = time.perf_counter() - t0
+        queries = make_wave(table.cards, Q, args.seed)
+        walls, digests = {}, {}
+        engine = NeedleTailEngine(store, device=args.device)
+        planner = engine.attach_mesh(mesh)
+        _lib.reset_launches()
+        for what in ("cold", "warm"):
+            t0 = time.perf_counter()
+            b = engine.any_k_batch(queries, device=True)
+            sync(args.device)
+            walls[what], digests[what] = time.perf_counter() - t0, wave_digest(b)
+            if what == "cold":
+                launches, rounds = dict(_lib.LAUNCHES), b.round_seconds
+        if args.profile:
+            def again():
+                return engine.any_k_batch(queries, device=True)
+
+            if args.rank == 0:
+                profile_wave(again, f"rank {args.rank} wave again")
+            else:
+                again()
+        host = NeedleTailEngine(store, device=args.device)
+        host.attach_mesh(mesh)
+        t0 = time.perf_counter()
+        digests["host_mirror"] = wave_digest(host.any_k_batch(queries, device=False))
+        walls["host_mirror"] = time.perf_counter() - t0
+        coll = collective_ms(args.device, Q, planner.local_width(store.num_blocks), args.world)
+        print("RANK " + json.dumps({
+            "rank": args.rank, "shards": planner.num_shards, "data_s": data_s, "walls": walls,
+            "round_seconds": rounds, "digests": digests, "launches": launches,
+            "collective_ms": coll, "lam_local": planner.local_width(store.num_blocks)}),
+            flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def profile_wave(fn, label: str):
     """Run ``fn`` (one wave) under ``torch.profiler`` and print its device
     busy time by operator, the share of its wall time the device was busy,
@@ -442,9 +667,10 @@ def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict
 
     from repro_torch.core.density_map import pack_row_matrix
     from repro_torch.core.threshold import threshold_sort_batch
+    from repro_torch.core.sharded import local_width
     from repro_torch.kernels.density_combine import (
         density_combine, density_combine_batch, density_combine_batch_plain,
-        density_combine_plain,
+        density_combine_batch_sharded, density_combine_plain,
     )
     from repro_torch.kernels.ops import bisect_rounds
     from repro_torch.kernels.plan_wave import (
@@ -496,6 +722,39 @@ def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict
         time_ms(lambda: torch.prod(torch.where(valid, dens[rmc], 1.0), dim=1)),
         (n_rows * lam + Q * lam) * 4 + rm.numel() * 4,
         float(int((rm_np >= 0).sum()) * lam),
+    )
+
+    # sharded ⊕-combine (#3): #2's kernel on one rank's λ-shard of the index,
+    # at P = 4 (rank 0's slab, timed) and P = 1; each equal bit for bit to its
+    # plain version and to those columns of the whole index's combine
+    full = {op: density_combine_batch(dens, rm, op) for op in ("and", "or")}
+    slabs = {}
+    for p in (SHARDS, 1):
+        w = local_width(lam, p)
+        slab = dens[:, :w].contiguous()
+        for op in ("and", "or"):
+            k_out = density_combine_batch_sharded(slab, rm, None, op)
+            if not torch.equal(k_out, density_combine_batch_plain(slab, rm, op)):
+                raise AssertionError(f"density_combine_batch_sharded ({op}, P={p}) differs "
+                                     "from its plain version")
+            if not torch.equal(k_out, full[op][:, :w]):
+                raise AssertionError(f"density_combine_batch_sharded ({op}, P={p}) differs "
+                                     "from the whole index's combine")
+        slabs[p] = slab
+    w, slab = local_width(lam, SHARDS), slabs[SHARDS]
+    b1, by1 = bound_ms((n_rows * lam + Q * lam) * 4 + rm.numel() * 4,
+                       float(int((rm_np >= 0).sum()) * lam))
+    p1 = {"shape": [int(dens.shape[0]), lam],
+          "ms": time_ms(lambda: density_combine_batch_sharded(slabs[1], rm, None, "and")),
+          "bound_ms": b1, "bound_by": by1}
+    entry(
+        "density_combine_batch_sharded", 0.0,
+        time_ms(lambda: density_combine_batch_sharded(slab, rm, None, "and")),
+        time_ms(lambda: density_combine_batch_plain(slab, rm, "and")),
+        time_ms(lambda: torch.prod(torch.where(valid, slab[rmc], 1.0), dim=1)),
+        (n_rows * w + Q * w) * 4 + rm.numel() * 4,
+        float(int((rm_np >= 0).sum()) * w),
+        shape=[int(dens.shape[0]), w], shards=SHARDS, p1=p1,
     )
 
     # single-row θ-stats: the first bisection round of query 0 (T = 16)
@@ -883,12 +1142,20 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="run the first wave under torch.profiler and trace one more "
-                         "warm wave and one LM serving wave of each traffic; print device "
-                         "and host time by operator")
+                         "warm wave, one warm sharded wave and one LM serving wave of each "
+                         "traffic; print device and host time by operator")
+    # one rank of the sharded_ranks phase (the script starts these itself)
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=SHARDS, help=argparse.SUPPRESS)
+    ap.add_argument("--init", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     started = time.perf_counter()
 
     import torch
+
+    if args.rank is not None:
+        return rank_main(args)
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1022,6 +1289,47 @@ def main(argv=None) -> int:
     if phase_launches["bisect"]["theta_stats"] == 0:
         raise AssertionError("the bisect path launched no theta_stats")
     log(f"bisect: {Q} rows in {bisect_wall} s (with its checks): {bis}")
+
+    # -- 8. sharded: a world of one over NCCL on the card, through attach_mesh
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        sh = sharded_check(store, queries, batch, warm, rows, run_phase, profile=args.profile)
+    finally:
+        dist.destroy_process_group()
+    phase_launches["sharded"] = sh.pop("launches")
+    log(f"sharded (NCCL, P=1): wave {sh['walls']['cold']} s cold (round seconds "
+        f"{sh['round_seconds']}), {sh['walls']['warm']} s warm ({sh['warm_round_seconds']}), "
+        f"host mirror {sh['walls']['host_mirror']} s; transfers {sh['transfers']}; frontier "
+        f"all_gather {sh['collective_ms']} ms; bisect_stats_wave vs threshold_bisect "
+        f"{sh['bisect']}; each wave == the unsharded wave's, counters included")
+
+    # -- 9. sharded_ranks: P = 4 ranks on the one card, each with its own table
+    t0 = time.perf_counter()
+    ranks = launch_ranks(args.records, args.seed, SHARDS, profile=args.profile)
+    ranks_wall = time.perf_counter() - t0
+    for r in ranks:
+        for what in ("cold", "warm", "host_mirror"):
+            want = sh["digest"] if what != "warm" else wave_digest(warm)
+            if r["digests"][what] != want:
+                raise AssertionError(f"rank {r['rank']}'s {what} wave differs from the sharded "
+                                     "phase's")
+        missing = [k for k in PHASE_KERNELS["sharded_ranks"] if r["launches"][k] == 0]
+        if missing or r["shards"] != SHARDS:
+            raise AssertionError(f"rank {r['rank']}: {r['shards']} shards, launched no {missing}")
+    phase_launches["sharded_ranks"] = ranks[0]["launches"]
+    for line in ranks[0]["profile"]:
+        log(line)
+    log(f"sharded_ranks launches (rank 0): {ranks[0]['launches']}")
+    log(f"sharded_ranks (P={SHARDS} on one card, gloo: the collectives' CUDA tensors are "
+        f"staged through the host, compute stays on the card; {args.records} records, "
+        f"λ_local {ranks[0]['lam_local']}): {ranks_wall:.1f} s in all; per rank "
+        + "; ".join(f"rank {r['rank']}: data {r['data_s']:.1f} s, waves {r['walls']}, round "
+                    f"seconds {r['round_seconds']}, frontier all_gather {r['collective_ms']} ms"
+                    for r in ranks)
+        + "; every rank == the sharded phase, counters included")
 
     # -- 8. lm_forward and 9. lm_serve: zamba2-7b at full width on the card
     # f32 products stay f32 on the card, as in the reference (no TF32)

@@ -11,9 +11,9 @@ Counterpart of ``repro/core/block_cache.py``.  Two caches live here:
   are read, which are evicted, in which order) is the reference's step for
   step, so the counters agree with it on the same call sequence.
 * :class:`PlanOrderCache` — per-(combined-row, exclusion) THRESHOLD sorted
-  orders and per-(row, need) TWO-PRONG windows, keyed on the row *bytes*,
-  host arrays as in the reference.  The sharded planner's memo arrives with
-  the multi-GPU slice.
+  orders, per-(row, need) TWO-PRONG windows (shared by the host and sharded
+  planners) and per-(row, need) sharded THRESHOLD id sets, keyed on the row
+  *bytes*, host arrays as in the reference.
 
 Where the slabs live.  The reference keeps host copies of each block.  Here
 the cached slabs stay on the store's device, in a slot pool: three tensors
@@ -298,16 +298,20 @@ class BlockLRUCache:
 
 @dataclasses.dataclass
 class PlanCacheStats:
-    """Hit/miss counters per memo kind (monotonic)."""
+    """Hit/miss counters per memo kind (monotonic): ``threshold_*`` the
+    sorted-order memo, ``two_prong_*`` the window memo, ``sharded_threshold_*``
+    the sharded planner's id-set memo."""
 
     threshold_hits: int = 0
     threshold_misses: int = 0
     two_prong_hits: int = 0
     two_prong_misses: int = 0
+    sharded_threshold_hits: int = 0
+    sharded_threshold_misses: int = 0
 
     @property
     def hits(self) -> int:
-        return self.threshold_hits + self.two_prong_hits
+        return self.threshold_hits + self.two_prong_hits + self.sharded_threshold_hits
 
 
 class PlanOrderCache:
@@ -315,10 +319,13 @@ class PlanOrderCache:
 
     THRESHOLD entries map ``row.tobytes()`` (exclusions already zeroed into
     the row) to host ``(sort_idx, sorted_d, cumsum)``; TWO-PRONG entries map
-    ``(row_bytes, need)`` to ``(start, end)``.  Every planner computes each
-    row independently, so an entry is bit-identical to recomputing it:
-    repeated (template, exclusion) pairs skip the sort and the scan.
-    ``max_entries`` bounds each memo, evicting the least recently touched.
+    ``(row_bytes, need)`` to ``(start, end)``; sharded THRESHOLD entries map
+    ``(row_bytes, need)`` to the ascending block-id array the sharded
+    planner selected (it gathers frontiers, not the whole sorted order).
+    Every planner computes each row independently, so an entry is
+    bit-identical to recomputing it: repeated (template, exclusion) pairs
+    skip the sort and the scan.  ``max_entries`` bounds each memo, evicting
+    the least recently touched.
     """
 
     def __init__(self, max_entries: int = 4096):
@@ -328,10 +335,12 @@ class PlanOrderCache:
             OrderedDict()
         )
         self._two_prong: "OrderedDict[tuple[bytes, float], tuple[int, int]]" = OrderedDict()
+        self._sharded_threshold: "OrderedDict[tuple[bytes, float], np.ndarray]" = OrderedDict()
 
     def clear(self) -> None:
         self._threshold.clear()
         self._two_prong.clear()
+        self._sharded_threshold.clear()
 
     def _touch(self, od: OrderedDict, key) -> None:
         od.move_to_end(key)
@@ -364,3 +373,20 @@ class PlanOrderCache:
     def put_two_prong(self, row_bytes: bytes, need: float, start: int, end: int) -> None:
         self._two_prong[(row_bytes, float(need))] = (int(start), int(end))
         self._touch(self._two_prong, (row_bytes, float(need)))
+
+    def peek_sharded_threshold(self, row_bytes: bytes, need: float):
+        """:meth:`get_sharded_threshold` without counting or touching."""
+        return self._sharded_threshold.get((row_bytes, float(need)))
+
+    def get_sharded_threshold(self, row_bytes: bytes, need: float):
+        hit = self._sharded_threshold.get((row_bytes, float(need)))
+        if hit is not None:
+            self.stats.sharded_threshold_hits += 1
+            self._touch(self._sharded_threshold, (row_bytes, float(need)))
+        else:
+            self.stats.sharded_threshold_misses += 1
+        return hit
+
+    def put_sharded_threshold(self, row_bytes: bytes, need: float, ids) -> None:
+        self._sharded_threshold[(row_bytes, float(need))] = np.asarray(ids, dtype=np.int64)
+        self._touch(self._sharded_threshold, (row_bytes, float(need)))

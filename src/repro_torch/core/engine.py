@@ -16,7 +16,11 @@ Each plan crosses to the host once, as one packed int32 vector.
 
 :meth:`NeedleTailEngine.any_k_batch` evaluates a wave of queries
 (:mod:`repro_torch.core.multi_query`), on the device or through the
-host-mirror loop; per query it returns what ``any_k`` returns.
+host-mirror loop; per query it returns what ``any_k`` returns.  After
+:meth:`NeedleTailEngine.attach_mesh` every rank of the mesh runs the same
+engine on the same store and queries, and the waves plan over the
+λ-sharded density wave (:mod:`repro_torch.core.sharded`), with equal
+results.
 """
 from __future__ import annotations
 
@@ -42,12 +46,12 @@ Predicates = Sequence[tuple[int, int]]
 
 # what later slices of the port carry, by constructor argument
 _LATER = {
-    "tiers": "tiered-storage slice (ROADMAP Queue 1 item 5)",
-    "residency_aware": "tiered-storage slice (ROADMAP Queue 1 item 5)",
-    "calibrated_cost": "tiered-storage slice (ROADMAP Queue 1 item 5)",
-    "timing_backend": "tiered-storage slice (ROADMAP Queue 1 item 5)",
-    "ledger": "tiered-storage slice (ROADMAP Queue 1 item 5)",
-    "obs": "serving and observability slice (ROADMAP Queue 1 item 6)",
+    "tiers": "tiered-storage slice",
+    "residency_aware": "tiered-storage slice",
+    "calibrated_cost": "tiered-storage slice",
+    "timing_backend": "tiered-storage slice",
+    "ledger": "tiered-storage slice",
+    "obs": "serving and observability slice",
 }
 
 
@@ -104,6 +108,7 @@ class NeedleTailEngine:
         self.max_refills = max_refills
         self.block_cache = BlockLRUCache(cache_bytes)
         self.plan_cache = PlanOrderCache(plan_cache_entries)
+        self.distributed = None  # the sharded planner, once a mesh is attached
         store.register_invalidation_listener(self.block_cache.invalidate)
 
     # ------------------------------------------------------------------ plans
@@ -227,10 +232,36 @@ class NeedleTailEngine:
             plan_rounds=rounds,
         )
 
+    # ------------------------------------------------------------------- mesh
+    def attach_mesh(self, mesh, axis: str = "data", **kwargs):
+        """Make :meth:`any_k_batch` plan over a λ-sharded wave.
+
+        ``mesh`` is a ``DeviceMesh`` (:func:`repro_torch.launch.mesh.
+        make_host_mesh`) whose ``axis`` group shards λ, or a bare process
+        group.  Every rank of it calls this, and then runs the same
+        ``any_k_batch`` calls (SPMD).  Builds a :class:`repro_torch.core.
+        sharded.DistributedAnyK` on this engine's device sharing its block
+        cache; ``kwargs`` (``candidates``, ``two_prong_group``,
+        ``remote_cost``, ...) go to it.  Returns it (also
+        ``self.distributed``)."""
+        from repro_torch.core.sharded import DistributedAnyK
+
+        self.distributed = DistributedAnyK(
+            mesh, axis=axis, records_per_block=self.store.records_per_block,
+            block_cache=self.block_cache, device=self.device, **kwargs,
+        )
+        return self.distributed
+
+    def detach_mesh(self) -> None:
+        """Back to unsharded planning."""
+        self.distributed = None
+
+    # ------------------------------------------------------------------ batch
     def any_k_batch(
         self,
         queries,
         algo: str = "auto",
+        sharded: bool | None = None,
         device: bool = True,
     ) -> "BatchQueryResult":
         """Evaluate Q concurrent any-k queries as one wave.
@@ -244,7 +275,14 @@ class NeedleTailEngine:
         device, memoized across batches in ``plan_cache``).  The port
         defaults to the device wave, the reference to the host-mirror loop;
         both read through ``block_cache``.
+
+        ``sharded``: ``None`` plans over the sharded wave iff a mesh is
+        attached, ``True`` requires one, ``False`` plans unsharded even with
+        one attached.
         """
         from repro_torch.core.multi_query import run_batch
 
-        return run_batch(self, queries, algo=algo, plan_on_host=not device)
+        planner = self.distributed if sharded is None or sharded else None
+        if sharded and planner is None:
+            raise ValueError("sharded=True but no mesh attached; call attach_mesh")
+        return run_batch(self, queries, algo=algo, plan_on_host=not device, planner=planner)

@@ -37,9 +37,17 @@ Counterpart of ``repro/core/multi_query.py``.  Q concurrent
 Per-query results (records, blocks, rounds, algorithm) are byte-identical
 to the reference's ``run_batch`` and to Q separate ``any_k`` calls, and the
 batch's ``store_blocks_fetched``, ``cache_hits`` and ``modeled_store_io_s``
-come from the cache's counters with the reference's meaning.  Left for
-later slices of the port: ``Predicate`` trees and ``forward_optimal``,
-tiers, the sharded planner and the obs hooks.
+come from the cache's counters with the reference's meaning.
+
+With a sharded ``planner`` (:class:`repro_torch.core.sharded.DistributedAnyK`,
+``run_batch(planner=...)`` or ``engine.attach_mesh``) every rank runs the
+same loop and each round's plans come from collectives over the λ-sharded
+wave: in the device wave each rank combines its λ-shard of the joiners'
+rows (#3) and the round plans the shards
+(:meth:`~repro_torch.core.sharded.DistributedAnyK.device_round_fn`); in the
+host-mirror loop the memo misses go to the planner's wave methods.  Plans
+and results equal the unsharded ones.  Left for later slices of the port:
+``Predicate`` trees and ``forward_optimal``, tiers and the obs hooks.
 """
 from __future__ import annotations
 
@@ -70,8 +78,8 @@ def check_algo(algo: str) -> None:
     """Raise for an algorithm this slice of the port does not carry."""
     if algo == "forward_optimal":
         raise NotImplementedError(
-            "forward_optimal arrives with the slice that ports core/predicates.py "
-            "and core/forward_optimal.py (ROADMAP Queue 1 item 3)"
+            "forward_optimal arrives with the predicates slice, which ports "
+            "core/predicates.py and core/forward_optimal.py"
         )
     if algo not in _ALGOS:
         raise ValueError(f"unknown algo {algo!r}")
@@ -88,7 +96,7 @@ def check_predicates(predicates, op: str) -> None:
     if not pairs:
         raise NotImplementedError(
             "only lists of (attr, value) pairs are supported; Predicate trees "
-            "arrive with the slice that ports core/predicates.py (ROADMAP Queue 1 item 3)"
+            "arrive with the predicates slice, which ports core/predicates.py"
         )
 
 
@@ -186,14 +194,15 @@ def new_query_state(query: "BatchQuery | tuple") -> _QueryState:
 class DevicePlanState:
     """Round-carried device state of the wave planner.
 
-    ``combined0`` is the base ⊕-combined wave matrix (exclusion-free);
+    ``combined0`` is the base ⊕-combined wave matrix (exclusion-free; with a
+    sharded planner this rank's ``[Qb, λ_local]`` shard of it);
     ``excl`` the per-query exclusion mask the device updates itself from the
     host's choice codes (:func:`repro_torch.kernels.plan_wave.apply_chosen`);
     ``th_mask`` / ``tp_win`` the previous round's THRESHOLD prefix and
     TWO-PRONG window.  ``transfers`` counts the device→host plan transfers.
     """
 
-    combined0: torch.Tensor  # [Qb, λ] f32
+    combined0: torch.Tensor  # [Qb, λ] f32 ([Qb, λ_local] when sharded)
     excl: torch.Tensor  # [Qb, λ] bool
     th_mask: torch.Tensor  # [Qb, λ] bool
     tp_win: torch.Tensor  # [Qb, 2] i32
@@ -208,6 +217,23 @@ def _bucket(n: int) -> int:
     return b
 
 
+def _local_round_fn(records_per_block: int):
+    """The single-device round of the device wave: replay the host's
+    choices onto the exclusion mask, re-plan every row
+    (:func:`~repro_torch.kernels.plan_wave.plan_wave_from_combined`) and
+    pack the round's plans for its one transfer.  Returns ``(packed, excl,
+    th_mask, tp_win)``; a sharded planner's ``device_round_fn`` has the same
+    form."""
+
+    def round_fn(combined0, excl, th_prev, tp_prev, chosen_prev, needs):
+        excl = apply_chosen(excl, th_prev, tp_prev, chosen_prev)
+        res = plan_wave_from_combined(combined0, excl, needs, records_per_block)
+        packed = pack_plan(res.th_mask, res.n_sel, res.tp_start, res.tp_end)
+        return packed, excl, res.th_mask, torch.stack([res.tp_start, res.tp_end], dim=1)
+
+    return round_fn
+
+
 class DeviceWave:
     """A slot-pooled device-resident wave planner.
 
@@ -218,20 +244,28 @@ class DeviceWave:
     seated in one batch at the top of the next :meth:`plan_round`.  Rows are
     planned independently, so an occupant's plans do not depend on what the
     other slots hold, and each round ships exactly one packed transfer.
+    With a sharded ``planner`` the base rows are this rank's λ-shards and the
+    round is the planner's.
     """
 
     def __init__(self, engine: "NeedleTailEngine", n_slots: int,
-                 default_algo: str = "auto"):
+                 default_algo: str = "auto", planner=None):
         check_algo(default_algo)
         self.engine = engine
+        self.planner = planner
         self.default_algo = default_algo
         self.n_slots = n_slots
         self.lam = engine.store.num_blocks
         self.rpb = engine.store.records_per_block
         self.qb = _bucket(max(n_slots, 1))
+        if planner is None:
+            self.round_fn, width = _local_round_fn(self.rpb), self.lam
+        else:
+            self.round_fn = planner.device_round_fn(self.lam, self.rpb)
+            width = planner.local_width(self.lam)
         dev = engine.device
         self.state = DevicePlanState(
-            combined0=torch.zeros((self.qb, self.lam), dtype=torch.float32, device=dev),
+            combined0=torch.zeros((self.qb, width), dtype=torch.float32, device=dev),
             excl=torch.zeros((self.qb, self.lam), dtype=torch.bool, device=dev),
             th_mask=torch.zeros((self.qb, self.lam), dtype=torch.bool, device=dev),
             tp_win=torch.zeros((self.qb, 2), dtype=torch.int32, device=dev),
@@ -263,21 +297,24 @@ class DeviceWave:
         return st
 
     def _flush_joins(self) -> None:
-        """One ⊕-combine per op group for the queued joiners, then one
-        scatter seats them all."""
+        """One ⊕-combine per op group for the queued joiners (#2, or #3 on
+        this rank's λ-shard with a sharded planner), then one scatter seats
+        them all."""
         if not self._joining:
             return
         joining, self._joining = self._joining, []
         dev = self.engine.device
         dens = self.engine.store.index.densities
         vocab = self.engine.store.index.vocab
-        rows = torch.empty((len(joining), self.lam), dtype=torch.float32, device=dev)
+        combine = combine_densities_batch if self.planner is None else self.planner.combine_wave
+        rows = torch.empty((len(joining), self.state.combined0.shape[1]),
+                           dtype=torch.float32, device=dev)
         groups: dict[str, list[int]] = {}
         for j, slot in enumerate(joining):
             groups.setdefault(self.slots[slot].query.op, []).append(j)
         for op, js in groups.items():
             rm = pack_row_matrix(vocab, [self.slots[joining[j]].query.predicates for j in js])
-            rows[torch.as_tensor(js, device=dev)] = combine_densities_batch(dens, rm, op)
+            rows[torch.as_tensor(js, device=dev)] = combine(dens, rm, op)
         excl_rows = np.zeros((len(joining), self.lam), dtype=bool)
         for j, slot in enumerate(joining):
             ex = self.slots[slot].exclude
@@ -308,15 +345,12 @@ class DeviceWave:
         needs_np = np.ones((self.qb,), np.float32)
         for s, st in zip(active_slots, active):
             needs_np[s] = float(st.need)
-        ds.excl = apply_chosen(ds.excl, ds.th_mask, ds.tp_win,
-                               torch.from_numpy(self.chosen).to(dev))
-        res = plan_wave_from_combined(
-            ds.combined0, ds.excl, torch.from_numpy(needs_np).to(dev), self.rpb
+        packed, ds.excl, ds.th_mask, ds.tp_win = self.round_fn(
+            ds.combined0, ds.excl, ds.th_mask, ds.tp_win,
+            torch.from_numpy(self.chosen).to(dev), torch.from_numpy(needs_np).to(dev),
         )
-        ds.th_mask = res.th_mask
-        ds.tp_win = torch.stack([res.tp_start, res.tp_end], dim=1)
         # the round's single device→host transfer: the packed [Qb, λ+3] plan
-        packed_np = pack_plan(res.th_mask, res.n_sel, res.tp_start, res.tp_end).cpu().numpy()
+        packed_np = packed.cpu().numpy()
         ds.transfers += 1
         th_mask, _, tps, tpe = unpack_plan(packed_np, self.lam)
         self.chosen = np.full((self.qb,), -1, np.int8)
@@ -465,6 +499,7 @@ def _device_plan_loop(
     engine: "NeedleTailEngine",
     states: list[_QueryState],
     algo: str,
+    planner,
     touched: list[int],
     touched_set: set[int],
     active_counts: list[int],
@@ -473,7 +508,7 @@ def _device_plan_loop(
     """The device-resident refill loop: one :class:`DeviceWave` slot per
     query, each leaving the round it is satisfied.  Returns ``(waves,
     blocks_requested_total, device_transfers)``."""
-    wave = DeviceWave(engine, len(states), default_algo=algo)
+    wave = DeviceWave(engine, len(states), default_algo=algo, planner=planner)
     for i, st in enumerate(states):
         if not st.done:
             wave.join(i, st)
@@ -523,7 +558,7 @@ def _combined_matrix(engine: "NeedleTailEngine", states: list[_QueryState]) -> t
 
 
 def _plan_wave(
-    engine: "NeedleTailEngine", states: list[_QueryState], algo: str
+    engine: "NeedleTailEngine", states: list[_QueryState], algo: str, planner=None,
 ) -> list[np.ndarray]:
     """One round's plans for ``states`` (all under ``algo``), each
     bit-identical to ``engine.plan`` run per query.
@@ -532,6 +567,13 @@ def _plan_wave(
     density-sorted order, so the device sorts and scans each *unique* row of
     the round once (unless the plan-order memo holds it) and each query cuts
     its own prefix on the host; TWO-PRONG dedups on (row, need) pairs.
+
+    With a sharded ``planner`` the (row, need) pairs the memo misses are
+    planned by its wave methods, one collective per planner: THRESHOLD ids
+    come back ascending (the same set; the §4.1 fetch sort and the ``auto``
+    cost ignore the order) and go to the sharded memo; ``group=1`` windows
+    equal the host's and share its memo, while group-aligned windows
+    (``two_prong_group > 1``) bypass it so they cannot poison it.
     """
     combined_dev = _combined_matrix(engine, states)
     combined = combined_dev.cpu().numpy()  # the host mirror: row bytes key the memo
@@ -573,30 +615,56 @@ def _plan_wave(
             plans.append(si_u[:n].astype(np.int64))
         return plans
 
-    def two_prong_plans() -> list[np.ndarray]:
-        win: dict[tuple[int, float], tuple[int, int]] = {}
-        miss: list[int] = []  # one representative query per missed (row, need)
+    def plan_unique_pairs(get, plan_misses, put) -> list:
+        """Per-query values deduplicated on (unique row, need): memo hits
+        from ``get(i)``, one ``plan_misses(miss)`` call for every missed
+        pair (one representative query each), stored with ``put(i, v)``."""
+        val: dict[tuple[int, float], object] = {}
+        miss: list[int] = []
         pending: set[tuple[int, float]] = set()
         for i in range(qa):
             key = (int(u_idx[i]), float(needs[i]))
-            if key in win or key in pending:
+            if key in val or key in pending:
                 continue
-            hit = plan_cache.get_two_prong(row_key[i], float(needs[i]))
+            hit = get(i)
             if hit is not None:
-                win[key] = hit
+                val[key] = hit
             else:
                 miss.append(i)
                 pending.add(key)
         if miss:
-            r = two_prong_select_batch(
-                rows_on_device(miss), torch.from_numpy(needs[miss]).to(engine.device), rpb)
-            starts, ends = r.start.cpu().numpy(), r.end.cpu().numpy()
-            for off, i in enumerate(miss):
-                w = (int(starts[off]), int(ends[off]))
-                win[(int(u_idx[i]), float(needs[i]))] = w
-                plan_cache.put_two_prong(row_key[i], float(needs[i]), *w)
-        return [np.arange(*win[(int(u_idx[i]), float(needs[i]))], dtype=np.int64)
-                for i in range(qa)]
+            for i, v in zip(miss, plan_misses(miss)):
+                val[(int(u_idx[i]), float(needs[i]))] = v
+                put(i, v)
+        return [val[(int(u_idx[i]), float(needs[i]))] for i in range(qa)]
+
+    def windows(miss: list[int]) -> list[tuple[int, int]]:
+        if planner is not None:
+            return planner.two_prong_plan_wave(rows_on_device(miss), needs[miss])
+        r = two_prong_select_batch(
+            rows_on_device(miss), torch.from_numpy(needs[miss]).to(engine.device), rpb)
+        return list(zip(r.start.cpu().tolist(), r.end.cpu().tolist()))
+
+    def two_prong_plans() -> list[np.ndarray]:
+        exact = planner is None or planner.two_prong_group == 1
+        wins = plan_unique_pairs(
+            (lambda i: plan_cache.get_two_prong(row_key[i], float(needs[i])))
+            if exact else (lambda i: None),
+            windows,
+            (lambda i, w: plan_cache.put_two_prong(row_key[i], float(needs[i]), *w))
+            if exact else (lambda i, w: None),
+        )
+        return [np.arange(int(s), int(e), dtype=np.int64) for s, e in wins]
+
+    def threshold_plans_sharded() -> list[np.ndarray]:
+        return plan_unique_pairs(
+            lambda i: plan_cache.get_sharded_threshold(row_key[i], float(needs[i])),
+            lambda miss: planner.threshold_plan_wave(rows_on_device(miss), needs[miss]),
+            lambda i, ids: plan_cache.put_sharded_threshold(row_key[i], float(needs[i]), ids),
+        )
+
+    if planner is not None:
+        threshold_plans = threshold_plans_sharded
 
     if algo == "threshold":
         plans = threshold_plans()
@@ -618,7 +686,7 @@ def _plan_wave(
 
 
 def plan_round_host(
-    engine: "NeedleTailEngine", active: list[_QueryState], algo: str
+    engine: "NeedleTailEngine", active: list[_QueryState], algo: str, planner=None,
 ) -> list[np.ndarray]:
     """Plan ONE refill round for ``active`` (not-done) states on host
     mirrors: one :func:`_plan_wave` per algorithm group, then each plan
@@ -630,7 +698,7 @@ def plan_round_host(
         by_algo.setdefault(st.query.algo or algo, []).append(st)
     plan_of: dict[int, np.ndarray] = {}
     for a, group in by_algo.items():
-        for st, plan in zip(group, _plan_wave(engine, group, a)):
+        for st, plan in zip(group, _plan_wave(engine, group, a, planner)):
             plan_of[id(st)] = plan
     wave_blocks: list[np.ndarray] = []
     for st in active:
@@ -645,6 +713,7 @@ def _host_plan_loop(
     engine: "NeedleTailEngine",
     states: list[_QueryState],
     algo: str,
+    planner,
     touched: list[int],
     touched_set: set[int],
     active_counts: list[int],
@@ -658,7 +727,7 @@ def _host_plan_loop(
         if not active:
             break
         t0 = time.perf_counter()
-        wave_blocks = plan_round_host(engine, active, algo)
+        wave_blocks = plan_round_host(engine, active, algo, planner)
         progressed, req = _execute_wave(engine, active, wave_blocks, touched, touched_set)
         round_seconds.append(time.perf_counter() - t0)
         requested_total += req
@@ -699,9 +768,12 @@ def run_batch(
     queries: Sequence[BatchQuery | tuple],
     algo: str = "auto",
     plan_on_host: bool = False,
+    planner=None,
 ) -> BatchQueryResult:
     """Evaluate Q any-k queries as one wave: the device-resident loop, or
-    with ``plan_on_host=True`` the host-mirror loop.
+    with ``plan_on_host=True`` the host-mirror loop; with a sharded
+    ``planner`` (:class:`repro_torch.core.sharded.DistributedAnyK`) each
+    round plans over the λ-sharded wave, on every rank of its group.
 
     Each query's records are byte-identical to ``engine.any_k(q.predicates,
     q.k, q.op, q.algo or algo)`` and to the reference's ``run_batch`` on the
@@ -727,10 +799,12 @@ def run_batch(
             pass  # a λ=0 store or an all-satisfied wave: nothing to plan or read
         elif plan_on_host:
             waves, requested_total = _host_plan_loop(
-                engine, states, algo, touched, touched_set, active_counts, round_seconds)
+                engine, states, algo, planner, touched, touched_set, active_counts,
+                round_seconds)
         else:
             waves, requested_total, device_transfers = _device_plan_loop(
-                engine, states, algo, touched, touched_set, active_counts, round_seconds)
+                engine, states, algo, planner, touched, touched_set, active_counts,
+                round_seconds)
     finally:
         cache.fetch_log = prev_log
     cpu = time.perf_counter() - t0

@@ -11,6 +11,8 @@ planner; here the batch dimension is written out:
   reference's order, so windows match even where a long f32 prefix sum is
   not monotone.
 * :func:`two_prong_select` — the single-query planner, a one-row batch.
+* :func:`window_search` — the search itself over any ``[Q, n]`` record
+  masses, shared with the sharded TWO-PRONG's group sums.
 * :func:`two_prong_faithful` — Algorithm 2 line for line in float64 (numpy),
   copied from the reference: the oracle a window is judged against at
   full size.
@@ -58,6 +60,34 @@ class TwoProngResult(NamedTuple):
     expected_records: torch.Tensor  # [Q] f32
 
 
+def window_search(m: torch.Tensor, k: torch.Tensor) -> TwoProngResult:
+    """Shortest window of columns per row of ``m`` (``[Q, n]`` f32 record
+    masses) holding at least ``k[q]`` records, ties to the smallest start;
+    ``(0, n)`` where no window does.  The search of
+    :func:`two_prong_select_batch` (columns are blocks) and of the sharded
+    TWO-PRONG (columns are G-block groups), in the reference's f32 order."""
+    nq, n = m.shape
+    dev = m.device
+    if n == 0:
+        z = torch.zeros((nq,), dtype=torch.int64, device=dev)
+        return TwoProngResult(z, z, torch.zeros((nq,), dtype=torch.float32, device=dev))
+    c = torch.nn.functional.pad(prefix_sum(m), (1, 0))  # [Q, n+1], c[:, 0] = 0
+    targets = c[:, :-1] + k.to(torch.float32)[:, None]
+    ends = searchsorted_left(c, targets)  # [Q, n]
+    starts = torch.arange(n, dtype=torch.int64, device=dev)[None, :]
+    feasible = ends <= n
+    lengths = torch.where(feasible, ends - starts, _INT32_MAX)
+    shortest = lengths.min(dim=1, keepdim=True).values
+    # first occurrence of the minimum == the smallest start
+    best = torch.where(lengths == shortest, starts, n).min(dim=1).values
+    any_feasible = feasible.any(dim=1)
+    start = torch.where(any_feasible, best, 0)
+    best_end = torch.gather(ends, 1, best.clamp(max=n - 1)[:, None])[:, 0]
+    end = torch.where(any_feasible, best_end, n)
+    exp = torch.gather(c, 1, end[:, None])[:, 0] - torch.gather(c, 1, start[:, None])[:, 0]
+    return TwoProngResult(start=start, end=end, expected_records=exp)
+
+
 def two_prong_select_batch(
     combined: torch.Tensor,  # [Q, λ] f32
     k: torch.Tensor,  # [Q] f32 per-query record targets
@@ -65,27 +95,7 @@ def two_prong_select_batch(
 ) -> TwoProngResult:
     """Minimal TWO-PRONG window per row, bit-identical to the reference's
     ``two_prong_select_batch`` on the CPU."""
-    nq, lam = combined.shape
-    dev = combined.device
-    if lam == 0:
-        z = torch.zeros((nq,), dtype=torch.int64, device=dev)
-        return TwoProngResult(z, z, torch.zeros((nq,), dtype=torch.float32, device=dev))
-    m = combined * records_per_block
-    c = torch.nn.functional.pad(prefix_sum(m), (1, 0))  # [Q, λ+1], c[:, 0] = 0
-    targets = c[:, :-1] + k.to(torch.float32)[:, None]
-    ends = searchsorted_left(c, targets)  # [Q, λ]
-    starts = torch.arange(lam, dtype=torch.int64, device=dev)[None, :]
-    feasible = ends <= lam
-    lengths = torch.where(feasible, ends - starts, _INT32_MAX)
-    shortest = lengths.min(dim=1, keepdim=True).values
-    # first occurrence of the minimum == the smallest start
-    best = torch.where(lengths == shortest, starts, lam).min(dim=1).values
-    any_feasible = feasible.any(dim=1)
-    start = torch.where(any_feasible, best, 0)
-    best_end = torch.gather(ends, 1, best.clamp(max=lam - 1)[:, None])[:, 0]
-    end = torch.where(any_feasible, best_end, lam)
-    exp = torch.gather(c, 1, end[:, None])[:, 0] - torch.gather(c, 1, start[:, None])[:, 0]
-    return TwoProngResult(start=start, end=end, expected_records=exp)
+    return window_search(combined * records_per_block, k)
 
 
 def two_prong_select(

@@ -1,10 +1,13 @@
 // ⊕-combine of predicate density rows (paper §3.2), for Hopper.
 //
-// Replaces two Pallas kernels: density_combine_batch
+// Replaces three Pallas kernels: density_combine_batch
 // (src/repro/kernels/density_combine.py:142, grid (Q, λ-tiles, γ) with the
-// γ axis carried in the output tile across sequential grid steps) and the
+// γ axis carried in the output tile across sequential grid steps), the
 // single-query density_combine (density_combine.py:75, grid (λ-tiles, γ)),
-// which nt_density_combine runs as a Q = 1 launch of the same kernel.
+// which nt_density_combine runs as a Q = 1 launch of the same kernel, and
+// density_combine_batch_sharded (density_combine.py:181-232, the batch
+// kernel per shard under shard_map), which each rank runs as a launch of
+// nt_density_combine_batch on its own [rows, λ_local] slab.
 //
 // out[q, b] = ⊕_{j < γ, rows[q, j] >= 0} dens[rows[q, j], b]
 //   AND: product, starting from 1.0

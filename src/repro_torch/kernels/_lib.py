@@ -39,7 +39,8 @@ NVCC_FLAGS = (
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {
-    "density_combine": 0, "density_combine_batch": 0, "theta_stats": 0,
+    "density_combine": 0, "density_combine_batch": 0, "density_combine_batch_sharded": 0,
+    "theta_stats": 0,
     "theta_stats_batch": 0, "prefix_sum": 0, "block_gather": 0,
     "flash_attention": 0, "ssd_scan": 0,
 }

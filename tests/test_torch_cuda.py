@@ -25,7 +25,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import attention_plain, flash_attention
 from repro_torch.kernels.ssd_chunk import CHUNK, ssd_chunked, ssd_scan
 from repro_torch.kernels.density_combine import (
-    density_combine, density_combine_batch, density_combine_batch_plain, density_combine_plain,
+    density_combine, density_combine_batch, density_combine_batch_plain,
+    density_combine_batch_sharded, density_combine_plain,
 )
 from repro_torch.kernels.plan_wave import block_gather, block_gather_plain
 from repro_torch.kernels.theta_stats import (
@@ -63,6 +64,77 @@ def test_combine_kernel_bit_identical_to_plain(cuda, op, seed, q, gamma, lam):
     assert _lib.LAUNCHES["density_combine_batch"] == n0 + 1
     assert torch.equal(out, density_combine_batch_plain(dens.to(cuda), rm.to(cuda), op))
     assert torch.equal(out.cpu(), density_combine_batch_plain(dens, rm, op))
+
+
+@pytest.mark.parametrize("op", ["and", "or"])
+@pytest.mark.parametrize("gamma,shards,lam", [(3, 4, 12208), (3, 1, 12208), (1, 4, 1000),
+                                              (2, 3, 1000), (5, 4, 4096), (2, 7, 37)])
+def test_sharded_combine_kernel_bit_identical_to_plain(cuda, op, gamma, shards, lam):
+    """#3 on every rank's slab of a λ-sharded index (λ_local = ⌈λ/P⌉, the
+    last slab zero-padded; 3052, 334, 6 are not multiples of the kernel's
+    256-block tile): bit for bit its plain version and the whole index's
+    combine, counted as its own launch."""
+    from repro_torch.core.sharded import local_width
+
+    dens, rm = _combine_inputs(gamma, 64, gamma, lam)
+    dens, rm = dens.to(cuda), rm.to(cuda)
+    full = density_combine_batch(dens, rm, op)
+    w = local_width(lam, shards)
+    padded = torch.nn.functional.pad(dens, (0, w * shards - lam))
+    for r in range(shards):
+        slab = padded[:, r * w:(r + 1) * w].contiguous()
+        n0 = _lib.LAUNCHES["density_combine_batch_sharded"]
+        out = density_combine_batch_sharded(slab, rm, None, op)
+        torch.cuda.synchronize()
+        assert _lib.LAUNCHES["density_combine_batch_sharded"] == n0 + 1
+        assert torch.equal(out, density_combine_batch_plain(slab, rm, op))
+        hi = min((r + 1) * w, lam) - r * w
+        if hi > 0:
+            assert torch.equal(out[:, :hi], full[:, r * w:r * w + hi])
+
+
+def test_world_of_one_nccl_sharded_wave_equals_the_device_wave(cuda, tmp_path):
+    """A world of one over NCCL on the card: ``attach_mesh`` + the device
+    wave and the host-mirror loop equal the unsharded device wave, and the
+    sharded path launches #3."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.core.multi_query import BatchQuery
+    from repro_torch.data.block_store import build_block_store
+    from repro_torch.data.synthetic import make_clustered_table
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t = make_clustered_table(num_records=64_000, num_dims=4, density=0.15, seed=2)
+    store = build_block_store(t, 100, device=cuda)
+    qs = [BatchQuery([(0, 1), (2, 1)], 300), BatchQuery([(0, 1)], 50),
+          BatchQuery([(1, 1), (3, 1)], 2000, "or"), BatchQuery([(2, 0)], 10, algo="two_prong")]
+    ref = NeedleTailEngine(store, device=cuda).any_k_batch(qs)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=60),
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        eng = NeedleTailEngine(store, device=cuda)
+        eng.attach_mesh(make_host_mesh())
+        n0 = _lib.LAUNCHES["density_combine_batch_sharded"]
+        waves = [eng.any_k_batch(qs), NeedleTailEngine(store, device=cuda).any_k_batch(
+            qs, device=False, sharded=False)]
+        host = NeedleTailEngine(store, device=cuda)
+        host.attach_mesh(make_host_mesh())
+        waves.append(host.any_k_batch(qs, device=False))
+        torch.cuda.synchronize()
+        assert _lib.LAUNCHES["density_combine_batch_sharded"] > n0
+    finally:
+        dist.destroy_process_group()
+    for w in waves:
+        for a, b in zip(w.results, ref.results):
+            for f in ("record_block", "record_row", "measures"):
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+            assert (a.plan_rounds, a.algo) == (b.plan_rounds, b.algo)
+        assert (w.rounds, w.store_blocks_fetched, w.cache_hits) == \
+            (ref.rounds, ref.store_blocks_fetched, ref.cache_hits)
 
 
 @pytest.mark.parametrize("seed,q,lam", [(0, 8, 1000), (1, 64, 12208), (2, 1, 7), (3, 3, 0)])

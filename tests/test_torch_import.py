@@ -45,7 +45,8 @@ def test_importing_every_port_module_leaves_jax_and_repro_out():
             'repro_torch.kernels.window_scan', 'repro_torch.kernels.flash_attention',
             'repro_torch.kernels.ssd_chunk', 'repro_torch.configs', 'repro_torch.models.lm',
             'repro_torch.models.decode', 'repro_torch.serving.engine',
-            'repro_torch.launch.serve', 'repro_torch.launch.steps'} <= set(mods)
+            'repro_torch.launch.serve', 'repro_torch.launch.steps',
+            'repro_torch.core.sharded', 'repro_torch.launch.mesh'} <= set(mods)
 
 
 @pytest.mark.parametrize(
@@ -98,6 +99,7 @@ def _entry_points():
     from repro_torch.configs import get_config, reduced
     from repro_torch.convert import lm_params_from_reference
     from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import LM, init_cache, init_params
     from repro_torch.serving import ServeEngine
 
@@ -117,13 +119,15 @@ def _entry_points():
         "store_from_reference": lambda: store_from_reference(arrays, 16, 64),
         "NeedleTailEngine": lambda: NeedleTailEngine(cpu_store),
         "store.to": lambda: cpu_store.to("cuda"),
+        "make_host_mesh": lambda: make_host_mesh(),
     }
 
 
 @pytest.mark.parametrize(
     "name", ["resolve_device", "build_density_maps", "build_block_store",
              "store_from_reference", "NeedleTailEngine", "store.to", "init_params", "LM",
-             "init_cache", "ServeEngine", "lm_params_from_reference", "launch.serve.main"],
+             "init_cache", "ServeEngine", "lm_params_from_reference", "launch.serve.main",
+             "make_host_mesh"],
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
@@ -146,7 +150,9 @@ def test_engine_on_cpu_runs_only_when_asked_and_checks_the_store_device():
 def test_wrappers_refuse_devices_they_have_no_kernel_for():
     """No fallback: a tensor on neither the CPU nor CUDA raises instead of
     silently running the plain version."""
-    from repro_torch.kernels.density_combine import density_combine, density_combine_batch
+    from repro_torch.kernels.density_combine import (
+        density_combine, density_combine_batch, density_combine_batch_sharded,
+    )
     from repro_torch.kernels.plan_wave import block_gather
     from repro_torch.kernels.theta_stats import theta_stats, theta_stats_batch
     from repro_torch.kernels.window_scan import prefix_sum
@@ -167,6 +173,9 @@ def test_wrappers_refuse_devices_they_have_no_kernel_for():
         theta_stats(torch.empty((8,), device=meta), torch.empty((3,), device=meta))
     with pytest.raises(ValueError, match="no kernel"):
         prefix_sum(torch.empty((2, 8), device=meta))
+    with pytest.raises(ValueError, match="no kernel"):
+        density_combine_batch_sharded(torch.empty((4, 8), device=meta),
+                                      torch.empty((2, 2), dtype=torch.int32, device=meta))
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch):

@@ -23,7 +23,9 @@ from repro.kernels.density_combine import _combine_local
 from repro.kernels.ref import theta_stats_batch_ref
 from repro_torch.kernels import _lib
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.density_combine import density_combine, density_combine_batch
+from repro_torch.kernels.density_combine import (
+    density_combine, density_combine_batch, density_combine_batch_sharded,
+)
 from repro_torch.kernels.plan_wave import block_gather
 from repro_torch.kernels.theta_stats import theta_stats, theta_stats_batch
 from repro_torch.kernels.window_scan import prefix_sum
@@ -111,6 +113,7 @@ def test_cpu_wrappers_launch_nothing():
     theta_stats(torch.from_numpy(x[0]), torch.from_numpy(th[0]))
     prefix_sum(torch.from_numpy(x))
     tops.threshold_bisect(torch.from_numpy(x[0]), 5.0, 10)
+    density_combine_batch_sharded(torch.from_numpy(dens[:, :16].copy()), torch.from_numpy(rm))
     assert _lib.LAUNCHES == before
 
 
@@ -130,10 +133,16 @@ def test_cpu_wrappers_launch_nothing():
     lambda: theta_stats(torch.zeros((8,)), torch.zeros((0,))),
     lambda: prefix_sum(torch.zeros((8,), dtype=torch.float64)),
     lambda: prefix_sum(torch.zeros((2, 3, 8))),
+    lambda: density_combine_batch_sharded(torch.zeros((4, 8), dtype=torch.float64),
+                                          torch.zeros((2, 2), dtype=torch.int32)),
+    lambda: density_combine_batch_sharded(torch.zeros((4, 8)), torch.zeros((2,), dtype=torch.int32)),
+    lambda: density_combine_batch_sharded(torch.zeros((4, 8)),
+                                          torch.zeros((2, 2), dtype=torch.int32), op="xor"),
 ], ids=["combine_f64", "combine_i64_rows", "combine_op", "theta_q_mismatch",
         "theta_f16", "gather_i64_slab", "gather_i64_ids", "gather_1d_slab",
         "single_combine_2d_rows", "single_combine_i64_rows", "single_theta_2d",
-        "single_theta_no_thresholds", "scan_f64", "scan_3d"])
+        "single_theta_no_thresholds", "scan_f64", "scan_3d", "sharded_combine_f64",
+        "sharded_combine_1d_rows", "sharded_combine_op"])
 def test_wrappers_reject_what_the_kernels_do_not_take(call):
     with pytest.raises(ValueError):
         call()
