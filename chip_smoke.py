@@ -7,7 +7,8 @@ Phases, each of which fails the run (non-zero exit) on any fault:
 
 1. card   — print the card's name and power limit (``nvidia-smi``).
 2. build  — compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-   ``sm_90a``) and print the build time and ptxas report.
+   ``sm_90a``) and print the build time and, per kernel, ptxas's registers
+   and spill stores and loads.
 3. data   — build an airline-like table (``make_real_like_table("airline")``,
    10⁸ records by default, the size of the public on-time dataset it
    imitates) in blocks of 8192 records (the paper's 256 KB block at 32-byte
@@ -69,16 +70,29 @@ depth (81 layers, ~5.74·10⁹ parameters, f32, random weights from
    top-2 logit gap within twice the tolerance), which are counted.  With
    ``--profile``, one more wave of each traffic runs under the profiler.
 
-12. kernels — each kernel at its path's shapes against its plain PyTorch
+Then, with zamba2-7b freed, the sliding-window family: gemma3-12b at its
+published widths and full depth (48 layers ``LLLLLG``, window 1024,
+d_model 3840, 16 heads of 240, 8 kv heads, ~1.26·10¹⁰ parameters, f32):
+
+12. lm_forward_swa — as lm_forward: #8 must launch once per attention
+   sublayer, 48 times (40 windowed, 8 global).
+13. lm_serve_swa — as lm_serve on both traffics.  The long prompts exceed
+   the window, so prefill arranges each ``L`` layer's ring of 1024 slots
+   (compared slot for slot) and decoding goes on around it.
+
+14. kernels — each kernel at its path's shapes against its plain PyTorch
    version on the card (exact for the combines, the gather, the prefix scan
    and the θ-counts, ``rtol=1e-5`` for the θ-sums; the reference's own
    tolerances for #8 and #9), timed with CUDA events (median of 25) beside
    the plain version, a library call where one computes the same function,
    and the least time the card could take (``bound_ms``).  The prefix scan
    is also held bit for bit at lengths across its chunk edges; #8 also at
-   h2o-danube-3-4b's GQA sliding-window shape and in bf16, #9 also at
-   mamba2-130m's d_state 128; the sharded combine (#3) at the slab of one of
-   P = 4 ranks and of a world of one.
+   h2o-danube-3-4b's GQA sliding-window shape, in bf16, at every head dim
+   of ``FA_D_SWEEP`` (1 to 512) and at gemma3-12b's long-wave shapes
+   (windowed and global, D 240, timed beside its plain version and
+   ``scaled_dot_product_attention``), #9 also at mamba2-130m's d_state 128;
+   the sharded combine (#3) at the slab of one of P = 4 ranks and of a
+   world of one.
 
 The last lines are the ``{"kernels": [...]}`` JSON, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -132,6 +146,8 @@ PHASE_KERNELS = {
     "sharded_ranks": ("density_combine_batch_sharded", "prefix_sum", "block_gather"),
     "lm_forward": LM_KERNELS,
     "lm_serve": LM_KERNELS,
+    "lm_forward_swa": ("flash_attention",),
+    "lm_serve_swa": ("flash_attention",),
 }
 SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 65_537, 12_208)
 RTOL = 1e-5
@@ -139,6 +155,7 @@ SHARDS = 4  # ranks of the sharded_ranks phase, all on the one card
 RANK_TIMEOUT_S = 300  # the sharded_ranks phase fails rather than hang
 
 LM_ARCH = "zamba2-7b"
+SWA_ARCH = "gemma3-12b"  # the sliding-window ('L') family: LLLLLG, window 1024, D 240
 LM_FORWARD_SEQ = 2048
 # logits and caches of the kernel path against the plain path, both f32 on
 # the card (TF32 off): the two differ only in the order of the f32 sums
@@ -159,6 +176,11 @@ SSD_CARRY_MIN = 50
 # window) and mamba2-130m's SSD (B, H, S, dh, ds)
 DANUBE_ATTN = (1, 32, 8, 6144, 120, 4096)
 MAMBA2_130M_SSD = (1, 24, 2048, 64, 128)
+# #8 at every head dim: the column-group edge (128 | 129), gemma3's 240, and
+# D of 2 and 4 groups; each causal (S = T) and windowed, right-aligned
+# (S < T), GQA: (B, Hq, Hkv, S, T, window)
+FA_D_SWEEP = (1, 17, 120, 128, 129, 240, 256, 300, 512)
+FA_SWEEP_SHAPES = ((2, 4, 2, 200, 200, None), (1, 4, 2, 130, 300, 64))
 # the launcher's traffic (repro/launch/serve.py defaults) and long prompts
 SERVE_TRAFFIC = {
     "launcher": {"requests": 8, "plen": (4, 24), "max_new": 16, "slots": 4, "max_seq": 128},
@@ -644,6 +666,41 @@ def profile_wave(fn, label: str):
     return out
 
 
+def ptxas_report(build_log: str) -> list[str]:
+    """One line per compiled kernel from ``nvcc -Xptxas -v``'s log:
+    registers, spill stores and spill loads (the flash-attention kernel's
+    instances by element type and output columns per thread)."""
+    import re
+
+    out, fn, spill = [], None, ""
+    for line in build_log.splitlines():
+        if line.startswith("== "):
+            out.append(line)
+        elif m := re.search(r"Function properties for (\S+)", line):
+            fn = m.group(1)
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            fa = re.search(r"flash_attention_kernelI(\w+?)Li(\d+)E", fn)
+            name = f"flash_attention<{fa.group(1)}, NC={fa.group(2)}>" if fa else \
+                _last_identifier(fn)
+            out.append(f"{name}: {m.group(1)} registers; {spill}")
+            fn, spill = None, ""
+    return out
+
+
+def _last_identifier(mangled: str) -> str:
+    """The kernel's own name in an Itanium-mangled (nested) symbol."""
+    i, name = 3 if mangled.startswith("_ZN") else 2, mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    return name
+
+
 def kernel_row(name, phase_launches: dict, err, ms, plain, lib, nbytes, ops, **extra) -> dict:
     """One row of the ``{"kernels": [...]}`` line; ``launches`` are those of
     the first path in ``PHASE_KERNELS`` that runs the kernel."""
@@ -854,11 +911,12 @@ def sync(dev) -> None:
 
 def lm_layer_counts(cfg) -> dict:
     """Kernel launches of one forward or prefill of ``cfg``: #8 per
-    attention sublayer, #9 per Mamba sublayer."""
+    attention sublayer (global ``G``, windowed ``L``, shared ``A``), #9 per
+    Mamba sublayer."""
     from repro_torch.configs.base import _full_pattern
 
     pat = _full_pattern(cfg)
-    return {"flash_attention": sum(ch in "GA" for ch in pat), "ssd_scan": pat.count("M")}
+    return {"flash_attention": sum(ch in "GLA" for ch in pat), "ssd_scan": pat.count("M")}
 
 
 def check_launches(launches: dict, want: dict, what: str) -> None:
@@ -900,10 +958,10 @@ def peak_gb(dev) -> float | None:
     return torch.cuda.max_memory_allocated(dev) / 1e9 if torch.device(dev).type == "cuda" else None
 
 
-def lm_forward_check(model, seq: int, seed: int, run) -> dict:
+def lm_forward_check(model, seq: int, seed: int, run, phase: str = "lm_forward") -> dict:
     """``model(tokens, impl="kernel")`` on ``[1, seq]`` tokens through ``run``
-    (``run_phase``), held against ``impl="plain"``; #8 and #9 must launch
-    once per attention and Mamba sublayer."""
+    (``run_phase``) as ``phase``, held against ``impl="plain"``; #8 and #9
+    must launch once per attention and Mamba sublayer."""
     import torch
 
     cfg, dev = model.cfg, model.device
@@ -916,13 +974,13 @@ def lm_forward_check(model, seq: int, seed: int, run) -> dict:
         return out, time.perf_counter() - t0
 
     with torch.inference_mode():
-        logits, wall, launches = run("lm_forward", lambda: model(tokens, impl="kernel"))
+        logits, wall, launches = run(phase, lambda: model(tokens, impl="kernel"))
         plain, plain_wall = timed("plain")
         warm = {impl: timed(impl)[1] for impl in ("kernel", "plain")}  # cuBLAS and modules loaded
-    check_launches(launches, lm_layer_counts(cfg), "lm_forward")
+    check_launches(launches, lm_layer_counts(cfg), phase)
     if tuple(logits.shape) != (1, seq, cfg.vocab):
-        raise AssertionError(f"lm_forward: logits of shape {tuple(logits.shape)}")
-    err = check_close(logits, plain, LM_ATOL, LM_RTOL, "lm_forward logits", "tensor")
+        raise AssertionError(f"{phase}: logits of shape {tuple(logits.shape)}")
+    err = check_close(logits, plain, LM_ATOL, LM_RTOL, f"{phase} logits", "tensor")
     return {"wall_s": wall, "plain_wall_s": plain_wall, "warm_wall_s": warm, "max_abs_err": err,
             "logits_absmax": float(plain.abs().max()), "launches": launches}
 
@@ -992,17 +1050,17 @@ def prefill_check(model, traffic: dict, prompts) -> dict:
             "cache_max_abs_err": cache_err}
 
 
-def lm_serve_check(model, traffic: dict, seed: int, run) -> dict:
-    """One traffic through ``ServeEngine`` with the kernels (through ``run``)
-    and again with ``impl="plain"``; the first wave's prefill compared."""
+def lm_serve_check(model, traffic: dict, seed: int, run, phase: str = "lm_serve") -> dict:
+    """One traffic through ``ServeEngine`` with the kernels (through ``run``
+    as ``phase``) and again with ``impl="plain"``; the first wave's prefill
+    compared, every layer's cache (an ``L`` layer's ring slots) included."""
     cfg = model.cfg
     prompts = serve_prompts(cfg, traffic, seed)
     pre = prefill_check(model, traffic, prompts)
-    (eng, done), wall, launches = run("lm_serve", lambda: run_engine(model, traffic, prompts,
-                                                                      "kernel"))
+    (eng, done), wall, launches = run(phase, lambda: run_engine(model, traffic, prompts,
+                                                                 "kernel"))
     waves = len(eng.wave_stats)
-    check_launches(launches, {k: n * waves for k, n in lm_layer_counts(cfg).items()},
-                   "lm_serve")
+    check_launches(launches, {k: n * waves for k, n in lm_layer_counts(cfg).items()}, phase)
     eng_p, plain = run_engine(model, traffic, prompts, "plain")
     streams = compare_streams(done, plain, LM_ATOL)
     new = sum(w["new_tokens"] for w in eng.wave_stats)
@@ -1011,10 +1069,87 @@ def lm_serve_check(model, traffic: dict, seed: int, run) -> dict:
             "streams": streams, "launches": launches}
 
 
-def lm_kernel_rows(cfg, phase_launches: dict, seq: int, seed: int, dev) -> list[dict]:
+def visible_pairs(s: int, t: int, window: int | None) -> int:
+    """(query, key) pairs a causal attention with right-aligned queries
+    keeps, per (batch, head): its operations scale with these."""
+    qpos = np.arange(s, dtype=np.int64) + (t - s)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros_like(qpos)
+    return int(np.maximum(np.minimum(qpos, t - 1) - lo + 1, 0).sum())
+
+
+def fa_sweep(randn, tol: float) -> dict:
+    """#8 against its plain version at every head dim of ``FA_D_SWEEP``, on
+    each of ``FA_SWEEP_SHAPES``; the largest error per D."""
+    from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+
+    out = {}
+    for d in FA_D_SWEEP:
+        out[d] = 0.0
+        for b, hq, hkv, s, t, w in FA_SWEEP_SHAPES:
+            q, k, v = randn(b, hq, s, d), randn(b, hkv, t, d), randn(b, hkv, t, d)
+            out[d] = max(out[d], check_close(
+                flash_attention(q, k, v, window=w), attention_plain(q, k, v, window=w),
+                tol, tol, f"flash_attention (D {d}, S {s}, T {t}, window {w})"))
+    return out
+
+
+def swa_attention(cfg, b: int, seq: int, randn, launches: int) -> dict:
+    """#8 at a sliding-window model's prefill shapes (``cfg``'s heads and
+    head dim, batch ``b``, S = T = ``seq``), windowed (its ``L`` layers)
+    and global (its ``G`` layers): error against the plain version, ms of
+    the kernel, the plain version and ``scaled_dot_product_attention``, and
+    the bound over the pairs each keeps; bf16 held against f32 as in the
+    main row."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, k, v = randn(b, hq, seq, d), randn(b, hkv, seq, d), randn(b, hkv, seq, d)
+    pos = torch.arange(seq, device=q.device)
+    out = {"shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": seq, "T": seq, "D": d},
+           "launches_per_forward": launches}
+    for name, w in (("window", cfg.attn_window), ("global", None)):
+        err = check_close(flash_attention(q, k, v, window=w), attention_plain(q, k, v, window=w),
+                          FA_TOL, FA_TOL, f"flash_attention ({cfg.name}, {name})")
+        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+        bf16 = check_close(
+            flash_attention(qb, kb, vb, window=w),
+            attention_plain(qb.float(), kb.float(), vb.float(), window=w),
+            FA_BF16_ATOL, FA_BF16_RTOL, f"flash_attention ({cfg.name}, {name}, bf16)")
+        del qb, kb, vb
+        if w is None:
+            def lib():
+                return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                      enable_gqa=hq != hkv)
+        else:
+            mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < w)
+
+            def lib():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                      enable_gqa=hq != hkv)
+        lib_err = float((lib() - attention_plain(q, k, v, window=w)).abs().max())
+        pairs = visible_pairs(seq, seq, w)
+        bms, by = bound_ms((2 * hq + 2 * hkv) * b * seq * d * 4, 4.0 * b * hq * d * pairs)
+        out[name] = {
+            "window": w, "visible_pairs": pairs, "max_abs_err": err, "bf16_max_abs_err": bf16,
+            "library_max_abs_err": lib_err,
+            "ms": time_ms(lambda: flash_attention(q, k, v, window=w)),
+            "plain_ms": time_ms(lambda: attention_plain(q, k, v, window=w)),
+            "library_ms": time_ms(lib), "bound_ms": bms, "bound_by": by,
+        }
+        log(f"kernel flash_attention at {cfg.name} {name} {out['shape']}: {out[name]}")
+    return out
+
+
+def lm_kernel_rows(cfg, phase_launches: dict, seq: int, seed: int, dev,
+                   swa=None) -> list[dict]:
     """#8 and #9 at the long serving wave's prefill shapes (batch 4, S = T =
     the wave's padded prompt length) against their plain versions, timed;
-    #8 also at h2o-danube-3-4b's GQA sliding-window shape and in bf16, #9
+    #8 also at h2o-danube-3-4b's GQA sliding-window shape, in bf16 and at
+    every head dim of ``FA_D_SWEEP``, and, given ``swa = (cfg, seq)``, at
+    that sliding-window model's long-wave shapes (``swa_attention``); #9
     also at mamba2-130m's d_state 128."""
     import torch
     import torch.nn.functional as F
@@ -1046,15 +1181,21 @@ def lm_kernel_rows(cfg, phase_launches: dict, seq: int, seed: int, dev) -> list[
         flash_attention(qb, kb, vb), attention_plain(qb.float(), kb.float(), vb.float()),
         FA_BF16_ATOL, FA_BF16_RTOL, "flash_attention (bf16)")
     del qb, kb, vb
+    checks["d_sweep"] = fa_sweep(randn, tol)
+    extra = {}
+    if swa is not None:
+        scfg, sseq = swa
+        extra[scfg.name] = swa_attention(scfg, b, sseq, randn,
+                                         phase_launches["lm_forward_swa"]["flash_attention"])
     fa = kernel_row(
         "flash_attention", phase_launches, err,
         time_ms(lambda: flash_attention(q, k, v)),
         time_ms(lambda: attention_plain(q, k, v)),
         time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
         4 * b * h * seq * d * 4,  # q, k, v read and o written, f32
-        4.0 * b * h * d * seq * (seq + 1) / 2,  # QKᵀ and PV over the causal pairs
+        4.0 * b * h * d * visible_pairs(seq, seq, None),  # QKᵀ and PV over the causal pairs
         shape={"B": b, "Hq": h, "Hkv": cfg.num_kv_heads, "S": seq, "T": seq, "D": d},
-        checks=checks,
+        checks=checks, **extra,
     )
     del q, k, v
 
@@ -1113,6 +1254,69 @@ def lm_kernel_rows(cfg, phase_launches: dict, seq: int, seed: int, dev) -> list[
         checks=checks,
     )
     return [fa, ssd]
+
+
+def build_lm(cfg, seed: int):
+    """``cfg`` at its published widths and depth, f32 weights drawn on the
+    card from ``seed``."""
+    import torch
+
+    from repro_torch.models import init_params
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    counts = {ch: model.pattern.count(ch) for ch in sorted(set(model.pattern))}
+    log(f"lm: {cfg.name} {cfg.num_layers} layers {counts} (window {cfg.attn_window}), d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, {cfg.num_kv_heads} kv heads, "
+        f"{n_params} parameters (param_count() {cfg.param_count()}) in f32 on the card in "
+        f"{time.perf_counter() - t0:.1f} s; peak {peak_gb('cuda'):.2f} GB")
+    return model
+
+
+def lm_phases(model, fphase: str, sphase: str, args, phase_launches: dict) -> int:
+    """The forward phase ``fphase`` and the serving phase ``sphase`` (both
+    traffics) on ``model``, logged; their launches go into
+    ``phase_launches``.  Returns the long wave's padded prompt length."""
+    import torch
+
+    from repro_torch.kernels import _lib
+
+    torch.cuda.reset_peak_memory_stats()
+    fwd = lm_forward_check(model, LM_FORWARD_SEQ, args.seed, run_phase, fphase)
+    phase_launches[fphase] = fwd.pop("launches")
+    log(f"{fphase} [1, {LM_FORWARD_SEQ}]: kernel {fwd['wall_s']} s, plain "
+        f"{fwd['plain_wall_s']} s (first calls); again {fwd['warm_wall_s']} s; logits max "
+        f"|kernel − plain| {fwd['max_abs_err']} "
+        f"(|logits| ≤ {fwd['logits_absmax']}), peak {peak_gb('cuda'):.2f} GB")
+    serve_launches = dict.fromkeys(_lib.LAUNCHES, 0)
+    long_seq = 0
+    for name, traffic in SERVE_TRAFFIC.items():
+        torch.cuda.reset_peak_memory_stats()
+        res = lm_serve_check(model, traffic, args.seed, run_phase, sphase)
+        for k, n in res.pop("launches").items():
+            serve_launches[k] += n
+        for label, waves in (("kernel", res["waves"]), ("plain", res["plain_waves"])):
+            for w in waves:
+                log(f"{sphase} {name} {label} wave: {w['size']} requests, prompt_len "
+                    f"{w['prompt_len']}, prefill {w['prefill_s']} s, decode "
+                    f"{w['decode_s'] / max(w['decode_steps'], 1)} s/step over "
+                    f"{w['decode_steps']} steps, {w['new_tokens']} tokens")
+        log(f"{sphase} {name}: {res['wall_s']} s, {res['tokens_per_s']} tokens/s; prefill "
+            f"check {res['prefill']}; streams {res['streams']}; peak "
+            f"{peak_gb('cuda'):.2f} GB")
+        if name == "long":
+            long_seq = res["waves"][0]["prompt_len"]
+    phase_launches[sphase] = serve_launches
+    log(f"{sphase} launches (both traffics): {serve_launches}")
+    if args.profile:  # one warm wave of each traffic, with the kernels
+        for name, traffic in SERVE_TRAFFIC.items():
+            prompts = serve_prompts(model.cfg, traffic, args.seed)[:traffic["slots"]]
+            profile_wave(lambda: run_engine(model, traffic, prompts, "kernel"),
+                         f"{sphase} {name} wave")
+    return long_seq
 
 
 def run_phase(name: str, fn):
@@ -1174,9 +1378,8 @@ def main(argv=None) -> int:
 
     _lib.load()
     log(f"build: {_lib.build_seconds:.1f} s")
-    for line in (_lib.BUILD_DIR / "build.log").read_text().splitlines():
-        if "registers" in line or "==" in line:
-            log(f"  {line.strip()}")
+    for line in ptxas_report((_lib.BUILD_DIR / "build.log").read_text()):
+        log(f"  {line}")
 
     t0 = time.perf_counter()
     table = make_real_like_table("airline", num_records=args.records, seed=args.seed)
@@ -1331,60 +1534,27 @@ def main(argv=None) -> int:
                     for r in ranks)
         + "; every rank == the sharded phase, counters included")
 
-    # -- 8. lm_forward and 9. lm_serve: zamba2-7b at full width on the card
+    # -- 10. lm_forward and 11. lm_serve: zamba2-7b at full width on the card
     # f32 products stay f32 on the card, as in the reference (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params
 
-    cfg = get_config(LM_ARCH)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = init_params(cfg, args.seed, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"lm: {cfg.name} {cfg.num_layers} layers ({model.pattern.count('M')} M, "
-        f"{model.pattern.count('A')} A), d_model {cfg.d_model}, {n_params} parameters "
-        f"(param_count() {cfg.param_count()}) in f32 on the card in "
-        f"{time.perf_counter() - t0:.1f} s; peak {peak_gb('cuda'):.2f} GB")
-    torch.cuda.reset_peak_memory_stats()
-    fwd = lm_forward_check(model, LM_FORWARD_SEQ, args.seed, run_phase)
-    phase_launches["lm_forward"] = fwd.pop("launches")
-    log(f"lm_forward [1, {LM_FORWARD_SEQ}]: kernel {fwd['wall_s']} s, plain "
-        f"{fwd['plain_wall_s']} s (first calls); again {fwd['warm_wall_s']} s; logits max "
-        f"|kernel − plain| {fwd['max_abs_err']} "
-        f"(|logits| ≤ {fwd['logits_absmax']}), peak {peak_gb('cuda'):.2f} GB")
-    serve_launches = dict.fromkeys(_lib.LAUNCHES, 0)
-    long_seq = 0
-    for name, traffic in SERVE_TRAFFIC.items():
-        torch.cuda.reset_peak_memory_stats()
-        res = lm_serve_check(model, traffic, args.seed, run_phase)
-        for k, n in res.pop("launches").items():
-            serve_launches[k] += n
-        for label, waves in (("kernel", res["waves"]), ("plain", res["plain_waves"])):
-            for w in waves:
-                log(f"lm_serve {name} {label} wave: {w['size']} requests, prompt_len "
-                    f"{w['prompt_len']}, prefill {w['prefill_s']} s, decode "
-                    f"{w['decode_s'] / max(w['decode_steps'], 1)} s/step over "
-                    f"{w['decode_steps']} steps, {w['new_tokens']} tokens")
-        log(f"lm_serve {name}: {res['wall_s']} s, {res['tokens_per_s']} tokens/s; prefill "
-            f"check {res['prefill']}; streams {res['streams']}; peak "
-            f"{peak_gb('cuda'):.2f} GB")
-        if name == "long":
-            long_seq = res["waves"][0]["prompt_len"]
-    phase_launches["lm_serve"] = serve_launches
-    log(f"lm_serve launches (both traffics): {serve_launches}")
-    if args.profile:  # one warm wave of each traffic, with the kernels
-        for name, traffic in SERVE_TRAFFIC.items():
-            prompts = serve_prompts(cfg, traffic, args.seed)[:traffic["slots"]]
-            profile_wave(lambda: run_engine(model, traffic, prompts, "kernel"),
-                         f"lm_serve {name} wave")
+    cfg, scfg = get_config(LM_ARCH), get_config(SWA_ARCH)
+    model = build_lm(cfg, args.seed)
+    long_seq = lm_phases(model, "lm_forward", "lm_serve", args, phase_launches)
+    del model
+    torch.cuda.empty_cache()
+
+    # -- 12. lm_forward_swa and 13. lm_serve_swa: gemma3-12b at full width
+    model = build_lm(scfg, args.seed)
+    swa_seq = lm_phases(model, "lm_forward_swa", "lm_serve_swa", args, phase_launches)
     del model
     torch.cuda.empty_cache()
 
     entries = kernel_phase(store, queries, batch, phase_launches, rows)
-    entries += lm_kernel_rows(cfg, phase_launches, long_seq, args.seed, torch.device("cuda"))
+    entries += lm_kernel_rows(cfg, phase_launches, long_seq, args.seed, torch.device("cuda"),
+                              swa=(scfg, swa_seq))
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -6,8 +6,9 @@ queries right-aligned to the end of the kv sequence (``q_pos = i + T − S``),
 masked logits at −1e30.
 
 On CUDA :func:`flash_attention` is the kernel in ``csrc/flash_attention.cu``
-(one thread block per (batch, q head, 64-row q tile), the kv tiles walked in
-order with the softmax state in registers); on the CPU it is
+(one thread block per (batch, q head, 64-row q tile, group of 128 output
+columns), the kv tiles walked in order with the softmax state in registers;
+any head dim D >= 1, as the TPU kernel); on the CPU it is
 :func:`attention_plain`, a port of the reference oracle
 ``repro/kernels/ref.py`` ``attention_ref``: the full softmax over the masked
 logits, which the kernel's tiling and kv padding do not change.  The kernel
@@ -21,8 +22,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _lib
-
-MAX_D = 128  # the kernel keeps ⌈D/16⌉ output columns per thread in registers
 
 
 def attention_plain(
@@ -77,9 +76,8 @@ def flash_attention(
         raise ValueError("flash_attention: q, k and v must all be float32 or all bfloat16")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window must be >= 1, got {window}")
-    if not 1 <= d <= MAX_D or t < 1:
-        raise ValueError(f"flash_attention: the kernel takes 1 <= D <= {MAX_D} and T >= 1; "
-                         f"got D={d}, T={t}")
+    if d < 1 or t < 1:
+        raise ValueError(f"flash_attention: the kernel takes D >= 1 and T >= 1; got D={d}, T={t}")
     scale = scale if scale is not None else 1.0 / (d**0.5)
     o = torch.empty_like(q)
     if o.numel() == 0:

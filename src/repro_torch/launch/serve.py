@@ -2,6 +2,9 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --no-reduced \\
       --requests 8 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b --no-reduced
+
+(f32 weights on the card: ~23 GB for zamba2-7b, ~50.5 GB for gemma3-12b.)
 
 Counterpart of ``repro/launch/serve.py``.  The model runs on ``--device``
 (``cuda`` by default; ``cpu`` only when asked), initialised in f32 from

@@ -4,6 +4,8 @@ Counterpart of ``repro/models/decode.py``.  The cache is a list with one
 dict per layer, in pattern order (the reference stacks whole cycles):
 
   'G' global attn : {k, v} of [B, T_max, Kv, hd]
+  'L' SWA attn    : {k, v} of [B, W, Kv, hd], W = min(window, T_max): a ring,
+                    position p in slot p % W
   'A' shared attn : as 'G' (weights shared, caches per occurrence)
   'M' mamba2      : {conv: [B, cw-1, d_inner], ssd: [B, nh, ds, hd] f32}
 
@@ -18,10 +20,12 @@ as in the reference (double SSD work per prefill, left as it is).
 
 Decoding is plain PyTorch, as the reference's is outside Pallas: one token
 of attention over the cache (``xla_flash_attention`` with the cache's
-positions) and one step of the SSD recurrence.  Where JAX returns new
-arrays, :func:`decode_step` writes the new K/V row and the new Mamba state
-into ``cache`` in place and returns it: a copy of every layer's cache per
-token would cost the card as much time as the step itself.
+positions; a ring slot's absolute position is ``p − ((p − i) mod W)``, so
+RoPE and the window mask stay exact) and one step of the SSD recurrence.
+Where JAX returns new arrays, :func:`decode_step` writes the new K/V row and
+the new Mamba state into ``cache`` in place and returns it: a copy of every
+layer's cache per token would cost the card as much time as the step
+itself.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.lm import LM, check_supported
+from repro_torch.models.lm import LM, attn_window, check_supported
 
 Cache = list[dict[str, torch.Tensor]]
 
@@ -56,11 +60,18 @@ def init_cache(
                                    dtype=torch.float32, device=dev),
             })
         else:
+            t = _ring_len(ch, cfg, max_seq)
             cache.append({
-                "k": torch.zeros((batch, max_seq, kv, hd), dtype=dtype, device=dev),
-                "v": torch.zeros((batch, max_seq, kv, hd), dtype=dtype, device=dev),
+                "k": torch.zeros((batch, t, kv, hd), dtype=dtype, device=dev),
+                "v": torch.zeros((batch, t, kv, hd), dtype=dtype, device=dev),
             })
     return cache
+
+
+def _ring_len(ch: str, cfg: ArchConfig, max_seq: int) -> int:
+    """Cache slots of an attention layer: ``min(window, max_seq)`` for an
+    ``L`` layer with a window, ``max_seq`` otherwise."""
+    return min(cfg.attn_window, max_seq) if ch == "L" and cfg.attn_window else max_seq
 
 
 # ----------------------------------------------------------------------------
@@ -68,8 +79,9 @@ def init_cache(
 # ----------------------------------------------------------------------------
 
 
-def _attn_decode(x, p, cache: dict, pos: int, cfg: ArchConfig) -> torch.Tensor:
-    """x [B, 1, D]; writes the new K/V at ``pos`` into ``cache`` in place."""
+def _attn_decode(x, p, cache: dict, pos: int, cfg: ArchConfig, windowed: bool) -> torch.Tensor:
+    """x [B, 1, D]; writes the new K/V at ``pos`` (``windowed``: at ring
+    slot ``pos % W``) into ``cache`` in place."""
     b = x.shape[0]
     q = torch.einsum("bsd,dhq->bshq", x, p.wq)
     k = torch.einsum("bsd,dhq->bshq", x, p.wk)
@@ -80,12 +92,20 @@ def _attn_decode(x, p, cache: dict, pos: int, cfg: ArchConfig) -> torch.Tensor:
     q = L.rope(q, posb, cfg.rope_theta)
     k = L.rope(k, posb, cfg.rope_theta)
     t = cache["k"].shape[1]
-    cache["k"][:, pos] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v[:, 0].to(cache["v"].dtype)
+    slot = pos % t if windowed else pos
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
     idx = torch.arange(t, device=x.device)
-    k_pos = torch.where(idx <= pos, idx, -(10**9)).expand(b, t)
+    if windowed:
+        # the absolute position in each ring slot; remainder, not fmod: the
+        # dividend is negative for slots past pos, and jnp.mod floors
+        k_pos = pos - torch.remainder(pos - idx, t)
+        k_pos = torch.where(k_pos >= 0, k_pos, -(10**9))
+    else:
+        k_pos = torch.where(idx <= pos, idx, -(10**9))
     o = L.xla_flash_attention(
-        q, cache["k"], cache["v"], causal=True, k_positions=k_pos, q_positions=posb,
+        q, cache["k"], cache["v"], causal=True, window=t if windowed else None,
+        k_positions=k_pos.expand(b, t), q_positions=posb,
     )
     return torch.einsum("bshq,hqd->bsd", o, p.wo)
 
@@ -119,7 +139,8 @@ def _sub_decode(x, p, cache: dict, pos: int, cfg: ArchConfig, shared) -> torch.T
     if p.ch == "M":
         return x + _mamba_decode(L.apply_norm(x, p.norm, cfg.norm), p.mamba, cache, cfg)
     ap = shared.attn if p.ch == "A" else p.attn
-    x = x + _attn_decode(L.apply_norm(x, p.norm1, cfg.norm), ap, cache, pos, cfg)
+    x = x + _attn_decode(L.apply_norm(x, p.norm1, cfg.norm), ap, cache, pos, cfg,
+                         windowed=(p.ch == "L"))
     h = L.apply_norm(x, p.norm2, cfg.norm)
     return x + L.mlp(h, shared.mlp if p.ch == "A" else p.mlp, cfg.act)
 
@@ -147,7 +168,10 @@ def prefill(
     max_seq: int | None = None,  # cache capacity (>= S; default S)
 ) -> tuple[torch.Tensor, Cache]:
     """Full-sequence prefill: returns ``(last-token logits [B, vocab],
-    filled cache)``; the attention caches are padded to ``max_seq``."""
+    filled cache)``.  ``G``/``A`` caches are padded to ``max_seq``; an
+    ``L`` cache is a ring of ``W = min(window, max_seq)`` slots: the last
+    ``W`` positions, position ``p`` in slot ``p % W``, when the prompt is
+    longer, else the prompt padded to ``W``."""
     L.check_impl(impl)
     cfg = model.cfg
     b, s = tokens.shape
@@ -167,14 +191,19 @@ def prefill(
             continue
         ap = shared.attn if p.ch == "A" else p.attn
         hh = L.apply_norm(h, p.norm1, cfg.norm)
-        o, (k, v) = L.attention(hh, ap, cfg, causal=True, window=None,
+        o, (k, v) = L.attention(hh, ap, cfg, causal=True, window=attn_window(p.ch, cfg),
                                 positions=positions, impl=impl, return_kv=True)
         h = h + o
         hh = L.apply_norm(h, p.norm2, cfg.norm)
         h = h + L.mlp(hh, shared.mlp if p.ch == "A" else p.mlp, cfg.act)
-        if max_seq > s:  # pad to full capacity
-            k = F.pad(k, (0, 0, 0, 0, 0, max_seq - s))
-            v = F.pad(v, (0, 0, 0, 0, 0, max_seq - s))
+        t = _ring_len(p.ch, cfg, max_seq)
+        if t < s:  # the ring: slot(i) = i % t for i in [s − t, s)
+            shift = (s - t) % t
+            k = torch.roll(k[:, s - t:], shift, dims=1)
+            v = torch.roll(v[:, s - t:], shift, dims=1)
+        elif t > s:  # pad to full capacity
+            k = F.pad(k, (0, 0, 0, 0, 0, t - s))
+            v = F.pad(v, (0, 0, 0, 0, 0, t - s))
         cache.append({"k": k, "v": v})
     h = L.apply_norm(h, model.final_norm, cfg.norm)
     logits = torch.einsum("bd,dv->bv", h[:, -1], model.head())[:, : cfg.vocab]

@@ -1,5 +1,6 @@
-"""Decoder-only LMs: dense (``G``), Mamba2 (``M``) and the zamba2 hybrid
-(``M`` with the shared attention block ``A``).
+"""Decoder-only LMs: dense (``G`` global, ``L`` sliding-window attention),
+Mamba2 (``M``) and the zamba2 hybrid (``M`` with the shared attention block
+``A``).
 
 Counterpart of ``repro/models/lm.py``.  :class:`LM` holds one module per
 layer in pattern order (the reference stacks whole cycles and scans them;
@@ -11,9 +12,11 @@ Parameter names and layouts are the reference's, so
 ``repro_torch.convert.lm_params_from_reference`` carries a reference
 parameter tree across one to one.
 
-This slice supports the ``G``, ``A`` and ``M`` patterns of the dense, ssm
-and hybrid families (qwen1.5-4b, yi-9b, mamba2-130m, zamba2-7b).  MoE,
-encoder-decoder and VLM families and the ``L`` sliding-window ring raise
+The port supports the ``G``, ``L``, ``A`` and ``M`` patterns of the dense,
+ssm and hybrid families (qwen1.5-4b, yi-9b, gemma3-12b, h2o-danube-3-4b,
+mamba2-130m, zamba2-7b).  An ``L`` layer is a ``G`` layer whose attention
+sees only the last ``cfg.attn_window`` positions (in decoding, through a ring
+cache: ``models/decode.py``).  MoE, encoder-decoder and VLM families raise
 ``NotImplementedError`` naming their later slice.
 
 ``impl`` is as in :mod:`repro_torch.models.layers`: ``"kernel"`` (the
@@ -40,11 +43,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if cfg.family in later or cfg.moe is not None:
         why = later.get(cfg.family, later["moe"])
         raise NotImplementedError(f"{cfg.name}: {why} of the LM substrate (ROADMAP Queue 1)")
-    if "L" in cfg.layer_pattern:
-        raise NotImplementedError(
-            f"{cfg.name}: the 'L' sliding-window ring cache arrives with the 'L' "
-            "slice of the LM substrate (ROADMAP Queue 1)")
-    bad = set(cfg.layer_pattern) - set("GAM")
+    bad = set(cfg.layer_pattern) - set("GLAM")
     if bad:
         raise NotImplementedError(f"{cfg.name}: layer pattern chars {sorted(bad)}")
 
@@ -106,8 +105,8 @@ class Mamba(nn.Module):
 
 class Sublayer(nn.Module):
     """One pattern position: ``M`` {norm, mamba}; ``A`` {norm1, norm2} (its
-    attention and MLP are the model's ``shared_attn``); ``G`` {norm1,
-    norm2, attn, mlp}."""
+    attention and MLP are the model's ``shared_attn``); ``G`` and ``L``
+    {norm1, norm2, attn, mlp}."""
 
     def __init__(self, ch: str, cfg: ArchConfig, device, dtype):
         super().__init__()
@@ -118,7 +117,7 @@ class Sublayer(nn.Module):
             return
         self.norm1 = Norm(cfg, device, dtype)
         self.norm2 = Norm(cfg, device, dtype)
-        if ch == "G":
+        if ch in "GL":
             self.attn = Attention(cfg, device, dtype)
             self.mlp = MLP(cfg, device, dtype)
 
@@ -175,9 +174,15 @@ def block(x: torch.Tensor, p: Sublayer, cfg: ArchConfig, shared, impl: str) -> t
         return x + L.mamba_block(L.apply_norm(x, p.norm, cfg.norm), p.mamba, cfg, impl)
     ap = shared.attn if p.ch == "A" else p.attn
     h = L.apply_norm(x, p.norm1, cfg.norm)
-    x = x + L.attention(h, ap, cfg, causal=True, window=None, impl=impl)
+    x = x + L.attention(h, ap, cfg, causal=True, window=attn_window(p.ch, cfg), impl=impl)
     h = L.apply_norm(x, p.norm2, cfg.norm)
     return x + L.mlp(h, shared.mlp if p.ch == "A" else p.mlp, cfg.act)
+
+
+def attn_window(ch: str, cfg: ArchConfig) -> int | None:
+    """The attention window of a pattern position: ``cfg.attn_window`` for
+    ``L``, none (global) for ``G`` and ``A``."""
+    return cfg.attn_window if ch == "L" else None
 
 
 def forward(model: LM, tokens: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
@@ -263,7 +268,7 @@ def init_params(
             continue
         _init_norm(layer.norm1)
         _init_norm(layer.norm2)
-        if layer.ch == "G":
+        if layer.ch in "GL":
             _init_attn(layer.attn, cfg, g)
             _init_mlp(layer.mlp, g)
     if model.shared_attn is not None:

@@ -239,6 +239,14 @@ def test_threshold_bisect_on_the_kernel_matches_the_plain_steps(cuda):
         (2, 4, 2, 129, 129, True, None, 112, torch.bfloat16),
         (1, 4, 1, 256, 256, True, 100, 64, torch.bfloat16),
         (1, 2, 2, 70, 70, True, None, 7, torch.float32),  # D not a multiple of 16
+        # every head dim: one column group up to 128, then groups of 128 with
+        # QKᵀ in chunks of 120 (gemma3-12b: 240)
+        *[(2, 4, 2, 200, 200, True, None, d, torch.float32)
+          for d in (1, 17, 120, 128, 129, 240, 256, 300, 512)],
+        *[(1, 4, 2, 130, 300, True, 64, d, torch.float32)
+          for d in (1, 17, 120, 128, 129, 240, 256, 300, 512)],
+        (1, 16, 8, 300, 300, True, 128, 240, torch.bfloat16),  # gemma3's heads, windowed
+        (2, 4, 4, 129, 129, True, None, 300, torch.bfloat16),
     ],
 )
 def test_flash_attention_kernel_against_plain(cuda, b, hq, hkv, s, t, causal, win, d, dtype):
@@ -284,7 +292,8 @@ def test_ssd_scan_kernel_against_plain(cuda, b, h, s, dh, ds, broadcast, decay):
     torch.testing.assert_close(y, ssd_chunked(u, ld, bm, cm, CHUNK), atol=2e-3, rtol=1e-2)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m", "qwen1.5-4b", "gemma3-12b",
+                                  "h2o-danube-3-4b"])
 def test_reduced_lm_on_the_card_runs_the_kernels(cuda, arch):
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import decode_step, init_params, prefill
@@ -298,10 +307,47 @@ def test_reduced_lm_on_the_card_runs_the_kernels(cuda, arch):
         logits = model(toks)
         torch.cuda.synchronize()
         pat = model.pattern
-        assert _lib.LAUNCHES["flash_attention"] == sum(c in "GA" for c in pat)
+        assert _lib.LAUNCHES["flash_attention"] == sum(c in "GLA" for c in pat)
         assert _lib.LAUNCHES["ssd_scan"] == pat.count("M")
         torch.testing.assert_close(logits, model(toks, impl="plain"), atol=2e-3, rtol=2e-3)
         last, cache = prefill(model, toks[:, :199], max_seq=200)
         torch.testing.assert_close(last, logits[:, 198], atol=2e-3, rtol=2e-3)
         lg, _ = decode_step(model, cache, toks[:, 199], 199)
         torch.testing.assert_close(lg, logits[:, 199], atol=2e-3, rtol=2e-3)
+
+
+def test_gemma3_one_cycle_at_full_width_on_the_card(cuda):
+    """gemma3-12b at its published widths (d_model 3840, 16 heads of 240, 8
+    kv heads, d_ff 15360, vocab 262,144), depth cut to one ``LLLLLG`` cycle:
+    the forward launches #8 once per layer and equals ``impl="plain"``; a
+    prompt of 1,090 > 1,024 tokens fills five rings and one global cache,
+    kernel prefill against plain; then decode steps around the rings, each
+    against the forward's logits at that position."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("gemma3-12b"), num_layers=6)
+    model = init_params(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 1100), generator=torch.Generator().manual_seed(0))
+    plen = 1090
+    with torch.inference_mode():
+        _lib.reset_launches()
+        logits = model(toks)
+        torch.cuda.synchronize()
+        assert _lib.LAUNCHES["flash_attention"] == 6
+        torch.testing.assert_close(logits, model(toks, impl="plain"), atol=2e-3, rtol=2e-3)
+        last, cache = prefill(model, toks[:, :plen], max_seq=1100)
+        last_p, cache_p = prefill(model, toks[:, :plen], impl="plain", max_seq=1100)
+        torch.testing.assert_close(last, last_p, atol=2e-3, rtol=2e-3)
+        torch.testing.assert_close(last, logits[:, plen - 1], atol=2e-3, rtol=2e-3)
+        assert [tuple(c["k"].shape) for c in cache] == [(2, 1024, 8, 240)] * 5 + [(2, 1100, 8, 240)]
+        for a, b in zip(cache, cache_p):
+            for key in a:
+                torch.testing.assert_close(a[key], b[key], atol=2e-3, rtol=2e-3)
+        del cache_p
+        for pos in range(plen, 1099):
+            lg, cache = decode_step(model, cache, toks[:, pos], pos)
+            torch.testing.assert_close(lg, logits[:, pos], atol=2e-3, rtol=2e-3)

@@ -1,10 +1,14 @@
 """The port's LM substrate against the JAX package's, on the CPU.
 
 Reduced zamba2-7b (hybrid: Mamba2 + the shared attention block), mamba2-130m
-(ssm), yi-9b (dense GQA) and qwen1.5-4b (dense, QKV bias) are built by the
-reference's ``init_params`` from one key and carried across with
-``convert.lm_params_from_reference``, so both packages compute the same
-function.  ``forward`` logits, ``prefill`` last-token logits and caches and
+(ssm), yi-9b (dense GQA), qwen1.5-4b (dense, QKV bias), gemma3-12b (``LLLLLG``
+sliding-window and global layers) and h2o-danube-3-4b (all ``L``), both with
+the window cut to 16, and a narrow gemma3 at its own head dim of 240
+(``gemma3-12b@d240``), are built by the reference's ``init_params`` from one
+key and carried across with ``convert.lm_params_from_reference``, so both
+packages compute the same function.  At S = 24 > 16 the ``L`` layers' ring
+caches hold the last 16 positions, arranged by prefill and compared slot for
+slot; the decode step writes slot 24 % 16.  ``forward`` logits, ``prefill`` last-token logits and caches and
 one ``decode_step`` are held against the reference's at atol = rtol = 1e-4
 (the same f32 operations, summed in PyTorch's order: the observed gap is
 ~1e-5); the port's own prefill + decode against its forward at the
@@ -30,17 +34,31 @@ from repro_torch.models import init_cache as tinit_cache
 from repro_torch.models import init_params as tinit_params
 from repro_torch.models import prefill as tprefill
 
-ARCHS = ["zamba2-7b", "mamba2-130m", "yi-9b", "qwen1.5-4b"]
+ARCHS = ["zamba2-7b", "mamba2-130m", "yi-9b", "qwen1.5-4b", "gemma3-12b", "h2o-danube-3-4b",
+         "gemma3-12b@d240"]
 TOL = 1e-4
 B, S = 2, 24
+# gemma3's head dim (3840 / 16 = 240) on a narrow model: 2 heads, 1 kv head,
+# one LLLLLG cycle, the reduced window of 16
+D240 = dict(d_model=480, num_heads=2, num_kv_heads=1)
+
+
+def configs(arch: str):
+    """The reference's and the port's config of a test arch: ``reduced``,
+    with ``@d240`` the narrow gemma3 at head dim 240."""
+    name, _, variant = arch.partition("@")
+    cfg, tcfg = reduced(get_config(name)), tconfigs.reduced(tconfigs.get_config(name))
+    if variant == "d240":
+        cfg, tcfg = dataclasses.replace(cfg, **D240), dataclasses.replace(tcfg, **D240)
+        assert cfg.head_dim == tcfg.head_dim == 240
+    return cfg, tcfg
 
 
 class Case:
     """The reference's outputs on one reduced arch, computed once."""
 
     def __init__(self, arch: str):
-        self.cfg = reduced(get_config(arch))
-        self.tcfg = tconfigs.reduced(tconfigs.get_config(arch))
+        self.cfg, self.tcfg = configs(arch)
         self.params = init_params(self.cfg, jax.random.PRNGKey(0))
         self.model = lm_params_from_reference(jax.tree.map(np.asarray, self.params), self.tcfg,
                                               device="cpu")
@@ -159,7 +177,7 @@ def test_init_params_draws_the_reference_distributions():
 def test_init_cache_matches_reference_shapes():
     from repro.models.decode import init_cache
 
-    for arch in ("zamba2-7b", "yi-9b"):
+    for arch in ("zamba2-7b", "yi-9b", "gemma3-12b", "h2o-danube-3-4b"):
         ref = init_cache(reduced(get_config(arch)), 2, 16)
         mine = tinit_cache(tconfigs.reduced(tconfigs.get_config(arch)), 2, 16, device="cpu")
         cfg = reduced(get_config(arch))
@@ -172,10 +190,88 @@ def test_init_cache_matches_reference_shapes():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "grok-1-314b", "whisper-tiny",
-                                  "phi-3-vision-4.2b", "gemma3-12b", "h2o-danube-3-4b"])
+                                  "phi-3-vision-4.2b"])
 def test_what_this_slice_does_not_carry_raises(arch):
     cfg = tconfigs.reduced(tconfigs.get_config(arch))
     with pytest.raises(NotImplementedError, match="slice"):
         LM(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="slice"):
         tinit_params(cfg, 0, device="cpu")
+
+
+def _ref_layer(cache, cfg, i: int) -> dict:
+    """Layer ``i`` of a reference cache (stacked by cycle), as numpy."""
+    period = len(cfg.layer_pattern)
+    n_cycles = cfg.num_layers // period
+    if i < n_cycles * period:
+        return {k: np.asarray(v[i // period]) for k, v in cache["cycles"][i % period].items()}
+    return {k: np.asarray(v[0]) for k, v in cache["rest"][i - n_cycles * period].items()}
+
+
+@pytest.fixture(scope="module")
+def danube():
+    cfg, tcfg = configs("h2o-danube-3-4b")
+    params = init_params(cfg, jax.random.PRNGKey(0))
+    model = lm_params_from_reference(jax.tree.map(np.asarray, params), tcfg, device="cpu")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (1, 40)).astype(np.int32)
+    step = jax.jit(lambda p, c, t, pos: decode_step(p, c, t, pos, cfg))  # one trace, 2·19 steps
+    return cfg, params, model, toks, step
+
+
+@pytest.mark.parametrize("plen", [20, 10], ids=["ring_arranged", "ring_padded"])
+def test_swa_ring_buffer_long_decode_matches_reference(danube, plen):
+    """``tests/test_models.py::test_swa_ring_buffer_long_decode`` through both
+    packages: reduced danube (window 16), a prompt of 20 (> W: prefill
+    arranges the last 16 positions into the ring) or 10 (< W: padded), then
+    decode to position 38, far past 2·W.  The ring after prefill equals the
+    reference's slot for slot, every step's logits the reference's and the
+    ring after the last step the reference's."""
+    cfg, params, model, toks, step = danube
+    s = toks.shape[1]
+    ref_last, ref_cache = prefill(params, jnp.asarray(toks[:, :plen]), cfg, max_seq=s)
+    with torch.inference_mode():
+        last, cache = tprefill(model, torch.from_numpy(toks[:, :plen]), max_seq=s)
+    _close(last, ref_last)
+    for i, layer in enumerate(cache):
+        want = _ref_layer(ref_cache, cfg, i)
+        assert tuple(layer["k"].shape) == want["k"].shape == (1, cfg.attn_window, 2, 16)
+        for key in want:
+            _close(layer[key], want[key])
+    for pos in range(plen, s - 1):
+        lg_ref, ref_cache = step(params, ref_cache, jnp.asarray(toks[:, pos]), jnp.int32(pos))
+        with torch.inference_mode():
+            lg, cache = tdecode(model, cache, torch.from_numpy(toks[:, pos]), pos)
+        _close(lg, np.asarray(lg_ref))
+    for i, layer in enumerate(cache):
+        want = _ref_layer(ref_cache, cfg, i)
+        for key in want:
+            _close(layer[key], want[key])
+
+
+def test_windowed_decode_positions_use_a_floored_remainder(monkeypatch):
+    """The ring's absolute positions ``pos − ((pos − i) mod W)``: slots past
+    ``pos`` hold the previous lap (``torch.fmod`` would give them positions
+    after ``pos``), slots not yet written before the first lap are masked."""
+    from repro_torch.models.decode import _attn_decode
+
+    _, tcfg = configs("h2o-danube-3-4b")
+    model = tinit_params(tcfg, 0, device="cpu")
+    attn = model.layers[0].attn
+    w, kv, hd = tcfg.attn_window, tcfg.num_kv_heads, tcfg.head_dim
+    seen = {}
+
+    def spy(q, k, v, causal, window=None, k_positions=None, q_positions=None, **kw):
+        seen.update(window=window, k_positions=k_positions.clone())
+        return torch.zeros_like(q)
+
+    import repro_torch.models.layers as tlayers
+
+    monkeypatch.setattr(tlayers, "xla_flash_attention", spy)
+    x = torch.randn(1, 1, tcfg.d_model)
+    for pos, want in ((5, [*range(6), *[-(10**9)] * (w - 6)]),
+                      (21, [16, 17, 18, 19, 20, 21, *range(6, 16)])):
+        cache = {"k": torch.zeros(1, w, kv, hd), "v": torch.zeros(1, w, kv, hd)}
+        _attn_decode(x, attn, cache, pos, tcfg, windowed=True)
+        assert seen["window"] == w
+        assert seen["k_positions"][0].tolist() == want
+        assert bool(cache["k"][0, pos % w].abs().sum() > 0)

@@ -6,8 +6,8 @@ each wrapper runs its plain PyTorch version: ``flash_attention``'s is a port
 of ``repro.kernels.ref.attention_ref``, held against it on the reference
 sweep's cases (``tests/test_kernels.py:160-178``: padding, right-aligned
 decode-style, window, cross, GQA) at D ∈ {64, 112, 128}, f32 at 2e-3 and
-bf16 at 3e-2, the reference's own tolerances, and once against the Pallas
-kernel in interpret mode.  ``ssd_scan``'s is ``ssd_chunked``, the port of
+bf16 at 3e-2, the reference's own tolerances, and against the Pallas
+kernel in interpret mode, also at gemma3-12b's D = 240.  ``ssd_scan``'s is ``ssd_chunked``, the port of
 ``models.layers.ssd_chunked``, held against it and ``ref.ssd_ref`` (outputs
 and final state) at atol 2e-3 / rtol 1e-2, also where the decay is slow
 enough that the state carried from chunk to chunk dominates the output.  The CUDA kernels are held
@@ -66,6 +66,21 @@ def test_attention_plain_matches_pallas_kernel_in_interpret_mode():
     mine = tops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), window=64)
     want = ops.flash_attention(*(jnp.asarray(x) for x in (q, k, v)), window=64)
     np.testing.assert_allclose(mine.numpy(), np.asarray(want), atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("win", [None, 48], ids=["global", "window"])
+def test_attention_plain_at_gemma3_head_dim_matches_oracle_and_pallas_kernel(win):
+    """gemma3-12b's head dim D = 3840 / 16 = 240, past the old 128-column
+    limit of the CUDA kernel: GQA 4:2, S = T = 150 (three 64-row tiles, the
+    last ragged), causal, globally and with a window; against ``attention_ref``
+    and the Pallas kernel in interpret mode."""
+    q, k, v = _attn_inputs(240, 1, 4, 2, 150, 150, 240)
+    mine = tops.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), window=win)
+    assert tuple(mine.shape) == (1, 4, 150, 240)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    for want in (ref.attention_ref(jq, jk, jv, causal=True, window=win),
+                 ops.flash_attention(jq, jk, jv, window=win)):
+        np.testing.assert_allclose(mine.numpy(), np.asarray(want), atol=2e-3, rtol=2e-3)
 
 
 def _ssd_inputs(seed, b, h, s, dh, ds):

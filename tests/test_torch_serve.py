@@ -54,6 +54,14 @@ def test_serve_engine_gives_the_reference_tokens(zamba):
     eng = ServeEngine(tcfg, model, max_slots=4, max_seq=128, device="cpu")
     mine = _serve(eng, prompts)
     assert [r.rid for r in mine] == [r.rid for r in ref]
+    compared, near_ties = _compare_tokens(mine, ref)
+    assert compared >= 100 and near_ties <= 1, (compared, near_ties)
+    assert [w["size"] for w in eng.wave_stats] == [4, 4]
+    assert all(w["decode_steps"] == 15 for w in eng.wave_stats)
+
+
+def _compare_tokens(mine, ref) -> tuple[int, int]:
+    """Tokens equal up to a near-tie per request: ``(compared, near_ties)``."""
     compared = near_ties = 0
     for rm, rr in zip(mine, ref):
         assert rm.done and len(rm.top2_gap) == len(rm.out_tokens)
@@ -65,9 +73,26 @@ def test_serve_engine_gives_the_reference_tokens(zamba):
             compared += 1
         else:
             assert len(rm.out_tokens) == len(rr.out_tokens) == 16
+    return compared, near_ties
+
+
+def test_serve_engine_on_ring_caches_gives_the_reference_tokens():
+    """Reduced gemma3-12b (``LLLLLG``, window 16): the launcher's traffic,
+    left-padded waves of 4-23-token prompts, decoded 16 tokens on, up to
+    position 38, so every ``L`` layer's ring of 16 slots wraps more than
+    once; the tokens equal the reference engine's."""
+    cfg = reduced(get_config("gemma3-12b"))
+    params = init_params(cfg, jax.random.PRNGKey(0))
+    tcfg = tconfigs.reduced(tconfigs.get_config("gemma3-12b"))
+    model = lm_params_from_reference(jax.tree.map(np.asarray, params), tcfg, device="cpu")
+    prompts = _launcher_prompts(cfg.vocab)
+    ref = _serve(JaxServeEngine(cfg, params, max_slots=4, max_seq=128), prompts)
+    eng = ServeEngine(tcfg, model, max_slots=4, max_seq=128, device="cpu")
+    mine = _serve(eng, prompts)
+    assert [r.rid for r in mine] == [r.rid for r in ref]
+    compared, near_ties = _compare_tokens(mine, ref)
     assert compared >= 100 and near_ties <= 1, (compared, near_ties)
-    assert [w["size"] for w in eng.wave_stats] == [4, 4]
-    assert all(w["decode_steps"] == 15 for w in eng.wave_stats)
+    assert max(w["prompt_len"] + w["decode_steps"] for w in eng.wave_stats) > 2 * cfg.attn_window
 
 
 def test_serve_engine_plain_impl_gives_the_same_tokens_on_cpu(zamba):
@@ -111,6 +136,16 @@ def test_serve_launcher_runs_on_the_cpu_when_asked(capsys):
                      "--max-seq", "48", "--device", "cpu"])
     assert n == 3
     assert "on cpu: 3 requests" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["gemma3-12b", "h2o-danube-3-4b"])
+def test_serve_launcher_runs_sliding_window_archs_on_the_cpu(arch, capsys):
+    """The ``L`` family through the launcher: 24 new tokens carry the
+    decode past the reduced window of 16."""
+    n = tserve.main(["--arch", arch, "--requests", "2", "--max-new", "24", "--slots", "2",
+                     "--max-seq", "64", "--device", "cpu"])
+    assert n == 2
+    assert "on cpu: 2 requests, 48 tokens" in capsys.readouterr().out
 
 
 def test_serve_launcher_reduced_flag_can_be_turned_off(monkeypatch):
@@ -196,3 +231,60 @@ def test_chip_smoke_lm_phases_pass_on_a_reduced_cpu_model(monkeypatch):
         cs.compare_streams(a, b, 2e-3)
     b[0].top2_gap = [1.0, 1e-3]  # a near-tie: counted, not failed
     assert cs.compare_streams(a, b, 2e-3) == {"tokens_equal": 1, "near_ties": 1, "tokens": 2}
+
+
+def test_chip_smoke_swa_phases_pass_on_a_narrow_cpu_model(monkeypatch):
+    """chip_smoke.py's lm_forward_swa and lm_serve_swa phases and #8's
+    sliding-window rows on a narrow gemma3 at its own head dim of 240 (one
+    LLLLLG cycle, window 16) on the CPU: 6 attention launches per forward,
+    long prompts past the window (rings arranged by prefill and compared
+    slot for slot), the head-dim sweep, and the windowed and global shapes
+    with their SDPA yardstick computing the same function."""
+    import dataclasses
+
+    cs = _chip_smoke()
+    tcfg = dataclasses.replace(tconfigs.reduced(tconfigs.get_config(cs.SWA_ARCH)),
+                               d_model=480, num_heads=2, num_kv_heads=1)
+    assert tcfg.head_dim == 240 and tcfg.attn_window == 16
+    model = init_lm(tcfg, 0, device="cpu")
+    want = cs.lm_layer_counts(tcfg)
+    assert want == {"flash_attention": 6, "ssd_scan": 0}
+    phases = []
+
+    def run(name, fn):
+        out = fn()
+        n = len(out[0].wave_stats) if name == "lm_serve_swa" else 1
+        phases.append(name)
+        return out, 0.5, {**dict.fromkeys(cs.KERNELS, 0), **{k: v * n for k, v in want.items()}}
+
+    fwd = cs.lm_forward_check(model, 40, 0, run, "lm_forward_swa")
+    assert fwd["max_abs_err"] < 1e-4 and fwd["launches"]["flash_attention"] == 6
+    long = {**cs.SERVE_TRAFFIC["long"], "plen": (20, 40), "max_seq": 60}
+    res = cs.lm_serve_check(model, long, 0, run, "lm_serve_swa")
+    assert res["streams"]["tokens_equal"] == res["streams"]["tokens"] > 0
+    assert res["prefill"]["prompt_len"] > tcfg.attn_window
+    assert set(res["prefill"]["cache_max_abs_err"]) == {"k", "v"}
+    assert phases == ["lm_forward_swa", "lm_serve_swa"]
+    with pytest.raises(AssertionError, match="lm_serve_swa: launches"):
+        cs.check_launches({"flash_attention": 5, "ssd_scan": 0}, want, "lm_serve_swa")
+    monkeypatch.setattr(cs, "time_ms", lambda fn, flush=None: (fn(), 0.0)[1])
+    monkeypatch.setattr(cs, "DANUBE_ATTN", (1, 4, 2, 80, 24, 32))
+    monkeypatch.setattr(cs, "FA_BF16_ATOL", 3e-2)  # attention_ref's bf16 arithmetic on the CPU
+    monkeypatch.setattr(cs, "FA_BF16_RTOL", 3e-2)
+    launches = {ph: {k: 1 for k in cs.KERNELS} for ph in cs.PHASE_KERNELS}
+    launches["lm_forward_swa"]["flash_attention"] = 48
+    zcfg = tconfigs.reduced(tconfigs.get_config(cs.LM_ARCH))
+    fa = cs.lm_kernel_rows(zcfg, launches, 130, 0, torch.device("cpu"), swa=(tcfg, 70))[0]
+    assert sorted(fa["checks"]["d_sweep"]) == sorted(cs.FA_D_SWEEP)
+    rows = fa[tcfg.name]
+    assert rows["launches_per_forward"] == 48
+    assert rows["shape"] == {"B": 4, "Hq": 2, "Hkv": 1, "S": 70, "T": 70, "D": 240}
+    # 16·17/2 pairs for the first 16 queries, then 16 for each of the other 54
+    assert rows["window"]["visible_pairs"] == 136 + 54 * 16
+    assert rows["global"]["visible_pairs"] == 70 * 71 // 2
+    for name in ("window", "global"):
+        assert rows[name]["library_max_abs_err"] < 1e-5
+        pairs = rows[name]["visible_pairs"]
+        bound = cs.bound_ms((2 * 2 + 2 * 1) * 4 * 70 * 240 * 4, 4.0 * 4 * 2 * 240 * pairs)
+        assert (rows[name]["bound_ms"], rows[name]["bound_by"]) == bound
+    assert cs.visible_pairs(3, 5, None) == 3 + 4 + 5 and cs.visible_pairs(3, 5, 2) == 6
