@@ -85,8 +85,11 @@ d_model 3840, 16 heads of 240, 8 kv heads, ~1.26·10¹⁰ parameters, f32):
    and the θ-counts, ``rtol=1e-5`` for the θ-sums; the reference's own
    tolerances for #8 and #9), timed with CUDA events (median of 25) beside
    the plain version, a library call where one computes the same function,
-   and the least time the card could take (``bound_ms``).  The prefix scan
-   is also held bit for bit at lengths across its chunk edges; #8 also at
+   and the least time the card could take (``bound_ms``; for #8, which
+   does its f32 products in 3xTF32, on the tensor cores' TF32 rate, with
+   the f32 FMA bound beside it as ``bound_fma_ms``).  The prefix scan is
+   also held bit for bit at lengths across its chunk edges and at the
+   longest row its shared-memory branch takes and one longer; #8 also at
    h2o-danube-3-4b's GQA sliding-window shape, in bf16, at every head dim
    of ``FA_D_SWEEP`` (1 to 512) and at gemma3-12b's long-wave shapes
    (windowed and global, D 240, timed beside its plain version and
@@ -117,6 +120,9 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# H100 SXM TF32 on the tensor cores, dense (NVIDIA's published peak):
+# #8 runs each f32 product as three TF32 products (3xTF32)
+TF32_OPS_PER_S = 494.7e12
 RPB = 8192
 Q = 64
 TIMING_RUNS = 25
@@ -176,10 +182,10 @@ SSD_CARRY_MIN = 50
 # window) and mamba2-130m's SSD (B, H, S, dh, ds)
 DANUBE_ATTN = (1, 32, 8, 6144, 120, 4096)
 MAMBA2_130M_SSD = (1, 24, 2048, 64, 128)
-# #8 at every head dim: the column-group edge (128 | 129), gemma3's 240, and
-# D of 2 and 4 groups; each causal (S = T) and windowed, right-aligned
-# (S < T), GQA: (B, Hq, Hkv, S, T, window)
-FA_D_SWEEP = (1, 17, 120, 128, 129, 240, 256, 300, 512)
+# #8 at every head dim: plain-load staging (1, 6, 7, 17), the whole-head edge
+# (256 | 257), gemma3's 240, and D of 2 column groups; each causal (S = T)
+# and windowed, right-aligned (S < T), GQA: (B, Hq, Hkv, S, T, window)
+FA_D_SWEEP = (1, 6, 7, 17, 120, 128, 129, 240, 256, 257, 300, 512)
 FA_SWEEP_SHAPES = ((2, 4, 2, 200, 200, None), (1, 4, 2, 130, 300, 64))
 # the launcher's traffic (repro/launch/serve.py defaults) and long prompts
 SERVE_TRAFFIC = {
@@ -239,6 +245,13 @@ def time_ms(fn, flush=None) -> float:
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def bound_tf32x3_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    """The bound of f32 work done on the tensor cores in 3xTF32: three TF32
+    operations for each f32 one."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, 3 * ops / TF32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations (3xTF32)")
 
 
 def assert_same(a, b, what: str) -> None:
@@ -666,10 +679,45 @@ def profile_wave(fn, label: str):
     return out
 
 
+def device_kernels(fn) -> list[str]:
+    """The names of the device kernels one ``fn`` call launches, traced by
+    ``torch.profiler`` as ``profile_wave`` traces (host and device)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0})
+
+
+def sdpa_kernels(b: int, h: int, s: int, d: int) -> list[str]:
+    """The device kernels ``scaled_dot_product_attention`` launches in f32
+    (causal, [b, h, s, d] of random values), traced in a fresh process: late
+    in a run that has traced long waves, the profiler reports no device
+    kernels for it."""
+    code = (
+        "import json, sys, torch\n"
+        "import torch.nn.functional as F\n"
+        f"sys.path.insert(0, {str(Path(__file__).resolve().parent)!r})\n"
+        "import chip_smoke as cs\n"
+        f"q, k, v = (torch.randn(({b}, {h}, {s}, {d}), device='cuda') for _ in range(3))\n"
+        "F.scaled_dot_product_attention(q, k, v, is_causal=True)\n"
+        "print(json.dumps(cs.device_kernels(\n"
+        "    lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], check=True, capture_output=True,
+                         text=True, timeout=300)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def ptxas_report(build_log: str) -> list[str]:
     """One line per compiled kernel from ``nvcc -Xptxas -v``'s log:
     registers, spill stores and spill loads (the flash-attention kernel's
-    instances by element type and output columns per thread)."""
+    instances by element type, 8-column output blocks per warp row, and
+    whether every group has exactly that many)."""
     import re
 
     out, fn, spill = [], None, ""
@@ -681,8 +729,9 @@ def ptxas_report(build_log: str) -> list[str]:
         elif "spill stores" in line:
             spill = line.strip()
         elif (m := re.search(r"Used (\d+) registers", line)) and fn:
-            fa = re.search(r"flash_attention_kernelI(\w+?)Li(\d+)E", fn)
-            name = f"flash_attention<{fa.group(1)}, NC={fa.group(2)}>" if fa else \
+            fa = re.search(r"flash_attention_kernelI(\w+?)Li(\d+)ELb([01])E", fn)
+            name = (f"flash_attention<{fa.group(1)}, ND={fa.group(2)}"
+                    f"{', exact' if fa.group(3) == '1' else ''}>") if fa else \
                 _last_identifier(fn)
             out.append(f"{name}: {m.group(1)} registers; {spill}")
             fn, spill = None, ""
@@ -701,10 +750,16 @@ def _last_identifier(mangled: str) -> str:
     return name
 
 
-def kernel_row(name, phase_launches: dict, err, ms, plain, lib, nbytes, ops, **extra) -> dict:
+def kernel_row(name, phase_launches: dict, err, ms, plain, lib, nbytes, ops, tf32x3=False,
+               **extra) -> dict:
     """One row of the ``{"kernels": [...]}`` line; ``launches`` are those of
-    the first path in ``PHASE_KERNELS`` that runs the kernel."""
+    the first path in ``PHASE_KERNELS`` that runs the kernel.  ``tf32x3``: the
+    kernel does its f32 products in 3xTF32, so its bound is on that datapath
+    and the f32 FMA bound goes beside it as ``bound_fma_ms``."""
     b, by = bound_ms(nbytes, ops)
+    if tf32x3:
+        extra["bound_fma_ms"] = b
+        b, by = bound_tf32x3_ms(nbytes, ops)
     src, rep = KERNELS[name]
     by_phase = {ph: n[name] for ph, n in phase_launches.items()}
     owner = next(ph for ph, names in PHASE_KERNELS.items() if name in names)
@@ -736,7 +791,7 @@ def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict
     from repro_torch.kernels.theta_stats import (
         theta_stats, theta_stats_batch, theta_stats_batch_plain, theta_stats_plain,
     )
-    from repro_torch.kernels.window_scan import prefix_sum, prefix_sum_plain
+    from repro_torch.kernels.window_scan import SMEM_MAX_N, prefix_sum, prefix_sum_plain
 
     dev = store.device
     lam, rpb = store.num_blocks, store.records_per_block
@@ -854,13 +909,20 @@ def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict
         float(2 * Q * THETA_FANOUT * lam),
     )
 
-    # prefix scan: bit for bit at lengths across the chunk edges, then the
-    # wave's round-0 sorted rows [64, λ] and one of them alone, timed
+    # prefix scan: bit for bit at lengths across the chunk edges and at the
+    # shared-memory branch's longest row and one longer (the global-scratch
+    # branch), each also as [64, n]; then the wave's round-0 sorted rows
+    # [64, λ] and one of them alone, timed
     g = torch.Generator().manual_seed(0)
+    edge = SMEM_MAX_N
     for n in SCAN_LENGTHS:
         x = (torch.rand(n, generator=g) ** 4).to(dev)
         if not torch.equal(prefix_sum(x), prefix_sum_plain(x)):
             raise AssertionError(f"prefix_sum differs from its plain version at n={n}")
+    for shape in ((edge,), (edge + 1,), (Q, edge), (Q, edge + 1)):
+        x = (torch.rand(shape, generator=g) ** 4).to(dev)
+        if not torch.equal(prefix_sum(x), prefix_sum_plain(x)):
+            raise AssertionError(f"prefix_sum differs from its plain version at {list(shape)}")
     sd = threshold_sort_batch(rows)[1]
     sd0 = sd[0].contiguous()
     if not torch.equal(prefix_sum(sd), prefix_sum_plain(sd)):
@@ -880,6 +942,7 @@ def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict
         time_ms(lambda: torch.cumsum(sd, dim=1)),
         2 * Q * lam * 4, float(Q * lam),
         shape=[Q, lam], single=single, exact_lengths=list(SCAN_LENGTHS),
+        smem_edge=[edge, edge + 1],
     )
 
     # union gather: the wave's touched blocks from each slab; dims timed cold
@@ -1131,26 +1194,30 @@ def swa_attention(cfg, b: int, seq: int, randn, launches: int) -> dict:
                                                       enable_gqa=hq != hkv)
         lib_err = float((lib() - attention_plain(q, k, v, window=w)).abs().max())
         pairs = visible_pairs(seq, seq, w)
-        bms, by = bound_ms((2 * hq + 2 * hkv) * b * seq * d * 4, 4.0 * b * hq * d * pairs)
+        nbytes, ops = (2 * hq + 2 * hkv) * b * seq * d * 4, 4.0 * b * hq * d * pairs
+        bms, by = bound_tf32x3_ms(nbytes, ops)
         out[name] = {
             "window": w, "visible_pairs": pairs, "max_abs_err": err, "bf16_max_abs_err": bf16,
             "library_max_abs_err": lib_err,
             "ms": time_ms(lambda: flash_attention(q, k, v, window=w)),
             "plain_ms": time_ms(lambda: attention_plain(q, k, v, window=w)),
             "library_ms": time_ms(lib), "bound_ms": bms, "bound_by": by,
+            "bound_fma_ms": bound_ms(nbytes, ops)[0],
         }
         log(f"kernel flash_attention at {cfg.name} {name} {out['shape']}: {out[name]}")
     return out
 
 
 def lm_kernel_rows(cfg, phase_launches: dict, seq: int, seed: int, dev,
-                   swa=None) -> list[dict]:
+                   swa=None, profile: bool = False) -> list[dict]:
     """#8 and #9 at the long serving wave's prefill shapes (batch 4, S = T =
     the wave's padded prompt length) against their plain versions, timed;
     #8 also at h2o-danube-3-4b's GQA sliding-window shape, in bf16 and at
     every head dim of ``FA_D_SWEEP``, and, given ``swa = (cfg, seq)``, at
     that sliding-window model's long-wave shapes (``swa_attention``); #9
-    also at mamba2-130m's d_state 128."""
+    also at mamba2-130m's d_state 128.  ``profile``: log the kernels that
+    ``scaled_dot_product_attention`` launches in f32 at #8's shape (its
+    yardstick: 3xTF32 on the tensor cores, or not)."""
     import torch
     import torch.nn.functional as F
 
@@ -1187,6 +1254,10 @@ def lm_kernel_rows(cfg, phase_launches: dict, seq: int, seed: int, dev,
         scfg, sseq = swa
         extra[scfg.name] = swa_attention(scfg, b, sseq, randn,
                                          phase_launches["lm_forward_swa"]["flash_attention"])
+    if profile:
+        extra["library_kernels"] = sdpa_kernels(b, h, seq, d)
+        log(f"profile: scaled_dot_product_attention (f32, [{b}, {h}, {seq}, {d}], causal) "
+            f"launches {extra['library_kernels']}")
     fa = kernel_row(
         "flash_attention", phase_launches, err,
         time_ms(lambda: flash_attention(q, k, v)),
@@ -1194,7 +1265,7 @@ def lm_kernel_rows(cfg, phase_launches: dict, seq: int, seed: int, dev,
         time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
         4 * b * h * seq * d * 4,  # q, k, v read and o written, f32
         4.0 * b * h * d * visible_pairs(seq, seq, None),  # QKᵀ and PV over the causal pairs
-        shape={"B": b, "Hq": h, "Hkv": cfg.num_kv_heads, "S": seq, "T": seq, "D": d},
+        tf32x3=True, shape={"B": b, "Hq": h, "Hkv": cfg.num_kv_heads, "S": seq, "T": seq, "D": d},
         checks=checks, **extra,
     )
     del q, k, v
@@ -1347,7 +1418,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="run the first wave under torch.profiler and trace one more "
                          "warm wave, one warm sharded wave and one LM serving wave of each "
-                         "traffic; print device and host time by operator")
+                         "traffic; print device and host time by operator, and the kernels "
+                         "scaled_dot_product_attention launches in f32")
     # one rank of the sharded_ranks phase (the script starts these itself)
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--world", type=int, default=SHARDS, help=argparse.SUPPRESS)
@@ -1554,7 +1626,7 @@ def main(argv=None) -> int:
 
     entries = kernel_phase(store, queries, batch, phase_launches, rows)
     entries += lm_kernel_rows(cfg, phase_launches, long_seq, args.seed, torch.device("cuda"),
-                              swa=(scfg, swa_seq))
+                              swa=(scfg, swa_seq), profile=args.profile)
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -62,7 +62,7 @@ _SIGNATURES = {
     "nt_theta_stats_batch": (_P, _I64, _I64, _P, _I64, _P, _P, _P),
     # (slab, ids, u, nbytes, out, stream)
     "nt_block_gather": (_P, _P, _I64, _I64, _P, _P),
-    # (x, rows, n, out, scratch, scratch_stride, stream)
+    # (x, rows, n, out, scratch or None, scratch_stride, stream)
     "nt_prefix_sum": (_P, _I64, _I64, _P, _P, _I64, _P),
     # (q, k, v, o, B, Hq, Hkv, S, T, D, causal, window, scale, bf16, stream)
     "nt_flash_attention": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
@@ -142,8 +142,11 @@ def load() -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
-    lib.nt_theta_stats_tiles.argtypes = [_I64]
-    lib.nt_theta_stats_tiles.restype = _I64
+    for fn, argtypes in (("nt_theta_stats_tiles", [_I64]),
+                         ("nt_prefix_sum_scratch_floats", [_I64]),
+                         ("nt_prefix_sum_smem_max_n", [])):
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _I64
     _lib = lib
     return lib
 

@@ -6,16 +6,21 @@ queries right-aligned to the end of the kv sequence (``q_pos = i + T − S``),
 masked logits at −1e30.
 
 On CUDA :func:`flash_attention` is the kernel in ``csrc/flash_attention.cu``
-(one thread block per (batch, q head, 64-row q tile, group of 128 output
-columns), the kv tiles walked in order with the softmax state in registers;
-any head dim D >= 1, as the TPU kernel); on the CPU it is
+(FlashAttention-2 on the tensor cores: one block of 4 warps per (batch,
+q head, 64-row q tile), each warp's 16 rows, softmax state and output in
+registers, the kv tiles of 32 keys walked in order through a two-stage
+``cp.async`` ring; every product in 3xTF32, f32-class accuracy; any head
+dim D >= 1, as the TPU kernel, in column groups of 256 past 256); on the
+CPU it is
 :func:`attention_plain`, a port of the reference oracle
 ``repro/kernels/ref.py`` ``attention_ref``: the full softmax over the masked
 logits, which the kernel's tiling and kv padding do not change.  The kernel
-adds in another order, so results agree to rounding: the tests hold f32 at
-2e-3, the reference's own tolerance.  In bf16 the kernel sums the bf16
-values in f32 and rounds only its output, so the card's checks hold it
-against this version on the same values upcast to f32, to one bf16 ulp.
+adds in another order and splits each f32 product into three TF32 ones, so
+results agree to rounding: the tests hold f32 at 2e-3, the reference's own
+tolerance (``tests/test_torch_tf32.py`` pins the split's arithmetic at
+1e-5).  In bf16 the kernel sums the bf16 values in f32 and rounds only its
+output, so the card's checks hold it against this version on the same
+values upcast to f32, to one bf16 ulp.
 """
 from __future__ import annotations
 

@@ -2,8 +2,10 @@
 
 Counterpart of ``repro/kernels/window_scan.py``.  :func:`prefix_sum` scans
 the last axis of a ``[λ]`` vector or a ``[Q, λ]`` matrix.  On CUDA it is the
-kernel in ``csrc/window_scan.cu`` (one thread block per row); on the CPU it
-is :func:`prefix_sum_plain`, which is :func:`repro_torch.core.scan.cumsum`.
+kernel in ``csrc/window_scan.cu`` (a cluster of 8 thread blocks per row,
+the row and its chunk levels in their shared memory; a row longer than
+:data:`SMEM_MAX_N` keeps its levels in a global scratch); on the CPU it is
+:func:`prefix_sum_plain`, which is :func:`repro_torch.core.scan.cumsum`.
 Both add in the order of ``jnp.cumsum`` on JAX's CPU backend, so the kernel,
 the plain version and the reference agree bit for bit: the THRESHOLD cut and
 the TWO-PRONG window compare these sums with k, and plans must match.
@@ -18,14 +20,11 @@ from repro_torch.kernels import _lib
 prefix_sum_plain = cumsum
 
 
-def scratch_floats(n: int) -> int:
-    """Per-row scratch of the kernel: the chunk totals of every level whose
-    length exceeds :data:`SCAN_BASE` (814 floats at n = 12,208)."""
-    total = 0
-    while n > SCAN_BASE:
-        n = -(-n // SCAN_BASE)
-        total += n
-    return total
+#: the longest row the kernel scans in shared memory, on a cluster of 8
+#: blocks (16^4: its levels from the third on fit one warp); a longer row
+#: keeps its levels in a global scratch.  The card-only tests hold it equal
+#: to the library's own answer.
+SMEM_MAX_N = SCAN_BASE**4
 
 
 def prefix_sum(x: torch.Tensor) -> torch.Tensor:
@@ -40,13 +39,14 @@ def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if rows == 0 or n == 0:
         return out
-    stride = scratch_floats(n)
-    scratch = torch.empty((max(rows * stride, 1),), dtype=torch.float32, device=x.device)
     lib = _lib.load()
+    stride = lib.nt_prefix_sum_scratch_floats(n)  # 0: the row fits in shared memory
+    scratch = (torch.empty((rows * stride,), dtype=torch.float32, device=x.device)
+               if stride else None)
     with torch.cuda.device(x.device):
         rc = lib.nt_prefix_sum(
-            x.data_ptr(), rows, n, out.data_ptr(), scratch.data_ptr(), stride,
-            _lib.stream_of(x),
+            x.data_ptr(), rows, n, out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), stride, _lib.stream_of(x),
         )
     _lib.launched("prefix_sum", rc)
     return out

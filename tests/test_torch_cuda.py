@@ -176,7 +176,8 @@ def test_single_combine_kernel_bit_identical_to_plain(cuda, op, gamma, lam):
     assert torch.equal(out.cpu(), density_combine_plain(dens, rows, op))
 
 
-@pytest.mark.parametrize("n", [1, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 65537, 12208])
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 65537, 12208,
+                               2048, 2049, 2304, 6144])
 def test_prefix_sum_kernel_bit_identical_to_plain(cuda, n):
     rng = np.random.default_rng(n)
     x = (rng.random(n) ** 4).astype(np.float32)
@@ -194,6 +195,33 @@ def test_batched_prefix_sum_kernel_bit_identical_to_plain(cuda, q, n):
     out = prefix_sum(x.to(cuda))
     assert torch.equal(out.cpu(), prefix_sum_plain(x))
     assert torch.equal(out, prefix_sum_plain(x.to(cuda)))
+
+
+@pytest.mark.parametrize("q", [1, 64])
+@pytest.mark.parametrize("past", [0, 1], ids=["smem_max_n", "smem_max_n_plus_1"])
+def test_prefix_sum_kernel_at_the_shared_memory_edge(cuda, q, past):
+    """The longest row the shared-memory (cluster) branch takes and one
+    longer, which takes the global-scratch branch of the same launch: one
+    launch each, bit for bit the plain version, as a [λ] row and as
+    [64, λ]."""
+    from repro_torch.kernels.window_scan import SMEM_MAX_N
+
+    lib = _lib.load()
+    assert lib.nt_prefix_sum_smem_max_n() == SMEM_MAX_N
+    n = SMEM_MAX_N + past
+    assert lib.nt_prefix_sum_scratch_floats(n) == (0 if past == 0 else 4373)
+    rng = np.random.default_rng(n + q)
+    x = (rng.random((q, n)) ** 4).astype(np.float32)
+    x[rng.random((q, n)) < 0.3] = 0.0
+    xc = torch.from_numpy(x).to(cuda)
+    if q == 1:
+        xc = xc[0]
+    n0 = _lib.LAUNCHES["prefix_sum"]
+    out = prefix_sum(xc)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["prefix_sum"] == n0 + 1
+    assert torch.equal(out, prefix_sum_plain(xc))
+    assert torch.equal(out.cpu(), prefix_sum_plain(xc.cpu()))
 
 
 @pytest.mark.parametrize("lam,T", [(12208, 16), (1000, 1), (7, 9), (5000, 32)])
@@ -239,14 +267,28 @@ def test_threshold_bisect_on_the_kernel_matches_the_plain_steps(cuda):
         (2, 4, 2, 129, 129, True, None, 112, torch.bfloat16),
         (1, 4, 1, 256, 256, True, 100, 64, torch.bfloat16),
         (1, 2, 2, 70, 70, True, None, 7, torch.float32),  # D not a multiple of 16
-        # every head dim: one column group up to 128, then groups of 128 with
-        # QKᵀ in chunks of 120 (gemma3-12b: 240)
+        # every head dim: the whole head up to 256 (gemma3-12b: 240), then
+        # column groups of 256 with QKᵀ in chunks of 256
         *[(2, 4, 2, 200, 200, True, None, d, torch.float32)
           for d in (1, 17, 120, 128, 129, 240, 256, 300, 512)],
         *[(1, 4, 2, 130, 300, True, 64, d, torch.float32)
           for d in (1, 17, 120, 128, 129, 240, 256, 300, 512)],
         (1, 16, 8, 300, 300, True, 128, 240, torch.bfloat16),  # gemma3's heads, windowed
         (2, 4, 4, 129, 129, True, None, 300, torch.bfloat16),
+        # the edges of the 32-key kv tile: S and T of 31, 32, 33
+        *[(1, 4, 2, n, n, True, None, 112, torch.float32) for n in (31, 32, 33)],
+        *[(1, 2, 1, n, 96, True, 40, 240, torch.float32) for n in (31, 32, 33)],
+        (2, 2, 2, 32, 33, False, None, 64, torch.float32),
+        # the edge of the whole-head design: D = 256 holds the head, 257 takes groups
+        *[(1, 4, 2, 130, 300, True, w, d, torch.float32) for d in (256, 257)
+          for w in (None, 64)],
+        (1, 2, 1, 100, 100, True, None, 257, torch.bfloat16),
+        # D not a multiple of 4: staged by plain loads
+        *[(2, 4, 2, 77, 77, True, w, d, torch.float32) for d in (6, 7) for w in (None, 32)],
+        (1, 2, 2, 40, 40, True, None, 6, torch.bfloat16),
+        # zamba2-7b's heads (32 of 112) decoding one query, and a prompt of one
+        (4, 32, 32, 1, 1895, True, None, 112, torch.float32),
+        (4, 32, 32, 1, 1, True, None, 112, torch.float32),
     ],
 )
 def test_flash_attention_kernel_against_plain(cuda, b, hq, hkv, s, t, causal, win, d, dtype):

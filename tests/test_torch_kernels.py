@@ -161,6 +161,21 @@ def test_prefix_sum_plain_against_pallas_and_jnp_cumsum(n):
                                   np.asarray(jnp.cumsum(jnp.asarray(rows), axis=1)))
 
 
+def test_prefix_sum_shared_memory_edge_against_jnp_cumsum():
+    """The kernel's shared-memory branch takes rows up to 16^4 = 65,536
+    (its levels from the third on fit one warp).  At that length and one
+    past it (the other branch) the plain version, which the card holds the
+    kernel to bit for bit, equals ``jnp.cumsum``."""
+    from repro_torch.kernels.window_scan import SMEM_MAX_N
+
+    assert SMEM_MAX_N == 65536
+    rng = np.random.default_rng(SMEM_MAX_N)
+    for n in (SMEM_MAX_N, SMEM_MAX_N + 1):
+        x = (rng.random(n) ** 4).astype(np.float32)
+        np.testing.assert_array_equal(prefix_sum(torch.from_numpy(x)).numpy(),
+                                      np.asarray(jnp.cumsum(jnp.asarray(x))))
+
+
 @pytest.mark.parametrize("op", ["and", "or"])
 @pytest.mark.parametrize("gamma", [1, 2, 5])
 def test_single_combine_plain_bit_identical_to_pallas(op, gamma):

@@ -285,6 +285,74 @@ def test_chip_smoke_swa_phases_pass_on_a_narrow_cpu_model(monkeypatch):
     for name in ("window", "global"):
         assert rows[name]["library_max_abs_err"] < 1e-5
         pairs = rows[name]["visible_pairs"]
-        bound = cs.bound_ms((2 * 2 + 2 * 1) * 4 * 70 * 240 * 4, 4.0 * 4 * 2 * 240 * pairs)
-        assert (rows[name]["bound_ms"], rows[name]["bound_by"]) == bound
+        nbytes, ops = (2 * 2 + 2 * 1) * 4 * 70 * 240 * 4, 4.0 * 4 * 2 * 240 * pairs
+        assert (rows[name]["bound_ms"], rows[name]["bound_by"]) == cs.bound_tf32x3_ms(nbytes, ops)
+        assert rows[name]["bound_fma_ms"] == cs.bound_ms(nbytes, ops)[0]
     assert cs.visible_pairs(3, 5, None) == 3 + 4 + 5 and cs.visible_pairs(3, 5, 2) == 6
+
+
+def test_chip_smoke_bounds_flash_attention_on_the_3xtf32_datapath():
+    """#8 does its f32 products as three TF32 products on the tensor cores:
+    at zamba2-7b's long wave (B 4, 32 heads, S = T = 1,895, D 112, causal)
+    its bound is 3·ops at 494.7 TFLOP/s, with the f32 FMA bound of the
+    earlier FMA kernel (1.5376 ms) kept beside it; a kernel_row marked
+    tf32x3 carries both."""
+    cs = _chip_smoke()
+    nbytes = 4 * 4 * 32 * 1895 * 112 * 4
+    ops = 4.0 * 4 * 32 * 112 * cs.visible_pairs(1895, 1895, None)
+    fma, by = cs.bound_ms(nbytes, ops)
+    assert by == "operations" and abs(fma - 1.5375552573134328) < 1e-9
+    ms, by = cs.bound_tf32x3_ms(nbytes, ops)
+    assert by == "operations (3xTF32)" and ms == pytest.approx(fma * 3 * 67 / 494.7)
+    assert cs.bound_tf32x3_ms(1e12, 1.0)[1] == "bytes"
+    launches = {ph: {k: 1 for k in cs.KERNELS} for ph in cs.PHASE_KERNELS}
+    row = cs.kernel_row("flash_attention", launches, 0.0, 2.0, 3.0, 2.5, nbytes, ops,
+                        tf32x3=True)
+    assert (row["bound_ms"], row["bound_by"], row["bound_fma_ms"]) == (ms, by, fma)
+    assert "bound_fma_ms" not in cs.kernel_row("ssd_scan", launches, 0.0, 2.0, 3.0, None,
+                                               nbytes, ops)
+
+
+def test_chip_smoke_ptxas_report_names_the_kernel_instances():
+    """The build log's ptxas lines become one line per kernel: #8's
+    instances by type, output blocks and exactness, the others by name."""
+    cs = _chip_smoke()
+    log = """== flash_attention.cu
+ptxas info    : Function properties for _ZN51_GLOBAL__N__04cf38d3_18_flash_attention_cu_c28d732722flash_attention_kernelIfLi14ELb1EEEvPKT_S3_S3_PS1_lllliiilfi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 244 registers, used 1 barriers
+ptxas info    : Function properties for _ZN51_GLOBAL__N__04cf38d3_18_flash_attention_cu_c28d732722flash_attention_kernelI13__nv_bfloat16Li4ELb0EEEvPKT_S4_S4_PS2_lllliiilfi
+    24 bytes stack frame, 36 bytes spill stores, 32 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers
+== window_scan.cu
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122prefix_sum_smem_kernelEPKfiPfi
+    128 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers
+"""
+    assert cs.ptxas_report(log) == [
+        "== flash_attention.cu",
+        "flash_attention<f, ND=14, exact>: 244 registers; "
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "flash_attention<13__nv_bfloat16, ND=4>: 80 registers; "
+        "24 bytes stack frame, 36 bytes spill stores, 32 bytes spill loads",
+        "== window_scan.cu",
+        "prefix_sum_smem_kernel: 32 registers; "
+        "128 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+    ]
+
+
+def test_chip_smoke_traces_sdpa_kernels_in_a_fresh_process(monkeypatch):
+    """``--profile`` names the kernels SDPA launches in f32 from a new
+    process (the script's own profiler state is spent by then): the child's
+    code compiles, takes the requested shape, and its last line is parsed."""
+    cs = _chip_smoke()
+    seen = {}
+
+    def fake_run(cmd, **kw):
+        seen["code"] = cmd[2]
+        compile(cmd[2], "sdpa_kernels", "exec")
+        return type("Done", (), {"stdout": 'a warning\n["fmha_cutlassF_f32"]\n'})
+
+    monkeypatch.setattr(cs.subprocess, "run", fake_run)
+    assert cs.sdpa_kernels(4, 32, 1895, 112) == ["fmha_cutlassF_f32"]
+    assert "torch.randn((4, 32, 1895, 112), device='cuda')" in seen["code"]
