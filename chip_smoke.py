@@ -67,8 +67,11 @@ depth (81 layers, ~5.74·10⁹ parameters, f32, random weights from
    1024-2048 tokens, ``max_seq`` 2176), each beside the same engine with
    ``impl="plain"``: the first wave's prefill logits and caches within
    tolerance, and greedy tokens equal except at near-ties (the plain run's
-   top-2 logit gap within twice the tolerance), which are counted.  With
-   ``--profile``, one more wave of each traffic runs under the profiler.
+   top-2 logit gap within twice the tolerance), which are counted.  Prefill
+   takes each Mamba layer's final state from #9's own call (one launch per
+   ``M`` sublayer, no plain SSD); the long wave's prefill time is logged.
+   With ``--profile``, one more wave of each traffic runs under the
+   profiler.
 
 Then, with zamba2-7b freed, the sliding-window family: gemma3-12b at its
 published widths and full depth (48 layers ``LLLLLG``, window 1024,
@@ -85,15 +88,21 @@ d_model 3840, 16 heads of 240, 8 kv heads, ~1.26·10¹⁰ parameters, f32):
    and the θ-counts, ``rtol=1e-5`` for the θ-sums; the reference's own
    tolerances for #8 and #9), timed with CUDA events (median of 25) beside
    the plain version, a library call where one computes the same function,
-   and the least time the card could take (``bound_ms``; for #8, which
-   does its f32 products in 3xTF32, on the tensor cores' TF32 rate, with
-   the f32 FMA bound beside it as ``bound_fma_ms``).  The prefix scan is
+   and the least time the card could take (``bound_ms``; for #8 and #9,
+   which do their f32 products in 3xTF32, on the tensor cores' TF32 rate,
+   with the f32 FMA bound beside it as ``bound_fma_ms``).  The prefix scan is
    also held bit for bit at lengths across its chunk edges and at the
    longest row its shared-memory branch takes and one longer; #8 also at
    h2o-danube-3-4b's GQA sliding-window shape, in bf16, at every head dim
    of ``FA_D_SWEEP`` (1 to 512) and at gemma3-12b's long-wave shapes
    (windowed and global, D 240, timed beside its plain version and
-   ``scaled_dot_product_attention``), #9 also at mamba2-130m's d_state 128;
+   ``scaled_dot_product_attention``), #9 (the CUDA kernels of a call
+   counted and timed by ``torch.profiler`` as ``cuda_kernels_per_call``
+   and ``phase_ms``) also per tensor at ``SSD_TF32X3_RTOL``, which the
+   plain version with TF32 products must miss, with its final state, under
+   slow decay (output and final state, the carried state's weight
+   checked), over 64 chunks (``SSD_64_CHUNKS``) and at mamba2-130m's
+   d_state 128;
    the sharded combine (#3) at the slab of one of P = 4 ranks and of a
    world of one.
 
@@ -121,7 +130,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # H100 SXM TF32 on the tensor cores, dense (NVIDIA's published peak):
-# #8 runs each f32 product as three TF32 products (3xTF32)
+# #8 and #9 run each f32 product as three TF32 products (3xTF32)
 TF32_OPS_PER_S = 494.7e12
 RPB = 8192
 Q = 64
@@ -178,10 +187,17 @@ FA_BF16_ATOL, FA_BF16_RTOL = 1e-4, 2.0**-7
 # #9's slow-decay check must weigh the carried state: without it the output
 # moves by more than this many SSD_ATOL
 SSD_CARRY_MIN = 50
+# #9 is also held per tensor, max |kernel − plain| <= SSD_TF32X3_RTOL·max
+# |plain|: 3xTF32 reads ~3e-6 there, and one TF32 product a step (the
+# control: the plain version with TF32 products) ~2^-10 ≈ 1e-3, which the
+# check must miss for the run to pass
+SSD_TF32X3_RTOL = 3e-5
 # extra kernel checks: h2o-danube-3-4b's attention (B, Hq, Hkv, S = T, D,
 # window) and mamba2-130m's SSD (B, H, S, dh, ds)
 DANUBE_ATTN = (1, 32, 8, 6144, 120, 4096)
 MAMBA2_130M_SSD = (1, 24, 2048, 64, 128)
+# #9's state pass over 64 chunks at zamba2-7b's heads (B, H, S, dh, ds)
+SSD_64_CHUNKS = (1, 112, 8192, 64, 64)
 # #8 at every head dim: plain-load staging (1, 6, 7, 17), the whole-head edge
 # (256 | 257), gemma3's 240, and D of 2 column groups; each causal (S = T)
 # and windowed, right-aligned (S < T), GQA: (B, Hq, Hkv, S, T, window)
@@ -679,18 +695,30 @@ def profile_wave(fn, label: str):
     return out
 
 
-def device_kernels(fn) -> list[str]:
-    """The names of the device kernels one ``fn`` call launches, traced by
-    ``torch.profiler`` as ``profile_wave`` traces (host and device)."""
+def device_ms(fn, runs: int = 10) -> dict:
+    """Each kernel that ``fn`` launches, traced by ``torch.profiler`` over
+    ``runs`` calls: ``{name: {"ms": device ms, "per_call": launches}}`` per
+    ``fn`` call, the name without its namespace and arguments.  Empty where
+    the profiler reports no device time (after earlier traces in the same
+    process, as ``sdpa_kernels`` notes)."""
+    import re
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(runs):
+            fn()
         torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0})
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", e.key)
+            out[name] = {"ms": e.self_device_time_total / 1e3 / runs, "per_call": e.count / runs}
+    return out
 
 
 def sdpa_kernels(b: int, h: int, s: int, d: int) -> list[str]:
@@ -704,9 +732,8 @@ def sdpa_kernels(b: int, h: int, s: int, d: int) -> list[str]:
         f"sys.path.insert(0, {str(Path(__file__).resolve().parent)!r})\n"
         "import chip_smoke as cs\n"
         f"q, k, v = (torch.randn(({b}, {h}, {s}, {d}), device='cuda') for _ in range(3))\n"
-        "F.scaled_dot_product_attention(q, k, v, is_causal=True)\n"
-        "print(json.dumps(cs.device_kernels(\n"
-        "    lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))))\n"
+        "print(json.dumps(sorted(cs.device_ms(\n"
+        "    lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 1))))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], check=True, capture_output=True,
                          text=True, timeout=300)
@@ -715,9 +742,8 @@ def sdpa_kernels(b: int, h: int, s: int, d: int) -> list[str]:
 
 def ptxas_report(build_log: str) -> list[str]:
     """One line per compiled kernel from ``nvcc -Xptxas -v``'s log:
-    registers, spill stores and spill loads (the flash-attention kernel's
-    instances by element type, 8-column output blocks per warp row, and
-    whether every group has exactly that many)."""
+    registers, spill stores and spill loads, the kernel named with its
+    template arguments (``demangle``)."""
     import re
 
     out, fn, spill = [], None, ""
@@ -729,25 +755,48 @@ def ptxas_report(build_log: str) -> list[str]:
         elif "spill stores" in line:
             spill = line.strip()
         elif (m := re.search(r"Used (\d+) registers", line)) and fn:
-            fa = re.search(r"flash_attention_kernelI(\w+?)Li(\d+)ELb([01])E", fn)
-            name = (f"flash_attention<{fa.group(1)}, ND={fa.group(2)}"
-                    f"{', exact' if fa.group(3) == '1' else ''}>") if fa else \
-                _last_identifier(fn)
-            out.append(f"{name}: {m.group(1)} registers; {spill}")
+            out.append(f"{demangle(fn)}: {m.group(1)} registers; {spill}")
             fn, spill = None, ""
     return out
 
 
-def _last_identifier(mangled: str) -> str:
-    """The kernel's own name in an Itanium-mangled (nested) symbol."""
+_BUILTIN_TYPES = {"b": "bool", "c": "char", "a": "signed char", "h": "unsigned char",
+                  "s": "short", "t": "unsigned short", "i": "int", "j": "unsigned",
+                  "l": "long", "m": "unsigned long", "x": "long long",
+                  "y": "unsigned long long", "f": "float", "d": "double"}
+
+
+def demangle(mangled: str) -> str:
+    """A kernel's own name in an Itanium-mangled symbol, with its template
+    arguments as ``torch.profiler`` prints them (``_ZN..17ssd_state_kernelILi1EEEv..``
+    → ``ssd_state_kernel<1>``): the last name of the (nested) prefix, then
+    builtin types, named types and integer or bool literals."""
+    import re
+
+    def ident(i):  # <length><identifier> at i -> (identifier, next i)
+        m = re.match(r"\d+", mangled[i:])
+        j = i + len(m.group())
+        return mangled[j:j + int(m.group())], j + int(m.group())
+
     i, name = 3 if mangled.startswith("_ZN") else 2, mangled
     while i < len(mangled) and mangled[i].isdigit():
-        j = i
-        while mangled[j].isdigit():
-            j += 1
-        n = int(mangled[i:j])
-        name, i = mangled[j:j + n], j + n
-    return name
+        name, i = ident(i)
+    if not mangled.startswith("I", i):
+        return name
+    args, i = [], i + 1
+    while i < len(mangled) and mangled[i] != "E":
+        if mangled[i] == "L":  # literal: L <type> <value> E, n for a minus sign
+            kind, end = mangled[i + 1], mangled.index("E", i)
+            value = mangled[i + 2:end].replace("n", "-")
+            args.append({"0": "false", "1": "true"}[value] if kind == "b" else value)
+            i = end + 1
+        elif mangled[i].isdigit():
+            arg, i = ident(i)
+            args.append(arg)
+        else:
+            args.append(_BUILTIN_TYPES.get(mangled[i], mangled[i]))
+            i += 1
+    return f"{name}<{', '.join(args)}>"
 
 
 def kernel_row(name, phase_launches: dict, err, ms, plain, lib, nbytes, ops, tf32x3=False,
@@ -1215,7 +1264,11 @@ def lm_kernel_rows(cfg, phase_launches: dict, seq: int, seed: int, dev,
     #8 also at h2o-danube-3-4b's GQA sliding-window shape, in bf16 and at
     every head dim of ``FA_D_SWEEP``, and, given ``swa = (cfg, seq)``, at
     that sliding-window model's long-wave shapes (``swa_attention``); #9
-    also at mamba2-130m's d_state 128.  ``profile``: log the kernels that
+    also per tensor at ``SSD_TF32X3_RTOL`` beside the plain version with
+    TF32 products (on the card), with its final state (prefill's call,
+    timed too), under slow decay at the wave's shape and over 64 chunks
+    (output, final state and the carried state's weight), and at
+    mamba2-130m's d_state 128.  ``profile``: log the kernels that
     ``scaled_dot_product_attention`` launches in f32 at #8's shape (its
     yardstick: 3xTF32 on the tensor cores, or not)."""
     import torch
@@ -1296,22 +1349,62 @@ def lm_kernel_rows(cfg, phase_launches: dict, seq: int, seed: int, dev,
 
         return plain(split(u), split(ld), split(bm), split(cm)).reshape(u.shape)
 
+    def held(a, b, what):
+        """#9 against its plain version: within SSD_ATOL/SSD_RTOL elementwise
+        and within SSD_TF32X3_RTOL of the plain version's largest value."""
+        check_close(a, b, 0.0, SSD_TF32X3_RTOL, f"{what}, 3xTF32", scale="tensor")
+        return check_close(a, b, SSD_ATOL, SSD_RTOL, what)
+
+    def slow_checks(shape, what):
+        """y and the final state under slow decay, against the plain
+        version; the carried state must weigh (SSD_CARRY_MIN)."""
+        slow = ssd_inputs(*shape, slow=True)
+        y, hfin = ssd_scan(*slow, return_state=True)
+        y_p, h_p = ssd_chunked(*slow, CHUNK, return_state=True)
+        out = {"y": held(y, y_p, f"ssd_scan ({what})"),
+               "final_state": held(hfin, h_p, f"ssd_scan ({what}, final state)")}
+        out["carry_weight"] = float((chunks_alone(*slow) - y_p).abs().max())
+        if not out["carry_weight"] > SSD_CARRY_MIN * SSD_ATOL:
+            raise AssertionError(f"ssd_scan ({what}): the carried state moves the output by "
+                                 f"only {out['carry_weight']}; the check cannot see a wrong carry")
+        return out
+
+    def rel_err(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
     args = ssd_inputs(b, nh, sp, dh, ds)
-    err = check_close(ssd_scan(*args), plain(*args), SSD_ATOL, SSD_RTOL, "ssd_scan")
-    slow = ssd_inputs(b, nh, sp, dh, ds, slow=True)
-    y_slow = plain(*slow)
-    checks = {"slow_decay": check_close(ssd_scan(*slow), y_slow, SSD_ATOL, SSD_RTOL,
-                                        "ssd_scan (slow decay)")}
-    carry = float((chunks_alone(*slow) - y_slow).abs().max())
-    checks["slow_decay_carry_weight"] = carry
-    if not carry > SSD_CARRY_MIN * SSD_ATOL:
-        raise AssertionError(f"ssd_scan (slow decay): the carried state moves the output by "
-                             f"only {carry}; the check cannot see a wrong carry")
-    del slow, y_slow
+    y_p, h_p = ssd_chunked(*args, CHUNK, return_state=True)
+    y = ssd_scan(*args)
+    err = held(y, y_p, "ssd_scan")
+    checks = {"rel_err": rel_err(y, y_p), "tf32_control": None}
+    if dev.type == "cuda":  # the control: the plain version with TF32 products
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            y_tf32 = ssd_chunked(*args, CHUNK)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        checks["tf32_control"] = {
+            "rel_err": rel_err(y_tf32, y_p), "max_abs_err": float((y_tf32 - y_p).abs().max()),
+            "within_ssd_tol": bool(torch.allclose(y_tf32, y_p, atol=SSD_ATOL, rtol=SSD_RTOL))}
+        log(f"kernel ssd_scan: per-tensor error {checks['rel_err']}, one TF32 product a step "
+            f"{checks['tf32_control']}")
+        if not checks["tf32_control"]["rel_err"] > SSD_TF32X3_RTOL:
+            raise AssertionError("ssd_scan: the plain version in TF32 passes SSD_TF32X3_RTOL; "
+                                 "the check cannot tell 3xTF32 from one TF32 product")
+        del y_tf32
+    y, hfin = ssd_scan(*args, return_state=True)  # prefill's call
+    checks["final_state"] = held(hfin, h_p, "ssd_scan (final state)")
+    checks["y_with_state"] = held(y, y_p, "ssd_scan (with state)")
+    del y, hfin, y_p, h_p
+    slow = slow_checks((b, nh, sp, dh, ds), "slow decay")
+    checks["slow_decay"], checks["slow_decay_final_state"] = slow["y"], slow["final_state"]
+    checks["slow_decay_carry_weight"] = slow["carry_weight"]
+    checks["chunks_64_slow_decay"] = slow_checks(SSD_64_CHUNKS, "64 chunks, slow decay")
     small = ssd_inputs(*MAMBA2_130M_SSD)
-    checks["mamba2_130m_ds128"] = check_close(ssd_scan(*small), plain(*small),
-                                              SSD_ATOL, SSD_RTOL, "ssd_scan (ds 128)")
+    checks["mamba2_130m_ds128"] = held(ssd_scan(*small), plain(*small), "ssd_scan (ds 128)")
     del small
+    phases = device_ms(lambda: ssd_scan(*args))  # the CUDA kernels of a call
+    log(f"kernel ssd_scan phases (per call, torch.profiler): {phases}")
     qn = CHUNK
     per_chunk = qn * (qn + 1) * ds + qn * (qn + 1) * dh + 4 * qn * ds * dh
     ssd = kernel_row(
@@ -1321,8 +1414,12 @@ def lm_kernel_rows(cfg, phase_launches: dict, seq: int, seed: int, dev,
         None,
         (2 * b * nh * sp * dh + b * nh * sp + 2 * b * sp * ds) * 4,
         float(per_chunk * (sp // qn) * b * nh),
+        tf32x3=True,
         shape={"B": b, "H": nh, "S": sp, "dh": dh, "ds": ds, "bc_head_stride": 0},
-        checks=checks,
+        checks=checks, phase_ms={k: v["ms"] for k, v in phases.items()},
+        # null where the profiler saw no device kernel
+        cuda_kernels_per_call=sum(v["per_call"] for v in phases.values()) if phases else None,
+        state_ms=time_ms(lambda: ssd_scan(*args, return_state=True)),  # prefill's call
     )
     return [fa, ssd]
 
@@ -1380,6 +1477,9 @@ def lm_phases(model, fphase: str, sphase: str, args, phase_launches: dict) -> in
             f"{peak_gb('cuda'):.2f} GB")
         if name == "long":
             long_seq = res["waves"][0]["prompt_len"]
+            log(f"{sphase} {model.cfg.name} long prefill [{res['waves'][0]['size']}, "
+                f"{long_seq}]: kernel {res['waves'][0]['prefill_s']} s, plain "
+                f"{res['plain_waves'][0]['prefill_s']} s")
     phase_launches[sphase] = serve_launches
     log(f"{sphase} launches (both traffics): {serve_launches}")
     if args.profile:  # one warm wave of each traffic, with the kernels

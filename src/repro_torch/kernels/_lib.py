@@ -4,8 +4,9 @@ The kernels are CUDA C++ in ``src/repro_torch/csrc/*.cu`` with a plain C
 interface.  At first use :func:`load` compiles each source with ``nvcc`` for
 ``sm_90a`` (all sources at once, one process each), links them into one
 shared library under ``build/repro_torch/`` at the repository root and opens
-it with ``ctypes``.  The library's name carries a hash of the sources and the
-flags, so an edited source is rebuilt and an unchanged one is reused.  Any
+it with ``ctypes``.  The library's name carries a hash of the flags and of
+every file under ``csrc/`` (headers such as ``tf32x3.cuh`` included), so an
+edited source or header is rebuilt and an unchanged set is reused.  Any
 build or load failure raises: there is no fall back to the plain versions.
 
 Every wrapper bumps :data:`LAUNCHES` where, and only where, it launches its
@@ -67,9 +68,10 @@ _SIGNATURES = {
     # (q, k, v, o, B, Hq, Hkv, S, T, D, causal, window, scale, bf16, stream)
     "nt_flash_attention": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                            ctypes.c_int, _I64, ctypes.c_float, ctypes.c_int, _P),
-    # (u, ld, B, C, y, B, H, S, dh, ds, B's batch/head strides, C's, stream)
-    "nt_ssd_scan": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
-                    _I64, _I64, _P),
+    # (u, ld, B, C, y, h_final or None, scratch, decays, B, H, S, dh, ds,
+    #  B's batch/head strides, C's, stream)
+    "nt_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                    _I64, _I64, _I64, _P),
 }
 
 
@@ -89,10 +91,12 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
+    """A hash of the flags and of every file under ``csrc/`` (the sources and
+    the headers they include)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(path.relative_to(CSRC).as_posix().encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

@@ -9,10 +9,11 @@ evaluated a chunk of :data:`CHUNK` steps at a time:
     y_inter = exp(ca) ⊙ (C H)
     H      <- exp(ca_last)·H + (exp(ca_last − ca) ⊙ B)ᵀ U
 
-On CUDA :func:`ssd_scan` is the kernel in ``csrc/ssd_chunk.cu`` (one thread
-block per (batch, head) walking the chunks with the state in shared memory);
-on the CPU it is :func:`ssd_chunked`, the reference's pure-tensor chunked
-form (``repro/models/layers.py``), which ``impl="plain"`` also runs.
+On CUDA :func:`ssd_scan` is the kernel in ``csrc/ssd_chunk.cu``: one call
+runs three CUDA kernels (chunk states, the state pass across chunks, chunk
+outputs; every product on the tensor cores in 3xTF32) and counts as one
+launch.  On the CPU it is :func:`ssd_chunked`, the reference's pure-tensor
+chunked form (``repro/models/layers.py``), which ``impl="plain"`` also runs.
 ``ca`` is summed in another order than the TPU kernel's triangular matmul,
 so results agree to f32 rounding: the tests hold them at the reference's
 ``atol=2e-3, rtol=1e-2``.
@@ -24,8 +25,12 @@ import torch
 from repro_torch.kernels import _lib
 
 CHUNK = 128
-MAX_DS = 128  # the kernel's shared memory holds Bᵀ [ds, 129] and H [ds, dh]
+# the kernel's limits: ds and dh are the MMA's n and k, multiples of 8; its
+# output phase holds C, B and the state (then U) in shared memory (135.5 KB
+# at ds = 128) and an accumulator of 8 × 8 columns a warp row (dh <= 64)
+MAX_DS = 128
 MAX_DH = 64
+MMA_STEP = 8
 
 
 def decay_matrix(ca: torch.Tensor) -> torch.Tensor:
@@ -96,9 +101,12 @@ def ssd_scan(
     ldecay: torch.Tensor,  # [B, H, S] f32
     bmat: torch.Tensor,  # [B, H, S, ds] f32
     cmat: torch.Tensor,  # [B, H, S, ds] f32
-) -> torch.Tensor:
-    """``y [B, H, S, dh]``; S must be a multiple of :data:`CHUNK` (pad
-    upstream, as the reference does).
+    return_state: bool = False,
+):
+    """``y [B, H, S, dh]``, with ``return_state`` ``(y, h_final [B, H, ds,
+    dh] f32)``, the state after the last step, as ``ssd_chunked(...,
+    return_state=True)`` returns them.  S must be a multiple of
+    :data:`CHUNK` (pad upstream, as the reference does).
 
     ``bmat`` and ``cmat`` are read through their batch and head strides:
     ``mamba_block`` hands over its ``[B, S, ds]`` projections expanded to
@@ -112,24 +120,31 @@ def ssd_scan(
     if tuple(ldecay.shape) != (b, h, s) or s % CHUNK:
         raise ValueError(f"ssd_scan: ldecay must be [B, H, S] and S a multiple of {CHUNK}")
     if all(t.device.type == "cpu" for t in (u, ldecay, bmat, cmat)):
-        return ssd_chunked(u, ldecay, bmat, cmat, CHUNK)
+        return ssd_chunked(u, ldecay, bmat, cmat, CHUNK, return_state=return_state)
     _lib.require_cuda("ssd_scan", u, ldecay)
     if u.dtype != torch.float32 or ldecay.dtype != torch.float32:
         raise ValueError("ssd_scan: u and ldecay must be float32")
     _check_bc("B", bmat, (b, h, s, ds), u.device)
     _check_bc("C", cmat, (b, h, s, ds), u.device)
-    if not (dh % 4 == 0 and 4 <= dh <= MAX_DH and ds % 4 == 0 and 4 <= ds <= MAX_DS):
-        raise ValueError(f"ssd_scan: the kernel takes dh, ds multiples of 4 with "
+    if not (dh % MMA_STEP == 0 and 0 < dh <= MAX_DH and ds % MMA_STEP == 0 and 0 < ds <= MAX_DS):
+        raise ValueError(f"ssd_scan: the kernel takes dh, ds multiples of {MMA_STEP} with "
                          f"dh <= {MAX_DH}, ds <= {MAX_DS}; got dh={dh}, ds={ds}")
     y = torch.empty_like(u)
-    if y.numel() == 0:
-        return y
+    state = (torch.empty((b, h, ds, dh), dtype=torch.float32, device=u.device)
+             if return_state else None)
+    if y.numel() == 0:  # no steps: the state stays at its start, 0
+        return (y, state.zero_()) if return_state else y
+    nc = s // CHUNK
+    # chunk states, overwritten by each chunk's incoming state; chunk decays
+    scratch = torch.empty((b, h, nc, ds, dh), dtype=torch.float32, device=u.device)
+    decays = torch.empty((b, h, nc), dtype=torch.float32, device=u.device)
     lib = _lib.load()
     with torch.cuda.device(u.device):
         rc = lib.nt_ssd_scan(
             u.data_ptr(), ldecay.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
-            y.data_ptr(), b, h, s, dh, ds, bmat.stride(0), bmat.stride(1),
+            y.data_ptr(), None if state is None else state.data_ptr(), scratch.data_ptr(),
+            decays.data_ptr(), b, h, s, dh, ds, bmat.stride(0), bmat.stride(1),
             cmat.stride(0), cmat.stride(1), _lib.stream_of(u),
         )
     _lib.launched("ssd_scan", rc)
-    return y
+    return (y, state) if return_state else y

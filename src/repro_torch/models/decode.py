@@ -11,12 +11,14 @@ dict per layer, in pattern order (the reference stacks whole cycles):
 
 :func:`prefill` runs the forward pass while it fills the cache: attention
 through ``impl`` (kernel #8 on the card by default) and each Mamba
-sublayer's output through ``impl`` (kernel #9).  The reference's prefill
-runs its Mamba outputs on its default path whatever ``impl`` says; the
-port honours ``impl`` there, so a prefill on the card launches #9 once per
-``M`` sublayer.  The final SSD state is then computed again by
-:func:`_mamba_final_state` with the plain ``ssd_chunked(return_state=True)``,
-as in the reference (double SSD work per prefill, left as it is).
+sublayer through ``impl`` (kernel #9).  The reference's prefill runs its
+Mamba outputs on its default path whatever ``impl`` says; the port honours
+``impl`` there, so a prefill on the card launches #9 once per ``M``
+sublayer.  The reference then computes each Mamba layer's projections and
+SSD a second time for its final state (``repro/models/decode.py``); here
+``mamba_block(return_state=True)`` takes the state from the same call (#9
+returns it), so a prefill runs the projections once per layer and, on the
+card, no plain ``ssd_chunked``.  The caches hold the same values.
 
 Decoding is plain PyTorch, as the reference's is outside Pallas: one token
 of attention over the cache (``xla_flash_attention`` with the cache's
@@ -184,9 +186,9 @@ def prefill(
     cache: Cache = []
     for p in model.layers:
         if p.ch == "M":
-            hh = L.apply_norm(h, p.norm, cfg.norm)
-            out = L.mamba_block(hh, p.mamba, cfg, impl)
-            cache.append(_mamba_final_state(hh, p.mamba, cfg))
+            out, state = L.mamba_block(L.apply_norm(h, p.norm, cfg.norm), p.mamba, cfg, impl,
+                                       return_state=True)
+            cache.append(state)
             h = h + out
             continue
         ap = shared.attn if p.ch == "A" else p.attn
@@ -209,15 +211,3 @@ def prefill(
     logits = torch.einsum("bd,dv->bv", h[:, -1], model.head())[:, : cfg.vocab]
     return logits, cache
 
-
-def _mamba_final_state(x, p, cfg: ArchConfig) -> dict:
-    """Final SSD + conv state after a prefill pass, by the plain chunked SSD
-    (``ssd_chunked(return_state=True)``), as the reference computes it."""
-    s = x.shape[1]
-    _, xin, xc, bmat, cmat, dt = L.mamba_inputs(x, p, cfg)
-    uh, ld, bh, ch = L.ssd_operands(xc, bmat, cmat, dt, p, cfg)
-    _, hfin = L.ssd_chunked(uh, ld, bh, ch, cfg.ssm.chunk, return_state=True)
-    cw = cfg.ssm.conv_width
-    # a copy, not a view: a view would keep the whole [B, S, d_inner] xin of
-    # every Mamba layer alive for as long as the cache lives
-    return {"conv": xin[:, s - (cw - 1):, :].clone(), "ssd": hfin}

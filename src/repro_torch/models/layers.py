@@ -230,16 +230,28 @@ def ssd_operands(xc, bmat, cmat, dt, p, cfg):
     return uh.contiguous(), ld.contiguous(), bh, ch
 
 
-def mamba_block(x: torch.Tensor, p, cfg, impl: str = "kernel") -> torch.Tensor:
+def mamba_block(x: torch.Tensor, p, cfg, impl: str = "kernel", return_state: bool = False):
+    """The Mamba2 sublayer's output ``[B, S, d_model]``.  ``return_state``:
+    ``(out, {"conv": the last cw − 1 inputs of the conv, "ssd": the SSD
+    state after the last step [B, nh, ds, hd] f32})``, the decode cache
+    that ``prefill`` keeps, from the same projections and the same SSD call
+    (#9 under ``impl="kernel"``, ``ssd_chunked`` under ``"plain"``)."""
     check_impl(impl)
     b, s, _ = x.shape
-    z, _, xc, bmat, cmat, dt = mamba_inputs(x, p, cfg)
+    z, xin, xc, bmat, cmat, dt = mamba_inputs(x, p, cfg)
     uh, ld, bh, ch = ssd_operands(xc, bmat.contiguous(), cmat.contiguous(), dt, p, cfg)
     if impl == "kernel":
-        y = ops.ssd_scan(uh, ld, bh, ch)[:, :, :s]
+        res = ops.ssd_scan(uh, ld, bh, ch, return_state=return_state)
     else:
-        y = ssd_chunked(uh, ld, bh, ch, cfg.ssm.chunk)[:, :, :s]
-    y = y.movedim(1, 2).reshape(b, s, cfg.d_inner)
+        res = ssd_chunked(uh, ld, bh, ch, cfg.ssm.chunk, return_state=return_state)
+    y, hfin = res if return_state else (res, None)
+    y = y[:, :, :s].movedim(1, 2).reshape(b, s, cfg.d_inner)
     if hasattr(p, "d_skip"):
         y = y + xc * p.d_skip.reshape(1, 1, -1)
-    return torch.einsum("bse,ed->bsd", y * F.silu(z), p.w_out)
+    out = torch.einsum("bse,ed->bsd", y * F.silu(z), p.w_out)
+    if not return_state:
+        return out
+    cw = cfg.ssm.conv_width
+    # a copy, not a view: a view would keep the whole [B, S, d_inner] xin of
+    # every Mamba layer alive for as long as the cache lives
+    return out, {"conv": xin[:, s - (cw - 1):, :].clone(), "ssd": hfin}

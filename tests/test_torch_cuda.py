@@ -14,7 +14,8 @@ at the reference's own tolerances (``tests/test_kernels.py``): attention
 in f32, so it is held against the f32 plain version on the same values
 upcast, to the output's own bf16 rounding: rtol 2⁻⁷ (one bf16 ulp), atol
 1e-4.  #9 also runs with slow decay, where the state carried across
-chunks is most of the output.
+chunks is most of the output, over 64 chunks, over a chunk of pad tokens
+whose decays would overflow an unmasked exp, and with its final state.
 """
 import numpy as np
 import pytest
@@ -334,9 +335,90 @@ def test_ssd_scan_kernel_against_plain(cuda, b, h, s, dh, ds, broadcast, decay):
     torch.testing.assert_close(y, ssd_chunked(u, ld, bm, cm, CHUNK), atol=2e-3, rtol=1e-2)
 
 
+def _ssd_card_inputs(cuda, b, h, s, dh, ds, seed, slow=True):
+    """u, log-decays (slow: ~-1e-3 a step) and [B, S, ds] projections
+    broadcast to the heads, as mamba_block hands them over."""
+    g = torch.Generator().manual_seed(seed)
+    u = (torch.randn((b, h, s, dh), generator=g) * 0.1).to(cuda)
+    if slow:
+        ld = -torch.randn((b, h, s), generator=g).abs() * 1e-3
+    else:
+        ld = -torch.nn.functional.softplus(torch.randn((b, h, s), generator=g) - 2.0)
+    bm = torch.randn((b, s, ds), generator=g).to(cuda)[:, None].expand(b, h, s, ds)
+    cm = torch.randn((b, s, ds), generator=g).to(cuda)[:, None].expand(b, h, s, ds)
+    return u, ld.to(cuda), bm, cm
+
+
+@pytest.mark.parametrize("b,h,s,dh,ds", [(1, 2, 128, 64, 16), (2, 3, 2048, 64, 64),
+                                         (1, 2, 256, 64, 128), (1, 4, 384, 16, 24)])
+@pytest.mark.parametrize("decay", ["fast", "slow"])
+def test_ssd_scan_kernel_returns_the_final_state(cuda, b, h, s, dh, ds, decay):
+    """``return_state=True``: y and the state after the last step, both
+    against ``ssd_chunked(return_state=True)``, from one launch."""
+    args = _ssd_card_inputs(cuda, b, h, s, dh, ds, s + ds, slow=decay == "slow")
+    n0 = _lib.LAUNCHES["ssd_scan"]
+    y, hfin = ssd_scan(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["ssd_scan"] == n0 + 1
+    y_p, h_p = ssd_chunked(*args, CHUNK, return_state=True)
+    assert hfin.dtype == torch.float32 and hfin.shape == h_p.shape == (b, h, ds, dh)
+    torch.testing.assert_close(y, y_p, atol=2e-3, rtol=1e-2)
+    torch.testing.assert_close(hfin, h_p, atol=2e-3, rtol=1e-2)
+    torch.testing.assert_close(ssd_scan(*args), y, atol=0, rtol=0)  # the same kernels
+
+
+def test_ssd_scan_kernel_carries_state_over_64_chunks(cuda):
+    """A sequence of 64 chunks at zamba2-7b's heads ([1, 112, 8192], ds =
+    dh = 64) with slow decay: the state pass walks 64 chunks, and the state
+    it carries is most of the output."""
+    args = _ssd_card_inputs(cuda, 1, 112, 8192, 64, 64, 64)
+    y, hfin = ssd_scan(*args, return_state=True)
+    y_p, h_p = ssd_chunked(*args, CHUNK, return_state=True)
+    torch.testing.assert_close(y, y_p, atol=2e-3, rtol=1e-2)
+    torch.testing.assert_close(hfin, h_p, atol=2e-3, rtol=1e-2)
+    u, ld, bm, cm = args  # the same with the state reset at every chunk
+    split = [t.reshape(1, 112 * 64, CHUNK, *t.shape[3:]) for t in (u, ld, bm, cm)]
+    alone = ssd_chunked(*split, CHUNK).reshape(u.shape)
+    assert float((alone - y_p).abs().max()) > 50 * 2e-3
+
+
+def test_ssd_scan_kernel_stays_finite_over_a_chunk_of_pad_tokens(cuda):
+    """128 identical pad tokens with a log-decay of −1 a step: a chunk's
+    decays sum to −128, so exp over L's upper triangle would overflow; the
+    kernel forms L only where s <= t and stays finite, equal to the plain
+    version (which masks the same way)."""
+    g = torch.Generator().manual_seed(5)
+    b, h, s, dh, ds = 2, 4, 256, 64, 64
+    tok_u = torch.randn((dh,), generator=g) * 0.1
+    tok_b, tok_c = torch.randn((ds,), generator=g), torch.randn((ds,), generator=g)
+    u = torch.randn((b, h, s, dh), generator=g) * 0.1
+    bm, cm = torch.randn((b, s, ds), generator=g), torch.randn((b, s, ds), generator=g)
+    u[:, :, :CHUNK], bm[:, :CHUNK], cm[:, :CHUNK] = tok_u, tok_b, tok_c  # left padding
+    ld = torch.full((b, h, s), -1.0)
+    args = (u.to(cuda), ld.to(cuda), bm.to(cuda)[:, None].expand(b, h, s, ds),
+            cm.to(cuda)[:, None].expand(b, h, s, ds))
+    y, hfin = ssd_scan(*args, return_state=True)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(hfin).all())
+    y_p, h_p = ssd_chunked(*args, CHUNK, return_state=True)
+    torch.testing.assert_close(y, y_p, atol=2e-3, rtol=1e-2)
+    torch.testing.assert_close(hfin, h_p, atol=2e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dh,ds", [(60, 64), (64, 60), (12, 16), (16, 4), (72, 64), (64, 136)],
+                         ids=["dh60", "ds60", "dh12", "ds4", "dh72", "ds136"])
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda, dh, ds):
+    """dh and ds are the MMA's n and k: multiples of 8, dh <= 64, ds <= 128;
+    anything else raises rather than runs another path."""
+    u, ld, bm, cm = _ssd_card_inputs(cuda, 1, 2, 128, dh, ds, 0)
+    n0 = _lib.LAUNCHES["ssd_scan"]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ssd_scan(u, ld, bm, cm)
+    assert _lib.LAUNCHES["ssd_scan"] == n0
+
+
 @pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m", "qwen1.5-4b", "gemma3-12b",
                                   "h2o-danube-3-4b"])
-def test_reduced_lm_on_the_card_runs_the_kernels(cuda, arch):
+def test_reduced_lm_on_the_card_runs_the_kernels(cuda, arch, monkeypatch):
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import decode_step, init_params, prefill
 
@@ -352,7 +434,17 @@ def test_reduced_lm_on_the_card_runs_the_kernels(cuda, arch):
         assert _lib.LAUNCHES["flash_attention"] == sum(c in "GLA" for c in pat)
         assert _lib.LAUNCHES["ssd_scan"] == pat.count("M")
         torch.testing.assert_close(logits, model(toks, impl="plain"), atol=2e-3, rtol=2e-3)
+        plain_ssd = []  # prefill takes each Mamba state from #9: no plain SSD runs
+        import repro_torch.kernels.ssd_chunk as ssd_mod
+        import repro_torch.models.layers as layers_mod
+
+        for mod in (ssd_mod, layers_mod):
+            monkeypatch.setattr(mod, "ssd_chunked", lambda *a, **k: plain_ssd.append(1))
+        _lib.reset_launches()
         last, cache = prefill(model, toks[:, :199], max_seq=200)
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        assert plain_ssd == [] and _lib.LAUNCHES["ssd_scan"] == pat.count("M")
         torch.testing.assert_close(last, logits[:, 198], atol=2e-3, rtol=2e-3)
         lg, _ = decode_step(model, cache, toks[:, 199], 199)
         torch.testing.assert_close(lg, logits[:, 199], atol=2e-3, rtol=2e-3)

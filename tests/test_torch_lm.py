@@ -85,11 +85,15 @@ class Case:
 _CASES: dict = {}
 
 
+def _case(arch: str) -> Case:
+    if arch not in _CASES:
+        _CASES[arch] = Case(arch)
+    return _CASES[arch]
+
+
 @pytest.fixture(params=ARCHS)
 def case(request):
-    if request.param not in _CASES:
-        _CASES[request.param] = Case(request.param)
-    return _CASES[request.param]
+    return _case(request.param)
 
 
 def _close(got, want, tol=TOL):
@@ -131,6 +135,45 @@ def test_decode_step_matches_reference(case):
         lg, cache2 = tdecode(case.model, cache, torch.from_numpy(case.toks[:, S]), S)
     assert cache2 is cache  # updated in place
     _close(lg, case.ref_decode)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+@pytest.mark.parametrize("arch", ["zamba2-7b", "mamba2-130m"])
+def test_prefill_projects_each_mamba_layer_once(monkeypatch, arch, impl):
+    """Each Mamba layer's cache comes from the call that gives its output:
+    ``mamba_inputs`` runs once a layer; under ``impl="kernel"`` the kernel
+    wrapper runs once a layer and the model never calls the plain
+    ``ssd_chunked`` itself (on the card: no plain SSD at all), under
+    ``"plain"`` ``ssd_chunked`` once a layer.  Logits and caches still
+    equal the reference's."""
+    import repro_torch.models.layers as tlayers
+
+    c = _case(arch)
+    calls = dict.fromkeys(("mamba_inputs", "ssd_chunked", "ssd_scan"), 0)
+
+    def counted(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(tlayers, "mamba_inputs", counted("mamba_inputs", tlayers.mamba_inputs))
+    monkeypatch.setattr(tlayers, "ssd_chunked", counted("ssd_chunked", tlayers.ssd_chunked))
+    monkeypatch.setattr(tlayers.ops, "ssd_scan", counted("ssd_scan", tlayers.ops.ssd_scan))
+    with torch.inference_mode():
+        last, cache = tprefill(c.model, torch.from_numpy(c.toks[:, :S]), impl=impl,
+                               max_seq=S + 1)
+    n_mamba = c.model.pattern.count("M")
+    assert n_mamba > 0 and calls["mamba_inputs"] == n_mamba
+    if impl == "kernel":
+        assert (calls["ssd_scan"], calls["ssd_chunked"]) == (n_mamba, 0)
+    else:
+        assert (calls["ssd_scan"], calls["ssd_chunked"]) == (0, n_mamba)
+    _close(last, c.ref_last)
+    for i, layer in enumerate(cache):
+        want = c.ref_cache_layer(i)
+        for key in want:
+            _close(layer[key], want[key])
 
 
 def test_own_prefill_and_decode_match_own_forward(case):

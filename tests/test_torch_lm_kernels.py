@@ -10,7 +10,8 @@ bf16 at 3e-2, the reference's own tolerances, and against the Pallas
 kernel in interpret mode, also at gemma3-12b's D = 240.  ``ssd_scan``'s is ``ssd_chunked``, the port of
 ``models.layers.ssd_chunked``, held against it and ``ref.ssd_ref`` (outputs
 and final state) at atol 2e-3 / rtol 1e-2, also where the decay is slow
-enough that the state carried from chunk to chunk dominates the output.  The CUDA kernels are held
+enough that the state carried from chunk to chunk dominates the output;
+``ssd_scan(return_state=True)`` returns the same final state.  The CUDA kernels are held
 against these plain versions on the card by ``tests/test_torch_cuda.py``
 and ``chip_smoke.py``.
 """
@@ -106,6 +107,22 @@ def test_ssd_plain_matches_reference_recurrence_and_chunked_form(b, h, s, dh, ds
     ych, hch = jlayers.ssd_chunked(*(jnp.asarray(x) for x in xs), CHUNK, return_state=True)
     np.testing.assert_allclose(y.numpy(), np.asarray(ych), atol=2e-3, rtol=1e-2)
     np.testing.assert_allclose(state.numpy(), np.asarray(hch), atol=2e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("b,h,s,dh,ds", SSD_CASES)
+def test_ssd_scan_returns_the_final_state_of_the_chunked_forms(b, h, s, dh, ds):
+    """``ssd_scan(return_state=True)`` on CPU tensors is the plain
+    ``ssd_chunked(return_state=True)``, and its state the reference's
+    ``ssd_chunked`` state and the recurrence's."""
+    xs = _ssd_inputs(b * 10 + s + ds, b, h, s, dh, ds)
+    y, hfin = ssd_scan(*(torch.from_numpy(x) for x in xs), return_state=True)
+    y_p, h_p = ssd_chunked(*(torch.from_numpy(x) for x in xs), CHUNK, return_state=True)
+    assert torch.equal(y, y_p) and torch.equal(hfin, h_p)
+    assert hfin.dtype == torch.float32 and tuple(hfin.shape) == (b, h, ds, dh)
+    _, hch = jlayers.ssd_chunked(*(jnp.asarray(x) for x in xs), CHUNK, return_state=True)
+    np.testing.assert_allclose(hfin.numpy(), np.asarray(hch), atol=1e-5, rtol=1e-5)
+    _, href = ref.ssd_ref(*(jnp.asarray(x) for x in xs))
+    np.testing.assert_allclose(hfin.numpy(), np.asarray(href), atol=2e-3, rtol=1e-2)
 
 
 @pytest.mark.parametrize("b,h,s,dh,ds", SSD_CASES[:3])

@@ -204,6 +204,9 @@ def test_chip_smoke_lm_phases_pass_on_a_reduced_cpu_model(monkeypatch):
     monkeypatch.setattr(cs, "time_ms", lambda fn, flush=None: (fn(), 0.0)[1])
     monkeypatch.setattr(cs, "DANUBE_ATTN", (1, 4, 2, 80, 24, 32))
     monkeypatch.setattr(cs, "MAMBA2_130M_SSD", (1, 2, 256, 64, 128))
+    monkeypatch.setattr(cs, "SSD_64_CHUNKS", (1, 4, 1024, 16, 16))  # 8 chunks on the CPU
+    trace = {f"phase{i}": {"ms": 0.1, "per_call": 1.0} for i in (1, 2, 3)}  # as a card's
+    monkeypatch.setattr(cs, "device_ms", lambda fn, runs=10: (fn(), trace)[1])
     # on the CPU the bf16 wrapper is attention_ref's bf16 arithmetic, not the
     # kernel's f32 sums: held at the reference's bf16 tolerance
     monkeypatch.setattr(cs, "FA_BF16_ATOL", 3e-2)
@@ -212,6 +215,16 @@ def test_chip_smoke_lm_phases_pass_on_a_reduced_cpu_model(monkeypatch):
     rows = cs.lm_kernel_rows(tcfg, launches, 300, 0, torch.device("cpu"))  # 3 SSD chunks
     assert [r["name"] for r in rows] == list(cs.LM_KERNELS)
     assert rows[1]["checks"]["slow_decay_carry_weight"] > cs.SSD_CARRY_MIN * cs.SSD_ATOL
+    many = rows[1]["checks"]["chunks_64_slow_decay"]
+    assert set(many) == {"y", "final_state", "carry_weight"}
+    assert many["carry_weight"] > cs.SSD_CARRY_MIN * cs.SSD_ATOL
+    assert {"final_state", "y_with_state", "slow_decay_final_state"} <= set(rows[1]["checks"])
+    # #9 runs its products in 3xTF32 too: both bounds; its CUDA kernels a
+    # call as the profiler counted them; the TF32 control needs the card
+    assert "bound_fma_ms" in rows[1] and rows[1]["cuda_kernels_per_call"] == 3.0
+    assert rows[1]["phase_ms"] == {f"phase{i}": 0.1 for i in (1, 2, 3)}
+    assert "state_ms" in rows[1]
+    assert rows[1]["checks"]["rel_err"] == 0.0 and rows[1]["checks"]["tf32_control"] is None
     with pytest.raises(AssertionError, match="cannot see a wrong carry"):
         cs.lm_kernel_rows(tcfg, launches, 40, 0, torch.device("cpu"))  # one chunk: no carry
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -269,12 +282,16 @@ def test_chip_smoke_swa_phases_pass_on_a_narrow_cpu_model(monkeypatch):
         cs.check_launches({"flash_attention": 5, "ssd_scan": 0}, want, "lm_serve_swa")
     monkeypatch.setattr(cs, "time_ms", lambda fn, flush=None: (fn(), 0.0)[1])
     monkeypatch.setattr(cs, "DANUBE_ATTN", (1, 4, 2, 80, 24, 32))
+    monkeypatch.setattr(cs, "SSD_64_CHUNKS", (1, 4, 1024, 16, 16))  # #9's rows: CPU sizes
+    monkeypatch.setattr(cs, "device_ms", lambda fn, runs=10: (fn(), {})[1])
     monkeypatch.setattr(cs, "FA_BF16_ATOL", 3e-2)  # attention_ref's bf16 arithmetic on the CPU
     monkeypatch.setattr(cs, "FA_BF16_RTOL", 3e-2)
     launches = {ph: {k: 1 for k in cs.KERNELS} for ph in cs.PHASE_KERNELS}
     launches["lm_forward_swa"]["flash_attention"] = 48
     zcfg = tconfigs.reduced(tconfigs.get_config(cs.LM_ARCH))
-    fa = cs.lm_kernel_rows(zcfg, launches, 130, 0, torch.device("cpu"), swa=(tcfg, 70))[0]
+    fa, ssd = cs.lm_kernel_rows(zcfg, launches, 130, 0, torch.device("cpu"), swa=(tcfg, 70))
+    # no device kernel traced: the count is unknown, not assumed
+    assert ssd["cuda_kernels_per_call"] is None and ssd["phase_ms"] == {}
     assert sorted(fa["checks"]["d_sweep"]) == sorted(cs.FA_D_SWEEP)
     rows = fa[tcfg.name]
     assert rows["launches_per_forward"] == 48
@@ -314,8 +331,9 @@ def test_chip_smoke_bounds_flash_attention_on_the_3xtf32_datapath():
 
 
 def test_chip_smoke_ptxas_report_names_the_kernel_instances():
-    """The build log's ptxas lines become one line per kernel: #8's
-    instances by type, output blocks and exactness, the others by name."""
+    """The build log's ptxas lines become one line per kernel, each named
+    with its template arguments: #8's type, output blocks and exactness;
+    the others by name alone."""
     cs = _chip_smoke()
     log = """== flash_attention.cu
 ptxas info    : Function properties for _ZN51_GLOBAL__N__04cf38d3_18_flash_attention_cu_c28d732722flash_attention_kernelIfLi14ELb1EEEvPKT_S3_S3_PS1_lllliiilfi
@@ -331,14 +349,40 @@ ptxas info    : Used 32 registers, used 1 barriers
 """
     assert cs.ptxas_report(log) == [
         "== flash_attention.cu",
-        "flash_attention<f, ND=14, exact>: 244 registers; "
+        "flash_attention_kernel<float, 14, true>: 244 registers; "
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "flash_attention<13__nv_bfloat16, ND=4>: 80 registers; "
+        "flash_attention_kernel<__nv_bfloat16, 4, false>: 80 registers; "
         "24 bytes stack frame, 36 bytes spill stores, 32 bytes spill loads",
         "== window_scan.cu",
         "prefix_sum_smem_kernel: 32 registers; "
         "128 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
     ]
+
+
+def test_chip_smoke_ptxas_report_names_the_ssd_instances():
+    """#9's three kernels by the same demangling: phase 1 by its 16-row
+    tiles a warp, phase 3 by its padded d_state, phase 2 by name; and the
+    literals it may meet (negative, unsigned, a named type)."""
+    cs = _chip_smoke()
+    log = """== ssd_chunk.cu
+ptxas info    : Function properties for _ZN45_GLOBAL__N__08e282b6_12_ssd_chunk_cu_08e282b617ssd_output_kernelILi64EEEvPKfS2_S2_S2_S2_Pflllliillll
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116ssd_state_kernelILi2EEEvPKfS2_S2_PfS3_llliill
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 121 registers, used 1 barriers
+ptxas info    : Function properties for _ZN45_GLOBAL__N__08e282b6_12_ssd_chunk_cu_08e282b615ssd_pass_kernelEPfPKfS0_lll
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers
+"""
+    spill = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+    assert cs.ptxas_report(log) == [
+        "== ssd_chunk.cu",
+        f"ssd_output_kernel<64>: 168 registers; {spill}",
+        f"ssd_state_kernel<2>: 121 registers; {spill}",
+        f"ssd_pass_kernel: 80 registers; {spill}",
+    ]
+    assert cs.demangle("_Z1kILin3ELj7E6__halfhEvv") == "k<-3, 7, __half, unsigned char>"
 
 
 def test_chip_smoke_traces_sdpa_kernels_in_a_fresh_process(monkeypatch):

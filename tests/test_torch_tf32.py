@@ -1,4 +1,5 @@
-"""The 3xTF32 arithmetic of flash attention (#8) on the card, pinned on the CPU.
+"""The 3xTF32 arithmetic of flash attention (#8) and the SSD scan (#9) on the
+card, pinned on the CPU.
 
 ``csrc/flash_attention.cu`` computes every f32 product on the tensor cores
 as three TF32 products: each operand x is split as ``hi = tf32(x)`` and
@@ -11,6 +12,14 @@ in base 2 with m from −1e30, the split of P before PV) and holds the model aga
 the JAX package's ``attention_ref`` within 1e-5 on the inputs of
 ``test_attention_plain_matches_reference_oracle``.  It also shows why the
 split is there: one TF32 product alone misses 1e-5 at gemma3-12b's D = 240.
+
+``csrc/ssd_chunk.cu`` (#9) runs its products the same way in three phases:
+chunk states ``(w ⊙ B)ᵀ U``, the state passed across chunks, and chunk
+outputs by warps of 16 rows (``C·H`` scaled by ``exp(ca)``, then the masked
+scores ``C Bᵀ ⊙ L`` over the columns up to the warp's last row, times U,
+into the same accumulator).  Its model here takes the kernel's one-warp scan
+for ``ca`` and holds output and final state against the sequential
+recurrence ``ref.ssd_ref`` within 1e-5; one TF32 product alone misses it.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -42,12 +51,14 @@ def split(x: np.ndarray, terms: int):
     return hi, (tf32(x - hi) if terms == 3 else np.zeros_like(hi))
 
 
-def product(a: np.ndarray, b: np.ndarray, terms: int) -> np.ndarray:
-    """Σ_k a[..., i, k]·b[..., k, j] in f32, step by 8-deep step, each step
-    as the kernel's three TF32 products (``terms=3``) or one (``terms=1``)."""
+def product(a: np.ndarray, b: np.ndarray, terms: int, acc=None) -> np.ndarray:
+    """``acc`` (default 0) + Σ_k a[..., i, k]·b[..., k, j] in f32, step by
+    8-deep step, each step as the kernel's three TF32 products
+    (``terms=3``) or one (``terms=1``)."""
     ah, al = split(a, terms)
     bh, bl = split(b, terms)
-    acc = np.zeros((*a.shape[:-1], b.shape[-1]), np.float32)
+    if acc is None:
+        acc = np.zeros((*a.shape[:-1], b.shape[-1]), np.float32)
     for k0 in range(0, a.shape[-1], KSTEP):
         ks = slice(k0, k0 + KSTEP)
         if terms == 3:
@@ -146,3 +157,110 @@ def test_one_tf32_product_misses_what_three_meet_at_gemma3_head_dim(win):
     np.testing.assert_allclose(attention_tf32(q, k, v, True, win), want, atol=TOL, rtol=TOL)
     one = attention_tf32(q, k, v, True, win, terms=1)
     assert float(np.abs(one - want).max()) > 10 * TOL
+
+
+# -- #9, the SSD scan
+Q, RT, WARP_ROWS = 128, 64, 16  # its chunk, a phase-3 block's rows, a warp's
+SSD_CASES = [(1, 1, 128, 32, 16), (2, 3, 256, 64, 32), (1, 2, 384, 16, 16), (1, 2, 256, 64, 128)]
+SSD_TOL = 1e-5
+
+
+def chunk_cumsum(ld: np.ndarray) -> np.ndarray:
+    """The kernel's ``ca`` over the last axis (Q = 128): lane l of one warp
+    sums steps 4l..4l+3 in order, the 32 lane totals are scanned
+    Hillis-Steele (offsets 1, 2, 4, 8, 16), and the total of the lanes
+    before l is added to each of lane l's running sums."""
+    v = ld.reshape(*ld.shape[:-1], 32, 4)
+    runs = [v[..., 0]]
+    for k in range(1, 4):
+        runs.append(runs[-1] + v[..., k])
+    run = np.stack(runs, axis=-1)
+    incl = run[..., 3]
+    for off in (1, 2, 4, 8, 16):
+        incl = np.concatenate([incl[..., :off], incl[..., off:] + incl[..., :-off]], axis=-1)
+    excl = np.concatenate([np.zeros_like(incl[..., :1]), incl[..., :-1]], axis=-1)
+    return (excl[..., None] + run).reshape(ld.shape)
+
+
+def ssd_tf32(u, ld, bm, cm, terms=3):
+    """The kernel's SSD in numpy: ``(y [B, H, S, dh], h_final [B, H, ds,
+    dh])`` from u [B, H, S, dh], ld [B, H, S], B and C [B, H, S, ds] f32."""
+    b, h, s, dh = u.shape
+    nc = s // Q
+
+    def chunk(x, c):
+        return x[:, :, c * Q:(c + 1) * Q]
+
+    # phase 1: chunk states (w ⊙ B)ᵀ U and decays, every chunk alone
+    cas, states, decays = [], [], []
+    for c in range(nc):
+        ca = chunk_cumsum(chunk(ld, c))
+        w = np.exp(ca[..., -1:] - ca)
+        wb = w[..., None] * chunk(bm, c)
+        states.append(product(np.swapaxes(wb, -1, -2), chunk(u, c), terms))
+        decays.append(np.exp(ca[..., -1])[..., None, None])
+        cas.append(ca)
+    # phase 2: each chunk's incoming state
+    hin = [np.zeros_like(states[0])]
+    for c in range(nc):
+        hin.append(decays[c] * hin[c] + states[c])
+    # phase 3: per chunk and warp of 16 rows, its scores over the columns up
+    # to its last row (the kernel's warps may compute more, up to their
+    # tile's last row: those columns are masked to exact zeros and add
+    # nothing)
+    y = np.zeros_like(u)
+    for c in range(nc):
+        ca, cc, bc, uc = cas[c], chunk(cm, c), chunk(bm, c), chunk(u, c)
+        for r0 in range(0, Q, WARP_ROWS):
+            rows = slice(r0, r0 + WARP_ROWS)
+            ncol = r0 + WARP_ROWS  # score columns s < the warp's last row + 1
+            acc = product(cc[:, :, rows], hin[c], terms) * np.exp(ca[:, :, rows])[..., None]
+            sc = product(cc[:, :, rows], np.swapaxes(bc[:, :, :ncol], -1, -2), terms)
+            t = np.arange(r0, r0 + WARP_ROWS)[:, None]
+            keep = np.arange(ncol)[None, :] <= t
+            diff = ca[:, :, rows, None] - ca[:, :, None, :ncol]
+            sc = np.where(keep, sc * np.exp(np.where(keep, diff, 0)), np.float32(0))
+            y[:, :, c * Q + r0:c * Q + r0 + WARP_ROWS] = product(sc, uc[:, :, :ncol], terms, acc)
+    return y, hin[nc]
+
+
+def _ssd_inputs(seed, b, h, s, dh, ds, slow=False):
+    """tests/test_torch_lm_kernels.py's inputs; ``slow``: log-decays of
+    about −1e-3 a step, where the carried state is most of the output."""
+    rng = np.random.default_rng(seed)
+    u = (rng.standard_normal((b, h, s, dh)) * 0.1).astype(np.float32)
+    ld = -np.abs(rng.standard_normal((b, h, s)) * (1e-3 if slow else 0.1)).astype(np.float32)
+    bm = (rng.standard_normal((b, h, s, ds)) * 0.3).astype(np.float32)
+    cm = (rng.standard_normal((b, h, s, ds)) * 0.3).astype(np.float32)
+    return u, ld, bm, cm
+
+
+def test_chunk_cumsum_model_is_an_inclusive_scan():
+    ld = -np.abs(np.random.default_rng(0).standard_normal((3, Q))).astype(np.float32)
+    ca = chunk_cumsum(ld)
+    np.testing.assert_allclose(ca, np.cumsum(ld.astype(np.float64), axis=-1), rtol=1e-6)
+    assert (ca[:, :4] == np.cumsum(ld[:, :4], axis=-1, dtype=np.float32)).all()  # lane 0 alone
+
+
+@pytest.mark.parametrize("decay", ["fast", "slow"])
+@pytest.mark.parametrize("b,h,s,dh,ds", SSD_CASES)
+def test_3xtf32_ssd_matches_reference_recurrence(b, h, s, dh, ds, decay):
+    xs = _ssd_inputs(b * 100 + s + dh + ds, b, h, s, dh, ds, slow=decay == "slow")
+    y, hfin = ssd_tf32(*xs)
+    yref, href = (np.asarray(x) for x in ref.ssd_ref(*(jnp.asarray(x) for x in xs)))
+    np.testing.assert_allclose(y, yref, atol=SSD_TOL, rtol=SSD_TOL)
+    np.testing.assert_allclose(hfin, href, atol=SSD_TOL, rtol=SSD_TOL)
+
+
+def test_one_tf32_product_misses_what_three_meet_in_the_ssd():
+    """zamba2-7b's SSD head (ds = dh = 64) over three chunks with slow decay:
+    three TF32 products a step stay within 1e-5 of the recurrence; one
+    alone does not, in the output or in the final state."""
+    xs = _ssd_inputs(7, 1, 2, 384, 64, 64, slow=True)
+    yref, href = (np.asarray(x) for x in ref.ssd_ref(*(jnp.asarray(x) for x in xs)))
+    y, hfin = ssd_tf32(*xs)
+    np.testing.assert_allclose(y, yref, atol=SSD_TOL, rtol=SSD_TOL)
+    np.testing.assert_allclose(hfin, href, atol=SSD_TOL, rtol=SSD_TOL)
+    y1, h1 = ssd_tf32(*xs, terms=1)
+    assert float(np.abs(y1 - yref).max()) > 10 * SSD_TOL
+    assert float(np.abs(h1 - href).max()) > 10 * SSD_TOL
