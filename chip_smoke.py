@@ -33,10 +33,14 @@ path must have launched each of its own kernels (``PHASE_KERNELS``):
    (THRESHOLD, TWO-PRONG and ``auto``; AND and OR; at least one refill),
    each equal to its result in the wave and re-checked on the host table.
 7. bisect      — ``ops.threshold_bisect`` on each of the wave's 64 combined
-   rows with its k, against the same steps on the plain statistics (equal
-   θ, boundary cases where ``recsum·rpb`` lies within ``rtol=1e-5`` of k
-   counted) and against the sort-based THRESHOLD cut, whose density must
-   lie in the bisection's final bracket.
+   rows with its k, one launch of the ``theta_stats`` kernel a row (64 in
+   all, asserted), against the same steps on the plain statistics
+   (thresholds bit for bit in every round until the rounds' ``recsum·rpb
+   >= k`` tests part, equal θ, boundary cases where they part within
+   ``rtol=1e-5`` of k counted) and against the sort-based THRESHOLD cut,
+   whose density must lie in the bisection's final bracket.  Then each row
+   timed beside the step-by-step path it replaced (a one-round launch and
+   the bracket's tensor operations a round), by CUDA events and host clock.
 8. sharded     — a world of one over NCCL (``tcp://127.0.0.1``),
    ``make_host_mesh()`` and ``engine.attach_mesh(mesh)``: the same wave
    through ``any_k_batch(device=True)``, cold and warm, then
@@ -104,7 +108,11 @@ d_model 3840, 16 heads of 240, 8 kv heads, ~1.26·10¹⁰ parameters, f32):
    checked), over 64 chunks (``SSD_64_CHUNKS``) and at mamba2-130m's
    d_state 128;
    the sharded combine (#3) at the slab of one of P = 4 ranks and of a
-   world of one.
+   world of one.  #4 is timed as the path launches it, one whole bisection
+   (3 rounds of 16), and as one round at 16 thresholds; #1 with host ids
+   (by value) without and with a refill's exclusion list, each beside the
+   path it replaced, by CUDA events and host clock.  The build must show
+   no spills for the two kernels redesigned last (``NEW_KERNELS``).
 
 The last lines are the ``{"kernels": [...]}`` JSON, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -149,6 +157,10 @@ KERNELS = {
     "ssd_scan": ("csrc/ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:78"),
 }
 LM_KERNELS = ("flash_attention", "ssd_scan")
+# the CUDA kernel each redesign of this slice launches: its ptxas line goes
+# into its row, and the run fails if it spills
+NEW_KERNELS = {"theta_stats": "theta_bisect_kernel",
+               "density_combine": "density_combine_excl_kernel"}
 # the kernels each path must launch; a kernel's "launches" in the JSON line
 # are those of the first path listed here that runs it
 PHASE_KERNELS = {
@@ -382,12 +394,36 @@ def pick_single(queries, batch, n: int = 8) -> list[int]:
     return sorted(pick)
 
 
-def bisect_check(rows, queries, rpb: int) -> dict:
-    """``ops.threshold_bisect`` on each combined row with its k, on the
-    ``theta_stats`` kernel and on the plain statistics.
+def parting_round(trace, ptrace, k: float, rpb: int) -> int | None:
+    """The first round whose ``recsum·rpb >= k`` tests differ between the
+    one-launch bisection's ``trace`` and the plain steps' ``ptrace``, or
+    None.  Up to it the thresholds must be equal bit for bit and the sums
+    within ``RTOL``; in it every differing test must lie within ``RTOL``
+    of k (a boundary case)."""
+    for r, ((ths, rs), (pths, prs)) in enumerate(zip(trace, ptrace)):
+        if not np.array_equal(ths.cpu().numpy().view(np.int32),
+                              pths.cpu().numpy().view(np.int32)):
+            raise AssertionError(f"round {r}: thresholds differ from the plain steps'")
+        rs_h, prs_h = rs.cpu().numpy(), prs.cpu().numpy()
+        if not np.allclose(rs_h, prs_h, rtol=RTOL, atol=0.0):
+            raise AssertionError(f"round {r}: recsum differs beyond rtol={RTOL}")
+        ok, pok = rs_h * np.float32(rpb) >= np.float32(k), prs_h * np.float32(rpb) >= np.float32(k)
+        if not np.array_equal(ok, pok):
+            if not all(abs(float(prs_h[j]) * rpb - k) <= RTOL * k for j in np.flatnonzero(ok != pok)):
+                raise AssertionError(f"round {r}: the bracket parts away from k")
+            return r
+    return None
 
-    * The two θ* must be equal, except where the rounds first part at a
-      threshold whose ``recsum·rpb`` lies within ``rtol=1e-5`` of k (the
+
+def bisect_check(rows, queries, rpb: int) -> dict:
+    """``ops.threshold_bisect`` on each combined row with its k: one launch
+    of the ``theta_stats`` kernel a row (the launches are read right after
+    these calls), held against the same steps on the plain statistics.
+
+    * In every round up to the first whose ``recsum·rpb >= k`` tests
+      differ, the thresholds must be equal bit for bit and the sums within
+      ``rtol=1e-5``; θ* and the bracket must be equal unless such a round
+      exists, and its differing tests must lie within ``rtol`` of k (the
       f32 sums add in another order): such boundary cases are counted.
     * The sort-based THRESHOLD cut's density must lie in the final bracket
       ``[lo, hi)`` of the kernel's bisection (blocks at ≥ lo hold ≥ k
@@ -404,10 +440,9 @@ def bisect_check(rows, queries, rpb: int) -> dict:
 
     from repro_torch.core.threshold import threshold_sort_batch
     from repro_torch.kernels.ops import bisect_rounds
-    from repro_torch.kernels.theta_stats import theta_stats, theta_stats_plain
+    from repro_torch.kernels.theta_stats import theta_stats_plain
 
-    kernel = [bisect_rounds(rows[i], float(q.k), rpb, stats=theta_stats)
-              for i, q in enumerate(queries)]
+    kernel = [bisect_rounds(rows[i], float(q.k), rpb) for i, q in enumerate(queries)]
     launches = {}
     if rows.device.type == "cuda":
         from repro_torch.kernels import _lib
@@ -425,20 +460,12 @@ def bisect_check(rows, queries, rpb: int) -> dict:
 
     for i, q in enumerate(queries):
         lo, hi, trace = kernel[i]
-        plo, _, ptrace = bisect_rounds(rows[i], float(q.k), rpb, stats=theta_stats_plain)
-        if float(lo) == float(plo):
-            out["equal"] += 1
-        else:
-            for (ths, rs), (pths, prs) in zip(trace, ptrace):
-                ok, pok = (rs * rpb >= q.k).cpu().numpy(), (prs * rpb >= q.k).cpu().numpy()
-                if not np.array_equal(ok, pok):
-                    t = np.flatnonzero(ok != pok)
-                    if not all(near(float(prs[j]) * rpb, q.k) for j in t):
-                        raise AssertionError(f"query {i}: θ* {float(lo)} vs plain {float(plo)}")
-                    break
-            else:
-                raise AssertionError(f"query {i}: θ* differs with equal rounds")
-            out["boundary"] += 1
+        plo, phi, ptrace = bisect_rounds(rows[i], float(q.k), rpb, stats=theta_stats_plain)
+        part = parting_round(trace, ptrace, float(q.k), rpb)
+        if part is None and (float(lo), float(hi)) != (float(plo), float(phi)):
+            raise AssertionError(f"query {i}: θ* {float(lo)} vs plain {float(plo)} "
+                                 "with equal rounds")
+        out["equal" if float(lo) == float(plo) else "boundary"] += 1
         lo, hi = float(lo), float(hi)
         x = host[i]
         # the sort cut, as threshold_cut takes it
@@ -460,6 +487,41 @@ def bisect_check(rows, queries, rpb: int) -> dict:
         met = abs(n_bisect - n_sort) <= max(2, 0.01 * n_sort)
         out["criterion_met" if met else "criterion_missed"] += 1
     out["launches"] = launches
+    return out
+
+
+def host_ms(fn, dev, runs: int = 9) -> float:
+    """Median host-clock time of one ``fn`` call that ends synchronised
+    (wrapper, eager operations and copies included), after one warm-up."""
+    fn()
+    sync(dev)
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def bisect_timing(rows, queries, rpb: int) -> dict:
+    """Per row, the one-launch bisection beside the step-by-step path it
+    replaced (``bisect_rounds(..., stats=theta_stats)``: a launch of the
+    statistics and some 18 tensor operations a round), by CUDA events
+    (device time) and by host clock; the median over rows and the sum over
+    the rows (the phase)."""
+    from repro_torch.kernels.ops import bisect_rounds
+    from repro_torch.kernels.theta_stats import theta_stats
+
+    paths = {"one_launch": lambda i: bisect_rounds(rows[i], float(queries[i].k), rpb),
+             "steps": lambda i: bisect_rounds(rows[i], float(queries[i].k), rpb,
+                                              stats=theta_stats)}
+    out = {}
+    for name, fn in paths.items():
+        ev = [time_ms(lambda: fn(i)) for i in range(len(queries))]
+        hc = [host_ms(lambda: fn(i), rows.device, runs=5) for i in range(len(queries))]
+        out[name] = {"event_ms_median": float(np.median(ev)), "event_ms_sum": float(np.sum(ev)),
+                     "host_ms_median": float(np.median(hc)), "host_ms_sum": float(np.sum(hc))}
     return out
 
 
@@ -831,7 +893,7 @@ def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict
     from repro_torch.core.sharded import local_width
     from repro_torch.kernels.density_combine import (
         density_combine, density_combine_batch, density_combine_batch_plain,
-        density_combine_batch_sharded, density_combine_plain,
+        density_combine_batch_sharded, density_combine_plain, exclusion_ids, combine_single,
     )
     from repro_torch.kernels.ops import bisect_rounds
     from repro_torch.kernels.plan_wave import (
@@ -850,20 +912,66 @@ def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict
     def entry(name, *args, **extra):
         entries[name] = kernel_row(name, phase_launches, *args, **extra)
 
-    # single ⊕-combine: the wave's first 3-predicate AND query
+    # single ⊕-combine (#1) as the single-query planner calls it: the γ ids
+    # of the wave's first 3-predicate AND query from the host (by value),
+    # without and with the exclusion list of a refill (the blocks a refilled
+    # query of the wave read), each bit for bit its plain version; beside
+    # them the path it replaced (the ids copied to the card, a Q = 1 launch
+    # of #2's kernel, then a clone, the ids copied again and a scatter)
     q3 = next(q for q in queries if q.op == "and" and len(q.predicates) == 3)
-    r3 = torch.from_numpy(store.index.vocab.rows(q3.predicates)).to(dev)
+    r3_np = store.index.vocab.rows(q3.predicates)
+    r3h = torch.from_numpy(r3_np)
+    r3 = r3h.to(dev)
+    refill = next(r for r in batch.results if r.plan_rounds > 1)
+    excl = np.asarray(refill.blocks_fetched, np.int64)
     for op in ("and", "or"):
-        if not torch.equal(density_combine(dens, r3, op), density_combine_plain(dens, r3, op)):
-            raise AssertionError(f"density_combine ({op}) differs from its plain version")
+        want = density_combine_plain(dens, r3, op)
+        for ids in (r3h, r3):
+            if not torch.equal(density_combine(dens, ids, op), want):
+                raise AssertionError(f"density_combine ({op}) differs from its plain version")
+        want[torch.from_numpy(excl).to(dev)] = 0.0
+        if not torch.equal(density_combine(dens, r3h, op, excl), want):
+            raise AssertionError(f"density_combine ({op}, exclusion) differs from its plain "
+                                 "version")
+
+    def old_combine(exclude=None):
+        out = density_combine_batch(dens, torch.from_numpy(r3_np).to(dev)[None], "and")[0]
+        if exclude is not None:
+            out = out.clone()
+            out[torch.from_numpy(exclude).to(dev)] = 0.0
+        return out
+
+    def plain_excl():
+        out = density_combine_plain(dens, r3, "and")
+        out[torch.from_numpy(excl).to(dev)] = 0.0
+        return out
+
     r3l = r3.long()
     g = r3.numel()
+    n_ex = int(np.unique(excl).size)
+    b_ex, by_ex = bound_ms((g + 1) * lam * 4 - g * n_ex * 4 + n_ex * 4, float(g * (lam - n_ex)))
+    excl_dev = torch.from_numpy(exclusion_ids(excl, lam)).to(dev)
+    if not torch.equal(combine_single(dens, r3h, excl_dev, "and"), plain_excl()):
+        raise AssertionError("density_combine's launch with a device exclusion list differs")
+    exclusion = {
+        "excluded": n_ex, "kernel_ms": time_ms(lambda: combine_single(dens, r3h, excl_dev, "and")),
+        "ms": time_ms(lambda: density_combine(dens, r3h, "and", excl)),
+        "plain_ms": time_ms(plain_excl), "old_path_ms": time_ms(lambda: old_combine(excl)),
+        "host_ms": host_ms(lambda: density_combine(dens, r3h, "and", excl), dev),
+        "old_path_host_ms": host_ms(lambda: old_combine(excl), dev),
+        "bound_ms": b_ex, "bound_by": by_ex}
+    no_excl = {"old_kernel_ms": time_ms(lambda: density_combine_batch(dens, r3[None], "and")),
+               "old_path_ms": time_ms(old_combine),
+               "host_ms": host_ms(lambda: density_combine(dens, r3h, "and"), dev),
+               "old_path_host_ms": host_ms(old_combine, dev)}
+    log(f"kernel density_combine: exclusion {exclusion}; without {no_excl}")
     entry(
         "density_combine", 0.0,
-        time_ms(lambda: density_combine(dens, r3, "and")),
+        time_ms(lambda: density_combine(dens, r3h, "and")),
         time_ms(lambda: density_combine_plain(dens, r3, "and")),
         time_ms(lambda: torch.prod(dens[r3l], dim=0)),
-        (g + 1) * lam * 4 + g * 4, float(g * lam),
+        (g + 1) * lam * 4, float(g * lam),
+        gamma=g, without_exclusion=no_excl, exclusion=exclusion,
     )
 
     # batched ⊕-combine: the wave's [64, γ<=3] row matrix, both ops checked, AND timed
@@ -918,20 +1026,43 @@ def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict
         shape=[int(dens.shape[0]), w], shards=SHARDS, p1=p1,
     )
 
-    # single-row θ-stats: the first bisection round of query 0 (T = 16)
-    ths = bisect_rounds(rows[0], float(queries[0].k), rpb)[2][0][0]
-    T = ths.numel()
+    # single-row θ-stats (#4): one whole bisection of query 0's row, as the
+    # bisect phase launches it (3 rounds of 16 thresholds), held against the
+    # plain steps (thresholds bit for bit in agreeing rounds) and timed
+    # beside them and beside the step-by-step path on the one-round launch
+    # it replaced; then one round alone at its first 16 thresholds
+    k0 = float(queries[0].k)
+    lo, hi, trace = bisect_rounds(rows[0], k0, rpb)
+    plo, phi, ptrace = bisect_rounds(rows[0], k0, rpb, stats=theta_stats_plain)
+    part = parting_round(trace, ptrace, k0, rpb)
+    if part is None and (float(lo), float(hi)) != (float(plo), float(phi)):
+        raise AssertionError("the one-launch bisection's bracket differs from the plain steps'")
+    agree = trace if part is None else trace[:part]
+    bis_err = max((float((rs - prs).abs().max()) for (_, rs), (_, prs) in zip(agree, ptrace)),
+                  default=0.0)
+    ths = trace[0][0]
+    T, R = ths.numel(), len(trace)
     kc, ks = theta_stats(rows[0], ths)
     pc, ps = theta_stats_plain(rows[0], ths)
     if not torch.equal(kc, pc):
         raise AssertionError("theta_stats counts differ from the plain version")
     if not torch.allclose(ks, ps, rtol=RTOL, atol=0.0):
         raise AssertionError("theta_stats sums differ beyond rtol=1e-5")
+    b1, by1 = bound_ms((lam + 3 * T) * 4, float(2 * T * lam))
+    one_round = {"T": T, "ms": time_ms(lambda: theta_stats(rows[0], ths)),
+                 "plain_ms": time_ms(lambda: theta_stats_plain(rows[0], ths)),
+                 "max_abs_err": float((ks - ps).abs().max()), "bound_ms": b1, "bound_by": by1}
+    steps = {"ms": time_ms(lambda: bisect_rounds(rows[0], k0, rpb, stats=theta_stats)),
+             "host_ms": host_ms(lambda: bisect_rounds(rows[0], k0, rpb, stats=theta_stats), dev)}
+    log(f"kernel theta_stats: one round {one_round}; the step-by-step bisection {steps}; "
+        f"rounds parted at {part}")
     entry(
-        "theta_stats", float((ks - ps).abs().max()),
-        time_ms(lambda: theta_stats(rows[0], ths)),
-        time_ms(lambda: theta_stats_plain(rows[0], ths)),
-        None, (lam + 3 * T) * 4, float(2 * T * lam),
+        "theta_stats", bis_err,
+        time_ms(lambda: bisect_rounds(rows[0], k0, rpb)),
+        time_ms(lambda: bisect_rounds(rows[0], k0, rpb, stats=theta_stats_plain)),
+        None, (lam + 2 * R * T + 2) * 4, float(2 * R * T * lam),
+        rounds=R, fanout=T, parted_at=part, one_round=one_round, steps_path=steps,
+        host_ms=host_ms(lambda: bisect_rounds(rows[0], k0, rpb), dev),
     )
 
     # batched θ-stats: round 0's masked rows and thresholds θ, 2θ, ..., 8θ
@@ -1550,8 +1681,14 @@ def main(argv=None) -> int:
 
     _lib.load()
     log(f"build: {_lib.build_seconds:.1f} s")
-    for line in ptxas_report((_lib.BUILD_DIR / "build.log").read_text()):
+    ptxas = ptxas_report((_lib.BUILD_DIR / "build.log").read_text())
+    for line in ptxas:
         log(f"  {line}")
+    redesigned = {name: next((ln for ln in ptxas if ln.startswith(f"{kern}:")), None)
+                  for name, kern in NEW_KERNELS.items()}
+    for name, line in redesigned.items():
+        if line is None or "0 bytes spill stores, 0 bytes spill loads" not in line:
+            raise AssertionError(f"{name}: ptxas reports spills or no kernel: {line}")
 
     t0 = time.perf_counter()
     table = make_real_like_table("airline", num_records=args.records, seed=args.seed)
@@ -1661,9 +1798,12 @@ def main(argv=None) -> int:
     bisect_wall = time.perf_counter() - t0
     phase_launches["bisect"] = bis.pop("launches")
     log(f"bisect launches: {phase_launches['bisect']}")
-    if phase_launches["bisect"]["theta_stats"] == 0:
-        raise AssertionError("the bisect path launched no theta_stats")
+    if phase_launches["bisect"]["theta_stats"] != Q:
+        raise AssertionError(f"the bisect path launched theta_stats "
+                             f"{phase_launches['bisect']['theta_stats']} times, not once a row")
     log(f"bisect: {Q} rows in {bisect_wall} s (with its checks): {bis}")
+    log(f"bisect per row, one launch vs the step-by-step path: "
+        f"{bisect_timing(rows, queries, RPB)}")
 
     # -- 8. sharded: a world of one over NCCL on the card, through attach_mesh
     import torch.distributed as dist
@@ -1725,6 +1865,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     entries = kernel_phase(store, queries, batch, phase_launches, rows)
+    for e in entries:
+        if e["name"] in redesigned:
+            e["ptxas"] = redesigned[e["name"]]
     entries += lm_kernel_rows(cfg, phase_launches, long_seq, args.seed, torch.device("cuda"),
                               swa=(scfg, swa_seq), profile=args.profile)
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")

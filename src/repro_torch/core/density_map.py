@@ -10,8 +10,9 @@ variants (paper §4.1) are built with it, as in the reference.
 operations in the reference's order, so the bytes are the same, and only
 then moves it to the requested device.  The §3.2 ⊕-combine of a query's
 rows runs on the index's device: :func:`combine_densities` for one query
-(the ``density_combine`` kernel on CUDA), :func:`combine_densities_batch`
-for a ``[Q, γ_max]`` row matrix (``density_combine_batch``).
+(the ``density_combine`` kernel on CUDA, its row ids passed by value and the
+planner's exclusion fused in), :func:`combine_densities_batch` for a
+``[Q, γ_max]`` row matrix (``density_combine_batch``).
 """
 from __future__ import annotations
 
@@ -130,15 +131,18 @@ def _upload_rows(densities: torch.Tensor, rows: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(rows).to(densities.device)
 
 
-def combine_densities(densities: torch.Tensor, rows, op: str = AND) -> torch.Tensor:
+def combine_densities(densities: torch.Tensor, rows, op: str = AND,
+                      exclude=None) -> torch.Tensor:
     """Paper §3.2 for one query: the ``[λ]`` density of the conjunction
     (AND: product) or disjunction (OR: sum clipped to 1) of the ``[γ]`` host
     row ids, on ``densities``' device; bit-identical to the reference's
-    ``combine_densities_np``."""
+    ``combine_densities_np``.  The blocks in ``exclude`` (host ids) are then
+    +0.0, as the reference's planner sets them.  The ids stay on the host:
+    the kernel takes them (up to 64) in its launch parameters."""
     rows = np.asarray(rows, dtype=np.int32)
     if rows.size and rows.min() < 0:
         raise IndexError("a query's row ids must be >= 0")
-    return density_combine(densities, _upload_rows(densities, rows), op)
+    return density_combine(densities, torch.from_numpy(rows), op, exclude)
 
 
 def combine_densities_batch(

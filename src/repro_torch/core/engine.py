@@ -7,7 +7,8 @@ blocks when a fetch under-delivers; I/O is charged through a
 fetch order.
 
 :meth:`NeedleTailEngine.any_k` is the reference's sequential loop: per round
-the query's combined density (the ``density_combine`` kernel), a THRESHOLD
+the query's combined density with the blocks already read set to +0.0 (one
+launch of the ``density_combine`` kernel), a THRESHOLD
 or TWO-PRONG plan (the ``prefix_sum`` kernel) or the §7.2 ``auto`` choice
 between them, ``setdiff1d`` against the blocks already read, an ascending
 read through the engine-lifetime :class:`~repro_torch.core.block_cache.
@@ -117,13 +118,16 @@ class NeedleTailEngine:
         comparison): the engine's cost model over the ascending ids."""
         return self.cost.io_time(block_ids)
 
-    def combined_density(self, predicates: Predicates, op: str = AND) -> torch.Tensor:
-        """``[λ]`` f32 ⊕-combined density on the engine's device."""
+    def combined_density(self, predicates: Predicates, op: str = AND,
+                         exclude: np.ndarray | None = None) -> torch.Tensor:
+        """``[λ]`` f32 ⊕-combined density on the engine's device, with the
+        blocks in ``exclude`` set to +0.0 (in the combine's own launch on
+        CUDA)."""
         from repro_torch.core.multi_query import check_predicates
 
         check_predicates(predicates, op)
         rows = self.store.index.vocab.rows(predicates)
-        return combine_densities(self.store.index.densities, rows, op)
+        return combine_densities(self.store.index.densities, rows, op, exclude)
 
     def _mask(self, block_dims: torch.Tensor, predicates: Predicates, op: str = AND):
         return self.store.predicate_mask(block_dims, predicates, op)
@@ -146,10 +150,7 @@ class NeedleTailEngine:
         from repro_torch.core.multi_query import check_algo
 
         check_algo(algo)
-        combined = self.combined_density(predicates, op)
-        if exclude is not None and exclude.size:
-            combined = combined.clone()
-            combined[torch.from_numpy(np.asarray(exclude, dtype=np.int64)).to(self.device)] = 0.0
+        combined = self.combined_density(predicates, op, exclude)
         rpb = self.store.records_per_block
         parts = []
         if algo in ("threshold", "auto"):

@@ -53,12 +53,15 @@ build_seconds = 0.0
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    # (dens, lam, rows, gamma, op_or, out, stream)
-    "nt_density_combine": (_P, _I64, _P, _I64, ctypes.c_int, _P, _P),
+    # (dens, lam, host rows or None, device rows or None, gamma, excl or None, n_excl,
+    #  op_or, out, stream)
+    "nt_density_combine_excl": (_P, _I64, _P, _P, _I64, _P, _I64, ctypes.c_int, _P, _P),
     # (dens, lam, rows, nq, gamma, op_or, out, stream)
     "nt_density_combine_batch": (_P, _I64, _P, _I64, _I64, ctypes.c_int, _P, _P),
-    # (x, lam, thetas, T, pcnt, psum, counts, recsum, stream)
-    "nt_theta_stats": (_P, _I64, _P, _I64, _P, _P, _P, _P, _P),
+    # (x, lam, thetas, T, counts, recsum, stream)
+    "nt_theta_stats": (_P, _I64, _P, _I64, _P, _P, _P),
+    # (x, lam, rounds, fanout, k, rpb, ths, recsum, lohi, stream)
+    "nt_theta_bisect": (_P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float, _P, _P, _P, _P),
     # (x, nq, lam, thetas, T, counts, recsum, stream)
     "nt_theta_stats_batch": (_P, _I64, _I64, _P, _I64, _P, _P, _P),
     # (slab, ids, u, nbytes, out, stream)
@@ -146,8 +149,7 @@ def load() -> ctypes.CDLL:
         f = getattr(lib, fn)
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
-    for fn, argtypes in (("nt_theta_stats_tiles", [_I64]),
-                         ("nt_prefix_sum_scratch_floats", [_I64]),
+    for fn, argtypes in (("nt_prefix_sum_scratch_floats", [_I64]),
                          ("nt_prefix_sum_smem_max_n", [])):
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = _I64

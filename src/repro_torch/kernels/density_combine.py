@@ -4,24 +4,33 @@ Counterpart of ``repro/kernels/density_combine.py``: a ``[Q, γ_max]`` row
 matrix (padded with -1) selects γ rows of the ``[rows, λ]`` density tensor per
 query and folds them into ``[Q, λ]``: AND is the product, OR the sum clipped
 to 1 after the last row, and padded slots contribute the ⊕-identity.
-:func:`density_combine` is the single-query form, ``[γ]`` row ids → ``[λ]``.
+:func:`density_combine` is the single-query form, ``[γ]`` row ids → ``[λ]``,
+optionally with the single-query planner's exclusion (listed blocks set to
++0.0) fused in.
 :func:`density_combine_batch_sharded` is the wave form of a λ-sharded index:
 each rank combines its own ``[rows, λ_local]`` slab for all Q queries, with
 no collective, because ⊕ is elementwise in λ.
 
-On CUDA the fold is the kernel in ``csrc/density_combine.cu`` (the single
-query a Q = 1 launch of it and the sharded form a launch on the rank's slab,
-each counted under its own name); on the CPU it is
-:func:`density_combine_batch_plain` / :func:`density_combine_plain`.  Both
+On CUDA the fold is the kernels in ``csrc/density_combine.cu`` (the
+batched kernel, run by the sharded form on the rank's slab, and the
+single-query kernel, which takes up to 64 row ids by value in its launch
+parameters and writes the exclusion in the same launch; each counted under
+its own name); on the CPU it is :func:`density_combine_batch_plain` /
+:func:`density_combine_plain` followed by the exclusion.  Both
 fold γ left to right in f32, like the reference's ``_combine_local`` and
 ``combine_densities_np``, so all agree bit for bit, and a rank's slab
 combines to the matching columns of the whole index's combine.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _lib
+
+#: row ids a single-query launch carries by value (``NT_COMBINE_BY_VALUE``);
+#: more are copied to the card first and read there by the same kernel
+MAX_IDS_BY_VALUE = 64
 
 
 def density_combine_batch_plain(
@@ -60,27 +69,74 @@ def _check(densities: torch.Tensor, rows: torch.Tensor, op: str, rows_dim: int) 
         raise ValueError(f"row ids must be a {shape} int32 tensor")
 
 
+def exclusion_ids(exclude, lam: int) -> np.ndarray:
+    """Host block ids to set to +0.0, as the single-query kernel takes them:
+    int32 in ``[0, λ)``, sorted ascending, without duplicates.  Negative ids
+    count from the end and ids outside ``[-λ, λ)`` raise ``IndexError``, as
+    in the reference's ``combined[exclude] = 0.0``."""
+    ex = np.asarray(exclude, dtype=np.int64).ravel()
+    if ex.size and (ex.min() < -lam or ex.max() >= lam):
+        raise IndexError(f"excluded block ids out of range [-{lam}, {lam})")
+    return np.unique(np.where(ex < 0, ex + lam, ex)).astype(np.int32)
+
+
 def density_combine(
     densities: torch.Tensor,  # [rows, λ] f32
     row_ids: torch.Tensor,  # [γ] int32, each in [0, rows)
     op: str = "and",
+    exclude=None,  # host block ids, or None
 ) -> torch.Tensor:
     """``[λ]`` ⊕-combined density of one query, bit-identical to the
-    reference's ``combine_densities_np``.  Row ids must lie in ``[0, rows)``:
-    :func:`repro_torch.core.density_map.combine_densities` checks them on the
-    host before they reach the card."""
+    reference's ``combine_densities_np``; the blocks in ``exclude`` are then
+    +0.0, as the reference's planner sets ``combined[exclude] = 0.0``.
+
+    Row ids on the host are range-checked there and, on CUDA, travel by
+    value in the launch parameters (up to :data:`MAX_IDS_BY_VALUE`; more
+    are copied to the card); row ids on the card are read where they lie,
+    unchecked (:func:`repro_torch.core.density_map.combine_densities` checks
+    them on the host first).  The exclusion runs in the same launch."""
     _check(densities, row_ids, op, 1)
-    if densities.device.type == "cpu" and row_ids.device.type == "cpu":
-        return density_combine_plain(densities, row_ids, op)
-    _lib.require_cuda("density_combine", densities, row_ids)
     lam = densities.shape[1]
-    out = torch.empty((lam,), dtype=torch.float32, device=densities.device)
+    host = row_ids.device.type == "cpu"
+    if host:
+        rows = np.ascontiguousarray(row_ids.numpy())
+        if rows.size and (rows.min() < -1 or rows.max() >= densities.shape[0]):
+            raise IndexError(f"row ids out of range [-1, {densities.shape[0]})")
+    ex = exclusion_ids(exclude, lam) if exclude is not None else np.zeros(0, np.int32)
+    if not (densities.device.type == "cpu" and host):
+        _lib.require_cuda("density_combine", densities, *(() if host else (row_ids,)))
+    excl = torch.from_numpy(ex).to(densities.device) if ex.size else None
+    return combine_single(densities, row_ids, excl, op)
+
+
+def combine_single(densities: torch.Tensor, row_ids: torch.Tensor,
+                   excl: torch.Tensor | None, op: str) -> torch.Tensor:
+    """:func:`density_combine` on checked arguments: ``excl`` is an int32
+    array of block ids in ``[0, λ)``, sorted, without duplicates
+    (:func:`exclusion_ids`), on ``densities``' device, or None.  CPU
+    tensors take the plain fold and then the exclusion; on CUDA one launch
+    of the single-query kernel, host row ids by value (up to
+    :data:`MAX_IDS_BY_VALUE`, else copied to the card) or device row ids
+    read where they lie."""
+    if densities.device.type == "cpu" and row_ids.device.type == "cpu":
+        out = density_combine_plain(densities, row_ids, op)
+        if excl is not None:
+            out[excl.long()] = 0.0
+        return out
+    dev = densities.device
+    lam, gamma = densities.shape[1], row_ids.shape[0]
+    out = torch.empty((lam,), dtype=torch.float32, device=dev)
     if lam == 0:
         return out
+    host = row_ids.device.type == "cpu"
+    rows = np.ascontiguousarray(row_ids.numpy()) if host else None
+    dev_rows = None if host and gamma <= MAX_IDS_BY_VALUE else row_ids.to(dev)
     lib = _lib.load()
-    with torch.cuda.device(densities.device):
-        rc = lib.nt_density_combine(
-            densities.data_ptr(), lam, row_ids.data_ptr(), row_ids.shape[0],
+    with torch.cuda.device(dev):
+        rc = lib.nt_density_combine_excl(
+            densities.data_ptr(), lam, rows.ctypes.data if dev_rows is None else None,
+            None if dev_rows is None else dev_rows.data_ptr(), gamma,
+            None if excl is None else excl.data_ptr(), 0 if excl is None else excl.numel(),
             int(op == "or"), out.data_ptr(), _lib.stream_of(densities),
         )
     _lib.launched("density_combine", rc)

@@ -225,7 +225,8 @@ def test_prefix_sum_kernel_at_the_shared_memory_edge(cuda, q, past):
     assert torch.equal(out.cpu(), prefix_sum_plain(xc.cpu()))
 
 
-@pytest.mark.parametrize("lam,T", [(12208, 16), (1000, 1), (7, 9), (5000, 32)])
+@pytest.mark.parametrize("lam,T", [(12208, 16), (1000, 1), (7, 9), (5000, 32), (10**6, 20),
+                                   (0, 3)])
 def test_single_theta_kernel_against_plain(cuda, lam, T):
     rng = np.random.default_rng(lam + T)
     x = (rng.random(lam) ** 3).astype(np.float32)
@@ -250,8 +251,132 @@ def test_threshold_bisect_on_the_kernel_matches_the_plain_steps(cuda):
     for k in (10.0, 200.0, 3000.0, 1e9):
         n0 = _lib.LAUNCHES["theta_stats"]
         theta = ops.threshold_bisect(xc, k, 10)
-        assert _lib.LAUNCHES["theta_stats"] == n0 + 3
+        assert _lib.LAUNCHES["theta_stats"] == n0 + 1
         assert float(theta) == float(ops.threshold_bisect_plain(xc, k, 10))
+
+
+def _hold_bisect(xc, k, rpb, rounds, fanout) -> bool:
+    """The one-launch bisection against the plain steps on the same row:
+    one launch; in every round up to the first whose ``recsum·rpb >= k``
+    tests differ, thresholds bit for bit and sums to ``rtol=1e-5``; θ* and
+    the bracket bit for bit unless such a round exists, and then its
+    differing tests lie within ``rtol`` of k.  Returns whether the rounds
+    parted (a boundary case)."""
+    n0 = _lib.LAUNCHES["theta_stats"]
+    lo, hi, trace = ops.bisect_rounds(xc, k, rpb, rounds, fanout)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["theta_stats"] == n0 + 1
+    plo, phi, ptrace = ops.bisect_rounds(xc, k, rpb, rounds, fanout, stats=theta_stats_plain)
+    assert len(trace) == len(ptrace) == rounds
+    for (ths, rs), (pths, prs) in zip(trace, ptrace):
+        assert ths.shape == rs.shape == (fanout,)
+        assert torch.equal(ths, pths)
+        torch.testing.assert_close(rs, prs, rtol=1e-5, atol=0)
+        ok = (rs * rpb >= k).cpu().numpy()
+        pok = (prs * rpb >= k).cpu().numpy()
+        if not np.array_equal(ok, pok):
+            for j in np.flatnonzero(ok != pok):
+                assert abs(float(prs[j]) * rpb - k) <= 1e-5 * abs(k)
+            return True
+    assert float(lo) == float(plo) and float(hi) == float(phi)
+    return False
+
+
+@pytest.mark.parametrize("fanout", [1, 10, 16, 33])
+@pytest.mark.parametrize("rounds", [1, 3, 5])
+@pytest.mark.parametrize("lam", [1, 7, 1025, 12208, 10**6])
+def test_one_launch_bisection_matches_the_plain_steps(cuda, lam, rounds, fanout):
+    """Across the slice's lengths (10⁶ re-reads its slices from global
+    memory), rounds and fanouts (1, and 33 in three groups of registers;
+    10 and 33 are where a reciprocal multiply would round differently):
+    thresholds and θ* bit for bit, boundary cases counted (none here)."""
+    rng = np.random.default_rng(lam + 7 * rounds + fanout)
+    x = (rng.random(lam) * (rng.random(lam) < 0.3)).astype(np.float32)
+    xc = torch.from_numpy(x).to(cuda)
+    total = float(x.astype(np.float64).sum()) * 10
+    parted = sum(_hold_bisect(xc, k, 10, rounds, fanout)
+                 for k in (1.0, 0.01 * total, 0.3 * total, 0.9 * total, 2 * total + 1))
+    assert parted == 0
+
+
+@pytest.mark.parametrize("case", ["zeros", "unreachable", "k0", "ties_at_one", "empty"])
+def test_one_launch_bisection_edge_rows(cuda, case):
+    """An all-zero row (θ* = 0), k out of reach (θ* = 0), k = 0 (every
+    threshold reaches it), a row of ties at 1.0 and an empty row: each the
+    plain steps' result."""
+    lam = 0 if case == "empty" else 12208
+    x = np.zeros(lam, np.float32)
+    if case in ("unreachable", "k0"):
+        x = np.random.default_rng(1).random(lam).astype(np.float32)
+    if case == "ties_at_one":
+        x[::3] = 1.0
+    xc = torch.from_numpy(x).to(cuda)
+    k = {"unreachable": 1e12, "k0": 0.0}.get(case, 50.0)
+    for rounds, fanout in ((3, 16), (5, 33), (1, 1)):
+        assert not _hold_bisect(xc, k, 10, rounds, fanout)
+        theta = float(ops.threshold_bisect(xc, k, 10, rounds, fanout))
+        if case in ("zeros", "unreachable", "empty"):
+            assert theta == 0.0
+
+
+def test_bisection_with_no_rounds_launches_nothing(cuda):
+    x = torch.rand(100, device=cuda)
+    n0 = _lib.LAUNCHES["theta_stats"]
+    lo, hi, trace = ops.bisect_rounds(x, 5.0, 10, rounds=0)
+    assert trace == [] and _lib.LAUNCHES["theta_stats"] == n0
+    plo, phi, _ = ops.bisect_rounds(x, 5.0, 10, rounds=0, stats=theta_stats_plain)
+    assert float(lo) == float(plo) == 0.0 and float(hi) == float(phi)
+
+
+@pytest.mark.parametrize("op", ["and", "or"])
+@pytest.mark.parametrize("excl", ["none", "empty", "unsorted_dups", "all"])
+@pytest.mark.parametrize("gamma", [1, 3, 64, 65])
+def test_single_combine_with_exclusion_bit_identical(cuda, gamma, excl, op):
+    """#1 with the planner's exclusion fused in: γ ≤ 64 ids by value, 65
+    through a device copy; exclusion lists empty, unsorted with duplicates
+    (and a negative id, counted from the end) and all of λ.  Bit for bit the
+    reference's fold followed by ``combined[exclude] = 0.0``, one launch;
+    the same ids given on the card give the same bits."""
+    lam = 12208
+    dens, _ = _combine_inputs(gamma, 1, 1, lam)
+    rng = np.random.default_rng(gamma)
+    rows = rng.integers(0, 12, gamma).astype(np.int32)
+    exclude = {"none": None, "empty": np.zeros(0, np.int64),
+               "unsorted_dups": np.concatenate([rng.integers(0, lam, 300), [5, 5, 0, -1]]),
+               "all": rng.permutation(lam)}[excl]
+    want = density_combine_plain(dens, torch.from_numpy(rows), op).numpy().copy()
+    if exclude is not None:
+        want[exclude] = 0.0
+    dc = dens.to(cuda)
+    n0 = _lib.LAUNCHES["density_combine"]
+    out = density_combine(dc, torch.from_numpy(rows), op, exclude)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["density_combine"] == n0 + 1
+    np.testing.assert_array_equal(out.cpu().numpy(), want)
+    assert not np.signbit(out.cpu().numpy()).any()  # +0.0, as the reference writes
+    assert torch.equal(density_combine(dc, torch.from_numpy(rows).to(cuda), op, exclude), out)
+
+
+def test_single_query_plans_on_the_card_equal_the_cpu_plans(cuda):
+    """``NeedleTailEngine.plan`` with exclusion lists (unsorted, with
+    duplicates) on the card equals the same plan on the CPU, every algo."""
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.data.block_store import build_block_store
+    from repro_torch.data.synthetic import make_clustered_table
+
+    t = make_clustered_table(num_records=64_000, num_dims=4, density=0.15, seed=3)
+    gpu = NeedleTailEngine(build_block_store(t, 100, device=cuda), device=cuda)
+    cpu = NeedleTailEngine(build_block_store(t, 100, device="cpu"), device="cpu")
+    rng = np.random.default_rng(3)
+    lam = gpu.store.num_blocks
+    for preds, k, op in (([(0, 1), (2, 1)], 300, "and"), ([(1, 1), (3, 1)], 2000, "or"),
+                         ([(2, 0)], 10, "and")):
+        for exclude in (None, rng.integers(0, lam, 40), np.arange(lam)[::-2]):
+            for algo in ("threshold", "two_prong", "auto"):
+                a, ua = gpu.plan(preds, k, op, algo, exclude)
+                b, ub = cpu.plan(preds, k, op, algo, exclude)
+                np.testing.assert_array_equal(a, b)
+                assert ua == ub
 
 
 @pytest.mark.parametrize(

@@ -372,6 +372,8 @@ def test_chip_smoke_host_single_and_bisect_phases_pass_on_a_small_cpu_store():
         cs.pick_single(queries, SimpleNamespace(results=[
             SimpleNamespace(plan_rounds=1)] * len(queries)))
     cs.time_ms = lambda fn, flush=None: (fn(), 0.0)[1]
+    timing = cs.bisect_timing(rows[:4], queries[:4], cs.RPB)
+    assert set(timing) == {"one_launch", "steps"}
     launches = {ph: {k: 1 for k in cs.KERNELS} for ph in cs.PHASE_KERNELS}
     rows_out = cs.kernel_phase(store, queries, batch, launches, rows)
     assert [r["name"] for r in rows_out] == [k for k in cs.KERNELS if k not in cs.LM_KERNELS]

@@ -187,6 +187,41 @@ def test_single_combine_plain_bit_identical_to_pallas(op, gamma):
     np.testing.assert_array_equal(mine, combine_densities_np(dens, rows, op))
 
 
+@pytest.mark.parametrize("op", ["and", "or"])
+@pytest.mark.parametrize("excl", ["empty", "unsorted_dups", "all"])
+@pytest.mark.parametrize("gamma", [1, 3, 64, 65])
+def test_single_combine_with_exclusion_bit_identical_to_reference(gamma, excl, op):
+    """The single-query combine with the planner's exclusion (γ up to the 64
+    ids a launch carries by value, and one more): bit for bit the
+    reference's ``combine_densities_np`` followed by ``combined[exclude] =
+    0.0``, for exclusion lists empty, unsorted with duplicates and a
+    negative id, and all of λ."""
+    dens, _ = _combine_inputs(gamma, 1, 1, 1000)
+    rng = np.random.default_rng(gamma)
+    rows = rng.integers(0, dens.shape[0], gamma).astype(np.int32)
+    exclude = {"empty": np.zeros(0, np.int64),
+               "unsorted_dups": np.concatenate([rng.integers(0, 1000, 50), [7, 7, -1]]),
+               "all": rng.permutation(1000)}[excl]
+    want = combine_densities_np(dens, rows, op)
+    want[exclude] = 0.0
+    mine = density_combine(torch.from_numpy(dens), torch.from_numpy(rows), op, exclude).numpy()
+    np.testing.assert_array_equal(mine, want)
+    assert not np.signbit(mine).any()
+
+
+def test_exclusion_ids_sorted_unique_and_range_checked():
+    from repro_torch.kernels.density_combine import exclusion_ids
+
+    ids = exclusion_ids(np.asarray([5, 1, 5, -1, 0]), 10)
+    assert ids.dtype == np.int32 and ids.tolist() == [0, 1, 5, 9]
+    assert exclusion_ids([], 10).size == 0
+    for bad in ([10], [-11]):
+        with pytest.raises(IndexError):
+            exclusion_ids(bad, 10)
+    with pytest.raises(IndexError):  # host row ids are range-checked too
+        density_combine(torch.zeros((4, 8)), torch.tensor([4], dtype=torch.int32))
+
+
 @pytest.mark.parametrize("lam,T", [(100, 8), (1000, 16), (1024, 8)])
 def test_single_theta_stats_plain_against_pallas(lam, T):
     rng = np.random.default_rng(lam)

@@ -103,6 +103,36 @@ def test_plan_equals_reference_plan(name, algo):
 
 @pytest.mark.parametrize("algo", ALGOS)
 @pytest.mark.parametrize("name", ["clustered", "uniform", "skewed", "underdelivery"])
+def test_plan_with_unsorted_duplicated_exclusion_equals_reference_plan(name, algo):
+    """Exclusion lists as a caller may pass them: unsorted, with duplicates
+    and a negative id (counted from the end, as numpy indexes), empty, and
+    all of λ.  The port folds them into the combine (sorted and de-duplicated
+    on the host); the reference assigns ``combined[exclude] = 0.0``."""
+    (jstore, pstore), qs = _fixture(name)
+    eng, jeng = NeedleTailEngine(pstore, device="cpu"), JaxEngine(jstore, cache_bytes=0)
+    lam = pstore.num_blocks
+    rng = np.random.default_rng(len(name) + 1)
+    lists = (np.concatenate([rng.integers(0, lam, 12), [3, 3, -1, 0]]),
+             np.zeros(0, np.int64), rng.permutation(lam))
+    for preds, k, op in qs:
+        for exclude in lists:
+            blocks, used = eng.plan(preds, k, op, algo, exclude)
+            rblocks, rused = jeng.plan(preds, k, op, algo, exclude)
+            np.testing.assert_array_equal(blocks, rblocks)
+            assert blocks.dtype == np.int64 and used == rused
+
+
+def test_plan_rejects_excluded_ids_out_of_range():
+    (_, pstore), qs = _fixture("clustered")
+    eng = NeedleTailEngine(pstore, device="cpu")
+    preds, k, op = qs[0]
+    for bad in ([pstore.num_blocks], [-pstore.num_blocks - 1]):
+        with pytest.raises(IndexError):
+            eng.plan(preds, k, op, "auto", np.asarray(bad))
+
+
+@pytest.mark.parametrize("algo", ALGOS)
+@pytest.mark.parametrize("name", ["clustered", "uniform", "skewed", "underdelivery"])
 def test_any_k_equals_reference_any_k(name, algo):
     (jstore, pstore), qs = _fixture(name)
     eng, jeng = NeedleTailEngine(pstore, device="cpu"), JaxEngine(jstore)
