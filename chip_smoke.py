@@ -25,10 +25,13 @@ path must have launched each of its own kernels (``PHASE_KERNELS``):
    or ``max_refills`` ran out, ``device_transfers <= rounds + 1``, and the
    same wave run by the port on the CPU (plain versions) must give identical
    per-query results.  Round-0 TWO-PRONG windows are held against the
-   float64 ``two_prong_faithful`` under the planner contract.
+   float64 ``two_prong_faithful`` under the planner contract.  The wave
+   must launch #2 once (its AND and OR queries in one combine) and #5 once
+   per planning round.
 5. host-mirror — the same wave through ``any_k_batch(..., device=False)``
    on a fresh engine: per-query results, rounds, unique blocks, store reads
-   and cache hits must equal the device wave's.
+   and cache hits must equal the device wave's; #2 must launch once per
+   combine of a (round, algorithm) group, whatever its ops and exclusions.
 6. single      — ``engine.any_k`` for at least 8 of the wave's queries
    (THRESHOLD, TWO-PRONG and ``auto``; AND and OR; at least one refill),
    each equal to its result in the wave and re-checked on the host table.
@@ -48,13 +51,16 @@ path must have launched each of its own kernels (``PHASE_KERNELS``):
    blocks, store reads and cache hits must equal the wave phase's.  The
    joiners' rows are combined on the rank's λ-shard (#3).
    ``bisect_stats_wave`` on the 64 combined rows against the unsharded
-   ``ops.threshold_bisect`` (θ equal, boundary cases counted).  An NCCL
-   failure fails the run.
+   ``ops.threshold_bisect`` (θ equal, boundary cases counted), one #5
+   launch a round and one more (4, asserted; #3 once), and against the
+   same loop on the plain rounds, timed beside it.  An NCCL failure fails
+   the run.
 9. sharded_ranks — P = 4 ranks on the same card, started by this script as
    subprocesses under a time limit (gloo: NCCL refuses two ranks on one
    card; the collectives' CUDA tensors cross the host, the compute stays on
    the card), each building the same table and running the same wave: every
-   rank's per-query digest must equal the sharded phase's.
+   rank's per-query digest must equal the sharded phase's, and each rank's
+   cold wave must launch #3 once.
 
 Then the LM serving path, on zamba2-7b at its published widths and full
 depth (81 layers, ~5.74·10⁹ parameters, f32, random weights from
@@ -107,12 +113,16 @@ d_model 3840, 16 heads of 240, 8 kv heads, ~1.26·10¹⁰ parameters, f32):
    slow decay (output and final state, the carried state's weight
    checked), over 64 chunks (``SSD_64_CHUNKS``) and at mamba2-130m's
    d_state 128;
-   the sharded combine (#3) at the slab of one of P = 4 ranks and of a
-   world of one.  #4 is timed as the path launches it, one whole bisection
-   (3 rounds of 16), and as one round at 16 thresholds; #1 with host ids
+   #2 on the wave's rows from the host (AND, OR, the wave's mix, the mix
+   with exclusions) beside the per-op-group path it replaced; the sharded
+   combine (#3) at the slab of one of P = 4 ranks and of a world of one;
+   #5 as the wave round (T = 1), at 8 given thresholds (θ, 2θ, ..., 8θ)
+   and as one sharded bisection round (T = 16) at both slabs.  #4 is timed
+   as the path launches it, one whole bisection (3 rounds of 16), and as
+   one round at 16 thresholds; #1 with host ids
    (by value) without and with a refill's exclusion list, each beside the
    path it replaced, by CUDA events and host clock.  The build must show
-   no spills for the two kernels redesigned last (``NEW_KERNELS``).
+   no spills for the kernels of the last two redesigns (``NEW_KERNELS``).
 
 The last lines are the ``{"kernels": [...]}`` JSON, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -122,6 +132,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import hashlib
 import json
@@ -157,10 +168,13 @@ KERNELS = {
     "ssd_scan": ("csrc/ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:78"),
 }
 LM_KERNELS = ("flash_attention", "ssd_scan")
-# the CUDA kernel each redesign of this slice launches: its ptxas line goes
-# into its row, and the run fails if it spills
-NEW_KERNELS = {"theta_stats": "theta_bisect_kernel",
-               "density_combine": "density_combine_excl_kernel"}
+# the CUDA kernels each redesign launches (the last two slices'): their
+# ptxas lines go into their rows, and the run fails if one spills
+NEW_KERNELS = {"theta_stats": ("theta_bisect_kernel",),
+               "density_combine": ("density_combine_excl_kernel",),
+               "theta_stats_batch": ("theta_batch_kernel<1>", "theta_batch_kernel<16>"),
+               "density_combine_batch": ("density_combine_wave_kernel",),
+               "density_combine_batch_sharded": ("density_combine_wave_kernel",)}
 # the kernels each path must launch; a kernel's "launches" in the JSON line
 # are those of the first path listed here that runs it
 PHASE_KERNELS = {
@@ -179,6 +193,8 @@ PHASE_KERNELS = {
 SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 65_537, 12_208)
 RTOL = 1e-5
 SHARDS = 4  # ranks of the sharded_ranks phase, all on the one card
+# the batched θ-bisection's defaults (core/sharded.py): rounds and fanout
+BISECT_ROUNDS, BISECT_FANOUT = 3, 16
 RANK_TIMEOUT_S = 300  # the sharded_ranks phase fails rather than hang
 
 LM_ARCH = "zamba2-7b"
@@ -345,19 +361,12 @@ def window_contract(store, queries) -> dict:
 
 
 def combined_rows(store, queries):
-    """The wave's ``[Q, λ]`` round-0 combined rows (each query's own op)."""
-    import torch
+    """The wave's ``[Q, λ]`` round-0 combined rows (each query's own op), in
+    one combine."""
+    from repro_torch.core.density_map import combine_densities_wave, pack_row_matrix
 
-    from repro_torch.core.density_map import combine_densities_batch, pack_row_matrix
-
-    rows = torch.empty((len(queries), store.num_blocks), dtype=torch.float32,
-                       device=store.device)
-    for op in ("and", "or"):
-        idx = [i for i, q in enumerate(queries) if q.op == op]
-        if idx:
-            rm = pack_row_matrix(store.index.vocab, [queries[i].predicates for i in idx])
-            rows[idx] = combine_densities_batch(store.index.densities, rm, op)
-    return rows
+    rm = pack_row_matrix(store.index.vocab, [q.predicates for q in queries])
+    return combine_densities_wave(store.index.densities, rm, [q.op for q in queries])
 
 
 def compare_results(x, y, what: str) -> None:
@@ -574,6 +583,7 @@ def sharded_check(store, queries, batch, warm, rows, run, device: str = "cuda",
     each held against the unsharded waves; θ against ``ops.threshold_bisect``
     per row.  ``profile`` traces one more warm wave."""
     from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.ops import bisect_rounds
     from repro_torch.launch.mesh import make_host_mesh
 
@@ -588,9 +598,20 @@ def sharded_check(store, queries, batch, warm, rows, run, device: str = "cuda",
         out = engine.any_k_batch(queries, device=True)
         sync(device)
         walls["cold"] = time.perf_counter() - t0
-        return out, planner.bisect_stats_wave(rows, needs)
+        before = dict(_lib.LAUNCHES)
+        bis = planner.bisect_stats_wave(rows, needs)
+        return out, bis, {k: n - before[k] for k, n in _lib.LAUNCHES.items()}
 
-    (sh, bis), _, launches = run("sharded", cold_wave)
+    (sh, bis, bis_launches), _, launches = run("sharded", cold_wave)
+    if device == "cuda":  # the plain versions launch nothing
+        # one combine a wave; the bisection one launch a round and one more
+        bis_want = {"theta_stats_batch": BISECT_ROUNDS + 1}
+        check_launches(bis_launches, bis_want, "sharded bisection")
+        want = {"density_combine_batch_sharded": 1, **bis_want}
+        check_launches(launches, want, "sharded")
+        log(f"sharded launch counts as expected: {want}, of which the bisection "
+            f"{bis_want} ({BISECT_ROUNDS} rounds)")
+    bisect_ms = sharded_bisect_ms(planner, rows, needs, store.records_per_block, device)
     t0 = time.perf_counter()
     sh_warm = engine.any_k_batch(queries, device=True)
     sync(device)
@@ -620,10 +641,83 @@ def sharded_check(store, queries, batch, warm, rows, run, device: str = "cuda",
         else:
             raise AssertionError(f"query {i}: sharded θ {theta[i]} vs threshold_bisect {float(lo)}")
     return {"walls": walls, "transfers": sh.device_transfers, "round_seconds": sh.round_seconds,
-            "warm_round_seconds": sh_warm.round_seconds, "bisect": out,
+            "warm_round_seconds": sh_warm.round_seconds, "bisect": out, "bisect_ms": bisect_ms,
             "collective_ms": collective_ms(device, len(queries), planner.local_width(
                 store.num_blocks), 1),
             "digest": wave_digest(sh), "launches": launches}
+
+
+def sharded_bisect_ms(planner, rows, needs, rpb: int, device: str) -> dict:
+    """One batched θ-bisection of the wave (``bisect_stats_wave``: a launch
+    a round and one more, a collective a round) beside the same loop on the
+    plain round (the step-by-step tensor operations of the path it
+    replaced), each on the card, by host clock (ends synchronised) and by
+    CUDA events.  Both loops are run once more keeping each round's
+    all-reduced statistics: per row, counts exact and sums within ``rtol``
+    in every round until the rounds' ``recsum·rpb >= k`` tests part; θ and
+    the count equal unless they part, where the parting test must lie
+    within ``rtol`` of k (a boundary case, counted)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.sharded import shard_density_maps
+    from repro_torch.kernels.theta_stats import (
+        bisect_carry, bisect_round_batch, bisect_round_batch_plain,
+    )
+
+    local = shard_density_maps(rows, planner.sg.group)
+    ks = torch.as_tensor(needs, dtype=torch.float32, device=local.device)
+
+    def loop(round_fn, trace=None):
+        c = bisect_carry(local.shape[0], BISECT_FANOUT, local.device)
+        for r in range(BISECT_ROUNDS):
+            c = round_fn(local, ks, rpb, c, first=r == 0)
+            dist.all_reduce(c.stats, group=planner.sg.group)
+            if trace is not None:
+                trace.append(c.stats.clone())
+        c = round_fn(local, ks, rpb, c, first=False, stats=False)
+        return c.lo, c.n_sel, c.exp
+
+    kt, pt = [], []
+    (klo, kn, kexp), (plo, pn, pexp) = loop(bisect_round_batch, kt), \
+        loop(bisect_round_batch_plain, pt)
+    out = {"equal": 0, "boundary": 0}
+    k_h = needs.astype(np.float32)
+    for i in range(local.shape[0]):
+        part = None
+        for r, (a, b) in enumerate(zip(kt, pt)):
+            ca, sa = a[i, :BISECT_FANOUT], a[i, BISECT_FANOUT:]
+            cb, sb = b[i, :BISECT_FANOUT], b[i, BISECT_FANOUT:]
+            oka, okb = sa * rpb >= float(k_h[i]), sb * rpb >= float(k_h[i])
+            if not torch.equal(oka, okb):
+                diff = (oka != okb).nonzero()[:, 0]
+                if not bool(((sb[diff] * rpb - float(k_h[i])).abs()
+                             <= RTOL * float(k_h[i])).all()):
+                    raise AssertionError(f"row {i}: round {r}'s tests part away from k")
+                part = r
+                break
+            if not (torch.equal(ca, cb) and torch.allclose(sa, sb, rtol=RTOL, atol=0.0)):
+                raise AssertionError(f"row {i}: round {r}'s statistics differ from the plain "
+                                     "round's")
+        if part is not None:
+            out["boundary"] += 1
+            continue
+        if float(klo[i]) != float(plo[i]) or int(kn[i]) != int(pn[i]) or \
+                abs(float(kexp[i]) - float(pexp[i])) > RTOL * abs(float(pexp[i])):
+            raise AssertionError(f"row {i}: θ {float(klo[i])} / {int(kn[i])} blocks vs the "
+                                 f"plain rounds' {float(plo[i])} / {int(pn[i])}")
+        out["equal"] += 1
+
+    def kernel():
+        return planner.bisect_stats_wave(rows, needs)
+
+    def plain():
+        return loop(bisect_round_batch_plain)
+
+    out.update({"host_ms": host_ms(kernel, device), "plain_host_ms": host_ms(plain, device)})
+    if device == "cuda":  # CUDA events need the card
+        out.update({"event_ms": time_ms(kernel), "plain_event_ms": time_ms(plain)})
+    return out
 
 
 def launch_ranks(records: int, seed: int, world: int, device: str = "cuda",
@@ -892,15 +986,18 @@ def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict
     from repro_torch.core.threshold import threshold_sort_batch
     from repro_torch.core.sharded import local_width
     from repro_torch.kernels.density_combine import (
-        density_combine, density_combine_batch, density_combine_batch_plain,
-        density_combine_batch_sharded, density_combine_plain, exclusion_ids, combine_single,
+        combine_single, density_combine, density_combine_batch, density_combine_batch_plain,
+        density_combine_batch_sharded, density_combine_plain, density_combine_wave,
+        density_combine_wave_plain, density_combine_wave_sharded, exclusion_csr, exclusion_ids,
     )
     from repro_torch.kernels.ops import bisect_rounds
     from repro_torch.kernels.plan_wave import (
-        THETA_FANOUT, block_gather, block_gather_plain, plan_wave_from_combined,
+        block_gather, block_gather_plain, plan_wave_from_combined,
     )
     from repro_torch.kernels.theta_stats import (
-        theta_stats, theta_stats_batch, theta_stats_batch_plain, theta_stats_plain,
+        BisectCarry, bisect_carry, bisect_round_batch, bisect_round_batch_plain, theta_stats,
+        theta_stats_batch, theta_stats_batch_plain, theta_stats_plain, theta_wave,
+        theta_wave_plain,
     )
     from repro_torch.kernels.window_scan import SMEM_MAX_N, prefix_sum, prefix_sum_plain
 
@@ -974,56 +1071,118 @@ def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict
         gamma=g, without_exclusion=no_excl, exclusion=exclusion,
     )
 
-    # batched ⊕-combine: the wave's [64, γ<=3] row matrix, both ops checked, AND timed
+    # batched ⊕-combine (#2): the wave's [64, γ<=3] row matrix from the host
+    # (ops and ids by value in the launch), every row AND, every row OR, each
+    # query's own op (the wave's mix) and the mix with exclusions (even
+    # queries exclude the blocks they fetched, odd ones none), each bit for
+    # bit its plain version, and with device ids; every row AND timed,
+    # the mix and the mix with exclusions beside it and beside the paths they
+    # replaced (per op group the ids copied to the card, a launch and a
+    # scatter into the wave's rows; then a [Q, λ] bool mask copied and a
+    # where), by CUDA events and by host clock
+    nq = len(queries)
     rm_np = pack_row_matrix(store.index.vocab, [q.predicates for q in queries])
-    rm = torch.from_numpy(rm_np).to(dev)
-    for op in ("and", "or"):
-        k_out = density_combine_batch(dens, rm, op)
-        p_out = density_combine_batch_plain(dens, rm, op)
-        if not torch.equal(k_out, p_out):
-            raise AssertionError(f"density_combine_batch ({op}) differs from its plain version")
+    rmh = torch.from_numpy(rm_np)
+    rm = rmh.to(dev)
+    wave_ops = [q.op for q in queries]
+    excludes = [np.asarray(r.blocks_fetched, np.int64) if i % 2 == 0 else np.zeros(0, np.int64)
+                for i, r in enumerate(batch.results)]
+    csr = exclusion_csr(excludes, lam)
+
+    def plain_wave(d, ops, ex=None):
+        is_or = torch.tensor([o == "or" for o in ops], device=dev)
+        return density_combine_wave_plain(
+            d, rm, is_or, None if ex is None else torch.from_numpy(exclusion_csr(ex, lam)).to(dev))
+
+    cases = {"and": (["and"] * nq, None), "or": (["or"] * nq, None), "mixed": (wave_ops, None),
+             "mixed_excluded": (wave_ops, excludes)}
+    for what, (ops, ex) in cases.items():
+        want = plain_wave(dens, ops, ex)
+        for ids in (rmh, rm):
+            if ids is rm and ex is not None:
+                continue
+            if not torch.equal(density_combine_wave(dens, ids, ops, ex), want):
+                raise AssertionError(f"density_combine_batch ({what}) differs from its plain "
+                                     "version")
+    def old_path(exclude=False):  # per op group: ids copied, a launch, a scatter
+        out = torch.empty((nq, lam), dtype=torch.float32, device=dev)
+        for op in ("and", "or"):
+            js = [j for j, o in enumerate(wave_ops) if o == op]
+            rows_g = torch.from_numpy(rm_np[js]).to(dev)
+            out[torch.as_tensor(js, device=dev)] = density_combine_batch(dens, rows_g, op)
+        if exclude:  # the [Q, λ] bool mask built on the host, copied, applied
+            excl_mask = np.zeros((nq, lam), dtype=bool)
+            for i, ex in enumerate(excludes):
+                if ex.size:
+                    excl_mask[i, ex] = True
+            out = torch.where(torch.from_numpy(excl_mask).to(dev), 0.0, out)
+        return out
+
+    if not torch.equal(old_path(True), density_combine_wave(dens, rmh, wave_ops, excludes)):
+        raise AssertionError("density_combine_batch's wave differs from the per-op-group path")
     rmc, valid = rm.long().clamp(min=0), (rm >= 0)[..., None]
     n_rows = int(np.unique(rm_np[rm_np >= 0]).size)
+    n_terms = int((rm_np >= 0).sum())
+    n_ex = int(csr.size - nq - 1)
+    wave_bytes = (n_rows * lam + nq * lam) * 4
+    b_ex, by_ex = bound_ms(wave_bytes + csr.size * 4, float(n_terms * lam))
+    mixed = {
+        "ms": time_ms(lambda: density_combine_wave(dens, rmh, wave_ops)),
+        "old_path_ms": time_ms(old_path),
+        "host_ms": host_ms(lambda: density_combine_wave(dens, rmh, wave_ops), dev),
+        "old_path_host_ms": host_ms(old_path, dev), "or_rows": wave_ops.count("or")}
+    excluded = {
+        "excluded": n_ex,
+        "ms": time_ms(lambda: density_combine_wave(dens, rmh, wave_ops, excludes)),
+        "old_path_ms": time_ms(lambda: old_path(True)),
+        "host_ms": host_ms(lambda: density_combine_wave(dens, rmh, wave_ops, excludes), dev),
+        "old_path_host_ms": host_ms(lambda: old_path(True), dev),
+        "bound_ms": b_ex, "bound_by": by_ex}
+    log(f"kernel density_combine_batch: mixed wave {mixed}; with exclusions {excluded}")
     entry(
         "density_combine_batch", 0.0,
-        time_ms(lambda: density_combine_batch(dens, rm, "and")),
+        time_ms(lambda: density_combine_batch(dens, rmh, "and")),
         time_ms(lambda: density_combine_batch_plain(dens, rm, "and")),
         time_ms(lambda: torch.prod(torch.where(valid, dens[rmc], 1.0), dim=1)),
-        (n_rows * lam + Q * lam) * 4 + rm.numel() * 4,
-        float(int((rm_np >= 0).sum()) * lam),
+        wave_bytes + rm.numel() * 4, float(n_terms * lam),
+        mixed=mixed, mixed_excluded=excluded,
     )
 
     # sharded ⊕-combine (#3): #2's kernel on one rank's λ-shard of the index,
-    # at P = 4 (rank 0's slab, timed) and P = 1; each equal bit for bit to its
-    # plain version and to those columns of the whole index's combine
-    full = {op: density_combine_batch(dens, rm, op) for op in ("and", "or")}
+    # at P = 4 (rank 0's slab, timed) and P = 1, with host ids as the wave
+    # passes them; each op and the mix equal bit for bit to the plain version
+    # and to those columns of the whole index's combine
+    full = {what: density_combine_wave(dens, rmh, ops) for what, (ops, _) in cases.items()
+            if what != "mixed_excluded"}
     slabs = {}
     for p in (SHARDS, 1):
         w = local_width(lam, p)
         slab = dens[:, :w].contiguous()
-        for op in ("and", "or"):
-            k_out = density_combine_batch_sharded(slab, rm, None, op)
-            if not torch.equal(k_out, density_combine_batch_plain(slab, rm, op)):
-                raise AssertionError(f"density_combine_batch_sharded ({op}, P={p}) differs "
+        for what, want in full.items():
+            ops = cases[what][0]
+            k_out = density_combine_wave_sharded(slab, rmh, ops)
+            if not torch.equal(k_out, plain_wave(slab, ops)):
+                raise AssertionError(f"density_combine_batch_sharded ({what}, P={p}) differs "
                                      "from its plain version")
-            if not torch.equal(k_out, full[op][:, :w]):
-                raise AssertionError(f"density_combine_batch_sharded ({op}, P={p}) differs "
+            if not torch.equal(k_out, want[:, :w]):
+                raise AssertionError(f"density_combine_batch_sharded ({what}, P={p}) differs "
                                      "from the whole index's combine")
         slabs[p] = slab
     w, slab = local_width(lam, SHARDS), slabs[SHARDS]
-    b1, by1 = bound_ms((n_rows * lam + Q * lam) * 4 + rm.numel() * 4,
-                       float(int((rm_np >= 0).sum()) * lam))
+    b1, by1 = bound_ms(wave_bytes + rm.numel() * 4, float(n_terms * lam))
     p1 = {"shape": [int(dens.shape[0]), lam],
-          "ms": time_ms(lambda: density_combine_batch_sharded(slabs[1], rm, None, "and")),
+          "ms": time_ms(lambda: density_combine_batch_sharded(slabs[1], rmh, None, "and")),
+          "mixed_ms": time_ms(lambda: density_combine_wave_sharded(slabs[1], rmh, wave_ops)),
           "bound_ms": b1, "bound_by": by1}
     entry(
         "density_combine_batch_sharded", 0.0,
-        time_ms(lambda: density_combine_batch_sharded(slab, rm, None, "and")),
+        time_ms(lambda: density_combine_batch_sharded(slab, rmh, None, "and")),
         time_ms(lambda: density_combine_batch_plain(slab, rm, "and")),
         time_ms(lambda: torch.prod(torch.where(valid, slab[rmc], 1.0), dim=1)),
-        (n_rows * w + Q * w) * 4 + rm.numel() * 4,
-        float(int((rm_np >= 0).sum()) * w),
+        (n_rows * w + nq * w) * 4 + rm.numel() * 4,
+        float(n_terms * w),
         shape=[int(dens.shape[0]), w], shards=SHARDS, p1=p1,
+        mixed_ms=time_ms(lambda: density_combine_wave_sharded(slab, rmh, wave_ops)),
     )
 
     # single-row θ-stats (#4): one whole bisection of query 0's row, as the
@@ -1065,28 +1224,75 @@ def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict
         host_ms=host_ms(lambda: bisect_rounds(rows[0], k0, rpb), dev),
     )
 
-    # batched θ-stats: round 0's masked rows and thresholds θ, 2θ, ..., 8θ
-    combined = density_combine_batch(dens, rm, "and")
+    # batched θ-stats (#5): the wave round (T = 1) on round 0's rows as the
+    # device wave runs it (θ from the cut, then theta_count and expected);
+    # eight given thresholds θ, 2θ, ..., 8θ (what the round took before);
+    # one round of the sharded bisection (T = 16) on the P = 1 slab (the
+    # sharded phase's) and rank 0's P = 4 slab, from round 0's carry: each
+    # held against its plain version (θ, carries and counts exact, sums
+    # within rtol)
     needs = torch.tensor([float(q.k) for q in queries], device=dev)
-    excl = torch.zeros_like(combined, dtype=torch.bool)
-    plan = plan_wave_from_combined(combined, excl, needs, rpb)
+    plan = plan_wave_from_combined(rows, torch.zeros_like(rows, dtype=torch.bool), needs, rpb)
     if not bool((plan.theta_count >= plan.n_sel.float()).all()):
         raise AssertionError("θ invariant broken: fewer blocks clear θ than the prefix holds")
-    steps = 1.0 + torch.arange(THETA_FANOUT, dtype=torch.float32, device=dev)
-    thetas = (plan.theta[:, None] * steps[None, :]).contiguous()
-    kc, ks = theta_stats_batch(combined, thetas)
-    pc, ps = theta_stats_batch_plain(combined, thetas)
+    sd, n_sel = threshold_sort_batch(rows)[1], plan.n_sel
+    kw, pw = theta_wave(rows, sd, n_sel, rpb), theta_wave_plain(rows, sd, n_sel, rpb)
+    if not (torch.equal(kw[0], pw[0]) and torch.equal(kw[1], pw[1])):
+        raise AssertionError("theta_wave's θ or counts differ from the plain version")
+    if not torch.allclose(kw[2], pw[2], rtol=RTOL, atol=0.0):
+        raise AssertionError("theta_wave's expected records differ beyond rtol=1e-5")
+    wave_err = float((kw[2] - pw[2]).abs().max())
+    mult = torch.arange(1, 9, dtype=torch.float32, device=dev)
+    thetas = (plan.theta[:, None] * mult).contiguous()
+    kc, ks = theta_stats_batch(rows, thetas)
+    pc, ps = theta_stats_batch_plain(rows, thetas)
     if not torch.equal(kc, pc):
         raise AssertionError("theta_stats_batch counts differ from the plain version")
     if not torch.allclose(ks, ps, rtol=RTOL, atol=0.0):
         raise AssertionError("theta_stats_batch sums differ beyond rtol=1e-5")
+    b8, by8 = bound_ms((nq * lam + 3 * nq * 8) * 4, float(2 * nq * 8 * lam))
+    given = {"T": 8, "ms": time_ms(lambda: theta_stats_batch(rows, thetas)),
+             "plain_ms": time_ms(lambda: theta_stats_batch_plain(rows, thetas)),
+             "max_abs_err": float((ks - ps).abs().max()), "bound_ms": b8, "bound_by": by8}
+
+    def clone(c):
+        return BisectCarry(*(t.clone() for t in c))
+
+    TB = BISECT_FANOUT
+    bis = {}
+    for p in (1, SHARDS):
+        x = rows[:, :local_width(lam, p)].contiguous()
+        c0 = bisect_round_batch(x, needs, rpb, bisect_carry(nq, TB, dev), first=True)
+        p0 = bisect_round_batch_plain(x, needs, rpb, c0, first=True)
+        c1 = bisect_round_batch(x, needs, rpb, clone(c0), first=False)
+        p1_ = bisect_round_batch_plain(x, needs, rpb, clone(c0), first=False)
+        for r, (kc_, pc_) in enumerate(((c0, p0), (c1, p1_))):
+            if not all(torch.equal(a_, b_) for a_, b_ in zip(kc_[:4], pc_[:4])):
+                raise AssertionError(f"bisect_round_batch (P={p}, round {r}): the carry "
+                                     "differs from the plain version's")
+            if not torch.equal(kc_.stats[:, :TB], pc_.stats[:, :TB]):
+                raise AssertionError(f"bisect_round_batch (P={p}, round {r}): counts differ")
+            if not torch.allclose(kc_.stats[:, TB:], pc_.stats[:, TB:], rtol=RTOL, atol=0.0):
+                raise AssertionError(f"bisect_round_batch (P={p}, round {r}): sums differ "
+                                     "beyond rtol=1e-5")
+        scratch = clone(c0)
+        wl = x.shape[1]
+        bb, byb = bound_ms((nq * wl + 4 * nq * TB + 9 * nq) * 4, float(2 * TB * nq * wl))
+        bis[p] = {"shape": [nq, wl], "T": TB,
+                  "ms": time_ms(lambda: bisect_round_batch(x, needs, rpb, scratch, first=False)),
+                  "plain_ms": time_ms(lambda: bisect_round_batch_plain(x, needs, rpb, c0,
+                                                                       first=False)),
+                  "max_abs_err": float((c1.stats - p1_.stats).abs().max()),
+                  "bound_ms": bb, "bound_by": byb}
+    log(f"kernel theta_stats_batch: 8 thresholds given {given}; one sharded "
+        f"bisection round {bis}")
     entry(
-        "theta_stats_batch", float((ks - ps).abs().max()),
-        time_ms(lambda: theta_stats_batch(combined, thetas)),
-        time_ms(lambda: theta_stats_batch_plain(combined, thetas)),
+        "theta_stats_batch", wave_err,
+        time_ms(lambda: theta_wave(rows, sd, n_sel, rpb)),
+        time_ms(lambda: theta_wave_plain(rows, sd, n_sel, rpb)),
         None,
-        (Q * lam + 3 * Q * THETA_FANOUT) * 4,
-        float(2 * Q * THETA_FANOUT * lam),
+        (nq * lam + 5 * nq) * 4, float(2 * nq * lam),
+        T=1, given_T8=given, bisect_round=bis,
     )
 
     # prefix scan: bit for bit at lengths across the chunk edges and at the
@@ -1141,7 +1347,8 @@ def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict
         0.0,
     )
     log(f"kernel shapes: Q={Q} λ={lam} γ_max={rm_np.shape[1]} rows={n_rows} "
-        f"T={THETA_FANOUT} (single {T}) U={ids.numel()} R={rpb} d={store.dims.shape[2]}")
+        f"T=1 (wave), 8 (given), {BISECT_FANOUT} (sharded bisection; single {T}) "
+        f"U={ids.numel()} R={rpb} d={store.dims.shape[2]}")
     return [entries[name] for name in KERNELS if name not in LM_KERNELS]
 
 
@@ -1166,6 +1373,22 @@ def check_launches(launches: dict, want: dict, what: str) -> None:
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+@contextlib.contextmanager
+def count_calls(module, name: str):
+    """Count the calls of ``module.name`` inside the block (``{"calls": n}``)."""
+    fn, seen = getattr(module, name), {"calls": 0}
+
+    def counted(*args, **kwargs):
+        seen["calls"] += 1
+        return fn(*args, **kwargs)
+
+    setattr(module, name, counted)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
 
 
 def check_close(a, b, atol: float, rtol: float, what: str, scale: str = "element") -> float:
@@ -1668,6 +1891,7 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core import multi_query
     from repro_torch.core.engine import NeedleTailEngine
     from repro_torch.data.block_store import build_block_store
     from repro_torch.data.synthetic import make_real_like_table
@@ -1684,11 +1908,12 @@ def main(argv=None) -> int:
     ptxas = ptxas_report((_lib.BUILD_DIR / "build.log").read_text())
     for line in ptxas:
         log(f"  {line}")
-    redesigned = {name: next((ln for ln in ptxas if ln.startswith(f"{kern}:")), None)
-                  for name, kern in NEW_KERNELS.items()}
-    for name, line in redesigned.items():
-        if line is None or "0 bytes spill stores, 0 bytes spill loads" not in line:
-            raise AssertionError(f"{name}: ptxas reports spills or no kernel: {line}")
+    redesigned = {name: [next((ln for ln in ptxas if ln.startswith(f"{kern}:")), None)
+                         for kern in kerns] for name, kerns in NEW_KERNELS.items()}
+    for name, lines in redesigned.items():
+        for line in lines:
+            if line is None or "0 bytes spill stores, 0 bytes spill loads" not in line:
+                raise AssertionError(f"{name}: ptxas reports spills or no kernel: {line}")
 
     t0 = time.perf_counter()
     table = make_real_like_table("airline", num_records=args.records, seed=args.seed)
@@ -1729,6 +1954,10 @@ def main(argv=None) -> int:
     log(f"wave round seconds: {batch.round_seconds}; warm {warm.round_seconds}")
     if not batch.device_transfers <= batch.rounds + 1:
         raise AssertionError("more than one plan transfer per round")
+    # one combine a wave whatever its ops, one θ-round a planning round
+    want = {"density_combine_batch": 1, "theta_stats_batch": batch.device_transfers}
+    check_launches(phase_launches["wave"], want, "wave")
+    log(f"wave launch counts as expected: {want}")
     reasons = check_records(table, store, queries, batch, engine.max_refills)
     log(f"records re-checked on the host table; short of k: {reasons}")
 
@@ -1743,8 +1972,13 @@ def main(argv=None) -> int:
 
     # -- 5. host-mirror: the reference's default loop on a fresh engine
     host_engine = NeedleTailEngine(store, device="cuda")
-    host, host_wall, phase_launches["host_mirror"] = run_phase(
-        "host_mirror", lambda: host_engine.any_k_batch(queries, device=False))
+    with count_calls(multi_query, "_combined_matrix") as combines:
+        host, host_wall, phase_launches["host_mirror"] = run_phase(
+            "host_mirror", lambda: host_engine.any_k_batch(queries, device=False))
+    # one combine launch per planned (round, algorithm) group, whatever its ops
+    want = {"density_combine_batch": combines["calls"]}
+    check_launches(phase_launches["host_mirror"], want, "host_mirror")
+    log(f"host_mirror launch counts as expected: {want}")
     compare_waves(batch, host)
     same = (host.rounds, host.store_blocks_fetched, host.cache_hits) == \
         (batch.rounds, batch.store_blocks_fetched, batch.cache_hits)
@@ -1818,7 +2052,8 @@ def main(argv=None) -> int:
     log(f"sharded (NCCL, P=1): wave {sh['walls']['cold']} s cold (round seconds "
         f"{sh['round_seconds']}), {sh['walls']['warm']} s warm ({sh['warm_round_seconds']}), "
         f"host mirror {sh['walls']['host_mirror']} s; transfers {sh['transfers']}; frontier "
-        f"all_gather {sh['collective_ms']} ms; bisect_stats_wave vs threshold_bisect "
+        f"all_gather {sh['collective_ms']} ms; bisect_stats_wave vs the plain rounds "
+        f"{sh['bisect_ms']}; bisect_stats_wave vs threshold_bisect "
         f"{sh['bisect']}; each wave == the unsharded wave's, counters included")
 
     # -- 9. sharded_ranks: P = 4 ranks on the one card, each with its own table
@@ -1834,6 +2069,8 @@ def main(argv=None) -> int:
         missing = [k for k in PHASE_KERNELS["sharded_ranks"] if r["launches"][k] == 0]
         if missing or r["shards"] != SHARDS:
             raise AssertionError(f"rank {r['rank']}: {r['shards']} shards, launched no {missing}")
+        # one combine of the rank's slab a wave, whatever its ops
+        check_launches(r["launches"], {"density_combine_batch_sharded": 1}, f"rank {r['rank']}")
     phase_launches["sharded_ranks"] = ranks[0]["launches"]
     for line in ranks[0]["profile"]:
         log(line)

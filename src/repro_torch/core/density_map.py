@@ -12,7 +12,9 @@ then moves it to the requested device.  The §3.2 ⊕-combine of a query's
 rows runs on the index's device: :func:`combine_densities` for one query
 (the ``density_combine`` kernel on CUDA, its row ids passed by value and the
 planner's exclusion fused in), :func:`combine_densities_batch` for a
-``[Q, γ_max]`` row matrix (``density_combine_batch``).
+``[Q, γ_max]`` row matrix and :func:`combine_densities_wave` for a wave
+with an op per query and, optionally, per-query exclusions (one
+``density_combine_batch`` launch).
 """
 from __future__ import annotations
 
@@ -23,7 +25,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.density_combine import density_combine, density_combine_batch
+from repro_torch.kernels.density_combine import (
+    density_combine, density_combine_batch, density_combine_wave,
+)
 
 AND = "and"
 OR = "or"
@@ -122,15 +126,6 @@ def pack_row_matrix(vocab: PredicateVocab, predicate_lists) -> np.ndarray:
     return out
 
 
-def _upload_rows(densities: torch.Tensor, rows: np.ndarray) -> torch.Tensor:
-    """Range-check host row ids (``-1`` is the padding slot) and move them
-    to ``densities``' device, so no bad id reaches a kernel."""
-    rows = np.asarray(rows, dtype=np.int32)
-    if rows.size and (rows.min() < PAD_ROW or rows.max() >= densities.shape[0]):
-        raise IndexError(f"row ids out of range [-1, {densities.shape[0]})")
-    return torch.from_numpy(rows).to(densities.device)
-
-
 def combine_densities(densities: torch.Tensor, rows, op: str = AND,
                       exclude=None) -> torch.Tensor:
     """Paper §3.2 for one query: the ``[λ]`` density of the conjunction
@@ -150,5 +145,17 @@ def combine_densities_batch(
 ) -> torch.Tensor:
     """Batched §3.2 combine: a host ``[Q, γ_max]`` row matrix padded with
     :data:`PAD_ROW` -> ``[Q, λ]`` on ``densities``' device, each row
-    bit-identical to its single-query combine."""
-    return density_combine_batch(densities, _upload_rows(densities, row_matrix), op)
+    bit-identical to its single-query combine.  The ids are range-checked
+    on the host and, on CUDA, travel in the launch parameters."""
+    return density_combine_batch(densities, torch.from_numpy(np.asarray(row_matrix, np.int32)),
+                                 op)
+
+
+def combine_densities_wave(densities: torch.Tensor, row_matrix: np.ndarray, ops,
+                           exclude=None) -> torch.Tensor:
+    """:func:`combine_densities_batch` with an op per query (``ops[q]``, AND
+    or OR) and, optionally, each query's excluded blocks (``exclude[q]``,
+    host ids) set to +0.0: one ``density_combine_batch`` launch on CUDA,
+    whatever the wave's ops."""
+    return density_combine_wave(densities, torch.from_numpy(np.asarray(row_matrix, np.int32)),
+                                ops, exclude)

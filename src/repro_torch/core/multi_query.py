@@ -4,8 +4,9 @@ Counterpart of ``repro/core/multi_query.py``.  Q concurrent
 ``(predicates, k)`` queries are evaluated as one unit:
 
 1. **One combine** — the wave's predicate rows are ⊕-combined into a
-   ``[Q, λ]`` matrix on the device (:func:`repro_torch.core.density_map.
-   combine_densities_batch`, the ``density_combine_batch`` kernel).
+   ``[Q, λ]`` matrix on the device, each under its query's op
+   (:func:`repro_torch.core.density_map.combine_densities_wave`, one launch
+   of the ``density_combine_batch`` kernel).
 2. **Plan rounds**, in one of two loops:
 
    * the **device wave** (``run_batch(plan_on_host=False)``): a
@@ -58,7 +59,7 @@ from typing import TYPE_CHECKING, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.density_map import AND, OR, combine_densities_batch, pack_row_matrix
+from repro_torch.core.density_map import AND, OR, combine_densities_wave, pack_row_matrix
 from repro_torch.core.threshold import threshold_cut, threshold_sort_batch
 from repro_torch.core.two_prong import two_prong_select_batch
 from repro_torch.kernels.plan_wave import (
@@ -297,24 +298,18 @@ class DeviceWave:
         return st
 
     def _flush_joins(self) -> None:
-        """One ⊕-combine per op group for the queued joiners (#2, or #3 on
-        this rank's λ-shard with a sharded planner), then one scatter seats
-        them all."""
+        """One ⊕-combine for the queued joiners, each row under its own op
+        (#2, or #3 on this rank's λ-shard with a sharded planner), then one
+        scatter seats them all."""
         if not self._joining:
             return
         joining, self._joining = self._joining, []
         dev = self.engine.device
         dens = self.engine.store.index.densities
-        vocab = self.engine.store.index.vocab
-        combine = combine_densities_batch if self.planner is None else self.planner.combine_wave
-        rows = torch.empty((len(joining), self.state.combined0.shape[1]),
-                           dtype=torch.float32, device=dev)
-        groups: dict[str, list[int]] = {}
-        for j, slot in enumerate(joining):
-            groups.setdefault(self.slots[slot].query.op, []).append(j)
-        for op, js in groups.items():
-            rm = pack_row_matrix(vocab, [self.slots[joining[j]].query.predicates for j in js])
-            rows[torch.as_tensor(js, device=dev)] = combine(dens, rm, op)
+        queries = [self.slots[slot].query for slot in joining]
+        rm = pack_row_matrix(self.engine.store.index.vocab, [q.predicates for q in queries])
+        combine = combine_densities_wave if self.planner is None else self.planner.combine_wave
+        rows = combine(dens, rm, [q.op for q in queries])
         excl_rows = np.zeros((len(joining), self.lam), dtype=bool)
         for j, slot in enumerate(joining):
             ex = self.slots[slot].exclude
@@ -537,24 +532,11 @@ def _device_plan_loop(
 
 def _combined_matrix(engine: "NeedleTailEngine", states: list[_QueryState]) -> torch.Tensor:
     """``[Qa, λ]`` combined densities on the engine's device, exclusions
-    applied: one ``density_combine_batch`` launch per ⊕ group."""
-    lam = engine.store.num_blocks
-    dens = engine.store.index.densities
-    out = torch.empty((len(states), lam), dtype=torch.float32, device=engine.device)
-    groups: dict[str, list[int]] = {}
-    for i, st in enumerate(states):
-        groups.setdefault(st.query.op, []).append(i)
-    vocab = engine.store.index.vocab
-    for op, idxs in groups.items():
-        rm = pack_row_matrix(vocab, [states[i].query.predicates for i in idxs])
-        out[torch.as_tensor(idxs, device=engine.device)] = combine_densities_batch(dens, rm, op)
-    excl = np.zeros((len(states), lam), dtype=bool)
-    for i, st in enumerate(states):
-        if st.exclude.size:
-            excl[i, st.exclude] = True
-    if excl.any():
-        out = torch.where(torch.from_numpy(excl).to(engine.device), 0.0, out)
-    return out
+    applied: one ``density_combine_batch`` launch, whatever the ⊕ ops, with
+    each query's excluded blocks zeroed in it."""
+    rm = pack_row_matrix(engine.store.index.vocab, [st.query.predicates for st in states])
+    return combine_densities_wave(engine.store.index.densities, rm,
+                                  [st.query.op for st in states], [st.exclude for st in states])
 
 
 def _plan_wave(

@@ -25,8 +25,9 @@ hits) and the next collective cannot deadlock.
   is exact and equal to the single-device TWO-PRONG.
 * :func:`sharded_threshold_bisect` / :func:`sharded_threshold_bisect_batch`
   — sort-free θ-bisection: per round each rank takes masked ``[Q, fanout]``
-  statistics with :func:`repro_torch.kernels.theta_stats.theta_stats_batch`
-  (#5 on the card) and one ``all_reduce`` merges them.
+  statistics with :func:`repro_torch.kernels.theta_stats.bisect_round_batch`
+  (#5 on the card, one launch a round with the previous round's bracket
+  step) and one ``all_reduce`` merges them.
 * :func:`sharded_ht_terms` — the global Horvitz-Thompson terms.
 
 Each planner call runs one collective (a round of the bisection one per
@@ -36,8 +37,8 @@ every rank holds whole.  :class:`DistributedAnyK` wraps them for
 ``run_batch(planner=...)``: its wave methods take the whole ``[Q, λ]`` wave
 (replicated, as the engine's host mirror is) and shard it themselves, and
 its :meth:`~DistributedAnyK.device_round_fn` is the device wave's round,
-whose combine is #3 on the rank's slab
-(:func:`repro_torch.kernels.density_combine.density_combine_batch_sharded`).
+whose combine is #3 on the rank's slab, one launch a wave whatever its ops
+(:func:`repro_torch.kernels.density_combine.density_combine_wave_sharded`).
 
 Left for later slices: the peer-memory tier (``peer_group``,
 ``fetch_remote``), and an interconnect cost preset measured on H100s for
@@ -51,12 +52,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.density_map import _upload_rows
 from repro_torch.core.two_prong import window_search
 from repro_torch.device import resolve_device
-from repro_torch.kernels.density_combine import density_combine_batch_sharded
+from repro_torch.kernels.density_combine import density_combine_wave_sharded
 from repro_torch.kernels.plan_wave import _first_true, apply_chosen, pack_plan
-from repro_torch.kernels.theta_stats import MAX_T, theta_stats_batch
+from repro_torch.kernels.theta_stats import bisect_carry, bisect_round_batch
 from repro_torch.kernels.window_scan import prefix_sum
 
 _PEER_SLICE = ("the peer-memory tier (storage/peer.py) arrives with the peer-tier "
@@ -309,13 +309,6 @@ class ShardedBisectWave(NamedTuple):
     expected_records: torch.Tensor  # [Q] f32
 
 
-def _theta_stats(local: torch.Tensor, ths: torch.Tensor):
-    """#5 over any number of thresholds, ``MAX_T`` per launch."""
-    parts = [theta_stats_batch(local, ths[:, t:t + MAX_T].contiguous())
-             for t in range(0, ths.shape[1], MAX_T)]
-    return torch.cat([c for c, _ in parts], 1), torch.cat([s for _, s in parts], 1)
-
-
 def sharded_threshold_bisect_batch(
     combined_local: torch.Tensor,  # [Q, λ_local]
     ks,
@@ -326,43 +319,29 @@ def sharded_threshold_bisect_batch(
     fanout: int = 16,
 ) -> ShardedBisectWave:
     """Batched distributed θ-bisection: every round each rank takes masked
-    ``[Q, fanout]`` (count, Σdensity) statistics of its slab with
-    :func:`repro_torch.kernels.theta_stats.theta_stats_batch` (#5 on CUDA
-    tensors, its plain version on CPU ones) and one ``all_reduce`` of
-    ``Q·2·fanout`` floats merges them.  Counts are exact; the sums add in
-    another order than the reference's, so θ may differ from its where a
-    threshold's record mass lies within f32 rounding of k."""
+    ``[Q, fanout]`` (count, Σdensity) statistics of its slab and one
+    ``all_reduce`` of ``Q·2·fanout`` floats merges them.  A round is one
+    call of :func:`repro_torch.kernels.theta_stats.bisect_round_batch`
+    (#5 on CUDA tensors: one launch that applies the previous round's
+    bracket step and takes this round's statistics into the buffer the
+    all-reduce takes; its plain version on CPU ones), and one more call
+    applies the last step: ``rounds + 1`` launches and ``rounds``
+    collectives.  Counts are exact; the sums add in another order than the
+    reference's, so θ may differ from its where a threshold's record mass
+    lies within f32 rounding of k."""
     sg = shard_group(mesh, axis)
     nq = combined_local.shape[0]
     dev = combined_local.device
     ks = _ks(ks, nq, dev)
-    lo = torch.zeros((nq,), dtype=torch.float32, device=dev)
-    hi = torch.full((nq,), 1.0 + 1e-6, dtype=torch.float32, device=dev)
-    n_sel = torch.zeros((nq,), dtype=torch.int32, device=dev)
-    exp = torch.zeros((nq,), dtype=torch.float32, device=dev)
-    # a tensor divisor: CUDA divides by a Python number as a multiply by
-    # its reciprocal, which rounds otherwise for most fanouts
-    steps = ((torch.arange(fanout, dtype=torch.float32, device=dev) + 1.0)
-             / torch.tensor(float(fanout), device=dev))
-    pos = torch.arange(fanout, device=dev)[None, :]
-
-    def take(a, idx):
-        return torch.gather(a, 1, idx[:, None])[:, 0]
-
-    for _ in range(rounds):
-        ths = lo[:, None] + (hi - lo)[:, None] * steps[None, :]  # [Q, T]
-        stats = _all_reduce_sum(torch.cat(_theta_stats(combined_local, ths), dim=1), sg)
-        counts, recsum = stats[:, :fanout], stats[:, fanout:]
-        ok = recsum * records_per_block >= ks[:, None]
-        any_ok = ok.any(dim=1)
-        idx = torch.where(any_ok, torch.where(ok, pos, -1).max(dim=1).values, 0)
-        n_sel = torch.where(any_ok, take(counts, idx), n_sel.float()).to(torch.int32)
-        exp = torch.where(any_ok, take(recsum, idx) * records_per_block, exp)
-        th_at = take(ths, idx)
-        th_next = take(ths, (idx + 1).clamp(max=fanout - 1))
-        new_hi = torch.where(any_ok & (idx < fanout - 1), th_next, hi)
-        lo, hi = torch.where(any_ok, th_at, lo), torch.where(any_ok, new_hi, ths[:, 0])
-    return ShardedBisectWave(theta=lo, num_selected=n_sel, expected_records=exp)
+    rounds = max(int(rounds), 0)
+    carry = bisect_carry(nq, fanout, dev)
+    for r in range(rounds):
+        carry = bisect_round_batch(combined_local, ks, records_per_block, carry, first=r == 0)
+        dist.all_reduce(carry.stats, op=dist.ReduceOp.SUM, group=sg.group)
+    carry = bisect_round_batch(combined_local, ks, records_per_block, carry, first=rounds == 0,
+                               stats=False)
+    return ShardedBisectWave(theta=carry.lo, num_selected=carry.n_sel,
+                             expected_records=carry.exp)
 
 
 def sharded_threshold_bisect(
@@ -502,12 +481,13 @@ class DistributedAnyK:
         return self._index[1]
 
     def combine_wave(self, densities: torch.Tensor, row_matrix: np.ndarray,
-                     op: str) -> torch.Tensor:
+                     ops) -> torch.Tensor:
         """``[Q, λ_local]``: the wave's ⊕-combine on this rank's slab of the
-        index, #3 (host-checked row ids, as ``combine_densities_batch``)."""
-        rm = _upload_rows(densities, row_matrix)
-        return density_combine_batch_sharded(self.local_index(densities), rm, self.mesh,
-                                             op, self.axis)
+        index, each row under its own op (``ops[q]``): one launch of #3
+        (host-checked row ids, as ``combine_densities_wave``)."""
+        rm = torch.from_numpy(np.asarray(row_matrix, np.int32))
+        return density_combine_wave_sharded(self.local_index(densities), rm, ops, self.mesh,
+                                            self.axis)
 
     # ------------------------------------------------------------ scalar plans
     @staticmethod

@@ -1,6 +1,7 @@
 // Multi-threshold statistics (paper §4.1, the THRESHOLD running threshold
-// θ), for Hopper: a batched kernel (one row per query) and a single-row one
-// that also runs the whole θ-bisection in one launch.
+// θ), for Hopper: a batched kernel (one row per query) that also takes in
+// the small steps around it on both of its paths, and a single-row one that
+// also runs the whole θ-bisection in one launch.
 //
 // Replaces the Pallas kernels theta_stats_batch
 // (src/repro/kernels/theta_stats.py:132, grid (Q, λ-tiles) accumulating into
@@ -12,27 +13,17 @@
 //   counts[q, t] = #{b : x[q, b] >= θ[q, t]}
 //   recsum[q, t] = Σ_{b : x[q, b] >= θ[q, t]} x[q, b]
 //
-// Batched design.  One thread block per query row, so no reduction crosses
-// blocks: a second pass or atomics would make the sum order vary from run
-// to run.  Each thread strides over λ (coalesced loads, bounds-checked, so
-// no -1 pad is needed), keeps T ≤ 8 exact integer counts and f32 partial
-// sums in registers, and the block then reduces them in a fixed order (warp
-// shuffles, then one warp over the per-warp partials).  counts are exact;
-// recsum adds the same terms as the reference in another order, so it
-// agrees to f32 rounding (the tests hold it with rtol=1e-5).
-//
-// Bound on an H100 (3.35 TB/s): the [Q, λ] f32 row matrix read once plus
-// 3·Q·T·4 bytes of thresholds and outputs; 2·T compare-and-adds per element
-// (16·Q·λ operations) are far below the f32 rate, so it is bound by bytes.
-// With Q = 64 blocks the card's 132 SMs are not all busy; at the path's
-// λ ≈ 12k the whole call is a few microseconds either way.
+// counts are exact; recsum adds the same f32 terms as the reference in
+// another (fixed) order, so it agrees to f32 rounding (the tests hold it
+// with rtol=1e-5).  The batched kernel's design is described above
+// theta_batch_kernel, the single-row one's above theta_bisect_kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cooperative_groups.h>
 
-#define NT_THETA_MAX_T 8
-#define NT_THETA_THREADS 256
+#define NT_BATCH_THREADS 256  // a block of the batched kernel's cluster
+#define NT_BATCH_CLUSTER 8    // the most blocks a query row is spread over
 #define NT_BISECT_CLUSTER 8  // blocks a single row is spread over
 #define NT_BISECT_G 16       // thresholds a pass over the slice keeps in registers
 #define NT_BISECT_THREADS 128  // a block of the cluster
@@ -43,67 +34,6 @@
 namespace {
 
 namespace cg = cooperative_groups;
-
-__global__ void theta_stats_batch_kernel(
-    const float* __restrict__ x, int64_t lam,
-    const float* __restrict__ thetas, int64_t T,
-    float* __restrict__ counts, float* __restrict__ recsum) {
-  const int64_t q = blockIdx.x;
-  const float* xq = x + q * lam;
-  float th[NT_THETA_MAX_T];
-  unsigned int cnt[NT_THETA_MAX_T];
-  float sum[NT_THETA_MAX_T];
-#pragma unroll
-  for (int t = 0; t < NT_THETA_MAX_T; ++t) {
-    th[t] = t < T ? thetas[q * T + t] : 0.0f;
-    cnt[t] = 0u;
-    sum[t] = 0.0f;
-  }
-  for (int64_t b = threadIdx.x; b < lam; b += blockDim.x) {
-    const float v = xq[b];
-#pragma unroll
-    for (int t = 0; t < NT_THETA_MAX_T; ++t) {
-      if (v >= th[t]) {
-        cnt[t] += 1u;
-        sum[t] += v;
-      }
-    }
-  }
-  // fixed-order block reduction: shuffle within each warp, then warp 0 over
-  // the per-warp partials
-  __shared__ unsigned int s_cnt[NT_THETA_THREADS / 32][NT_THETA_MAX_T];
-  __shared__ float s_sum[NT_THETA_THREADS / 32][NT_THETA_MAX_T];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int t = 0; t < NT_THETA_MAX_T; ++t) {
-    for (int off = 16; off > 0; off >>= 1) {
-      cnt[t] += __shfl_down_sync(0xffffffffu, cnt[t], off);
-      sum[t] += __shfl_down_sync(0xffffffffu, sum[t], off);
-    }
-    if (lane == 0) {
-      s_cnt[warp][t] = cnt[t];
-      s_sum[warp][t] = sum[t];
-    }
-  }
-  __syncthreads();
-  if (warp == 0) {
-    const int nwarps = blockDim.x >> 5;
-#pragma unroll
-    for (int t = 0; t < NT_THETA_MAX_T; ++t) {
-      unsigned int c = lane < nwarps ? s_cnt[lane][t] : 0u;
-      float s = lane < nwarps ? s_sum[lane][t] : 0.0f;
-      for (int off = 16; off > 0; off >>= 1) {
-        c += __shfl_down_sync(0xffffffffu, c, off);
-        s += __shfl_down_sync(0xffffffffu, s, off);
-      }
-      if (lane == 0 && t < T) {
-        counts[q * T + t] = (float)c;
-        recsum[q * T + t] = s;
-      }
-    }
-  }
-}
 
 // Single row: the θ-bisection of ops.threshold_bisect in one launch, and one
 // round of statistics at given thresholds (theta_stats) on the same kernel.
@@ -311,6 +241,278 @@ int launch_bisect(const BisectParams& p, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// Batched: the statistics of Q rows, and the two paths' steps around them.
+//
+// A row (λ = 12,208 f32 on the path) is spread over one thread block
+// cluster of C blocks, C = 1, 2, 4 or 8 chosen at launch so that Q·C blocks
+// cover the card's SMs (C = 2 at the wave's Q = 64, 8 for a single row).
+// Block r of a row's cluster walks its contiguous slice [r·⌈λ/C⌉, ...)
+// with coalesced loads, keeping G thresholds in registers (G = 16, or 1
+// for the wave round's single θ): exact counts and f32 partial sums.  The
+// block reduces them in a fixed order (the butterfly above for G = 16, a
+// shuffle reduction for G = 1, then its warps in order) and writes its
+// partials into block 0's shared memory (distributed shared memory); after
+// one cluster barrier block 0 adds the C partials in rank order and writes
+// the row's outputs.  No atomics, so the bits are the same every run.
+// Thresholds beyond G take more passes, G at a time, the exchange buffer
+// alternating halves as in the single-row kernel.
+//
+// Three modes, each the f32 operations of its caller in its caller's order
+// (-fmad=false, correctly rounded intrinsics):
+//  GIVEN   thresholds [Q, T] -> counts, recsum [Q, T] (theta_stats_batch).
+//  WAVE    the device wave's round (kernels/plan_wave.py): θ_q is the cut's
+//          last sorted density, sorted[q, n_cut[q] − 1], or 0 without a cut;
+//          the kernel writes θ_q, theta_count[q] = has_cut ? count : 0 and
+//          expected[q] = has_cut ? recsum·rpb : 0.  Only θ_q·1 is taken:
+//          the reference's round reads no other multiple of θ.
+//  BISECT  one launch of the sharded θ-bisection (core/sharded.py): every
+//          block first applies the previous round's bracket step to the
+//          carried lo, hi, n_sel, exp of its row, from that round's
+//          all-reduced [Q, 2T] statistics (counts, then sums):
+//            ths[t] = lo + (hi − lo)·((t + 1) / T)       (a true division)
+//            ok[t] = recsum[t]·rpb >= k; idx = the largest ok t
+//            any ok:  n_sel = counts[idx], exp = recsum[idx]·rpb,
+//                     lo = ths[idx], hi = idx < T − 1 ? ths[idx + 1] : hi
+//            none:    hi = ths[0]
+//          (the first launch starts from lo = 0, hi = hi0, n_sel = exp = 0),
+//          then takes this round's statistics at the new thresholds into the
+//          same [Q, 2T] buffer, which the caller all-reduces; block 0 writes
+//          the new carry.  Every block reads the carry and the statistics
+//          before the cluster barrier and block 0 writes them after it, so
+//          the buffers are updated in place.  A last launch with the
+//          statistics off (C = 1) applies the final step.
+//
+// Bound on an H100 (3.35 TB/s): the [Q, λ] rows read once (4·Q·λ bytes)
+// plus the small inputs and outputs; 2·T compare-and-adds per element are
+// far below the f32 rate at T ≤ 16, so bytes bound it: ~1 µs at the wave's
+// shape, where one launch, its cluster barrier and the fixed-order
+// reductions are what is left.
+enum { MODE_GIVEN = 0, MODE_WAVE = 1, MODE_BISECT = 2 };
+
+struct BatchParams {
+  const float* x;  // [Q, λ] rows
+  int64_t lam;
+  int T, mode;
+  const float* thetas;  // GIVEN: [Q, T]
+  float* counts;        // GIVEN: [Q, T]
+  float* recsum;        // GIVEN: [Q, T]
+  const float* sorted;  // WAVE: [Q, λ] the rows sorted descending
+  const int32_t* n_cut; // WAVE: [Q] the cut's prefix length
+  float* theta;         // WAVE: [Q] θ_q
+  float* theta_count;   // WAVE: [Q]
+  float* expected;      // WAVE: [Q]
+  float rpb;            // WAVE, BISECT: records per block
+  const float* ks;      // BISECT: [Q] record targets
+  float hi0;            // BISECT: the first bracket's top
+  int first, stats;     // BISECT: no step before this launch; statistics on
+  float* lo;            // BISECT: [Q] the carry, in and out
+  float* hi;
+  int32_t* n_sel;
+  float* exp;
+  float* st;            // BISECT: [Q, 2T] in: last round's, out: this round's
+};
+
+// ths[t] of the sharded bisection's bracket [lo, hi) with T steps
+__device__ __forceinline__ float shard_point(float lo, float hi, int t, int T) {
+  return __fadd_rn(lo, __fmul_rn(__fsub_rn(hi, lo), __fdiv_rn((float)(t + 1), (float)T)));
+}
+
+template <int G>
+__global__ void __launch_bounds__(NT_BATCH_THREADS) theta_batch_kernel(const __grid_constant__ BatchParams p) {
+  constexpr int NW = NT_BATCH_THREADS / 32;
+  static_assert(G == 16 || G == 1, "a group is 16 thresholds, or the wave round's one");
+  __shared__ unsigned int x_cnt[2][NT_BATCH_CLUSTER][G];  // every block's partials, in block 0
+  __shared__ float x_sum[2][NT_BATCH_CLUSTER][G];
+  __shared__ unsigned int w_cnt[NW][G];  // per-warp partials
+  __shared__ float w_sum[NW][G];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int64_t q = blockIdx.x / C;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int T = p.T;
+  const int64_t lam = p.lam;
+  const float* xr = p.x + q * lam;
+
+  // the thresholds' inputs, in every thread alike
+  float lo = 0.0f, hi = p.hi0, ex = 0.0f, theta = 0.0f;
+  int ns = 0;
+  bool has_cut = false;
+  if (p.mode == MODE_WAVE) {
+    const int n = p.n_cut[q];
+    has_cut = n > 0;
+    theta = has_cut ? p.sorted[q * lam + n - 1] : 0.0f;
+  } else if (p.mode == MODE_BISECT && !p.first) {
+    // the previous round's bracket step, by every warp from the same inputs
+    lo = p.lo[q];
+    hi = p.hi[q];
+    ns = p.n_sel[q];
+    ex = p.exp[q];
+    const float k = p.ks[q];
+    const float* cq = p.st + q * 2 * T;
+    const float* sq = cq + T;
+    int best = -1;
+    for (int t0 = 0; t0 < T; t0 += 32) {
+      const int t = t0 + lane;
+      const bool ok = t < T && __fmul_rn(sq[t], p.rpb) >= k;
+      const unsigned int m = __ballot_sync(0xffffffffu, ok);
+      if (m) best = t0 + 31 - __clz((int)m);
+    }
+    if (best >= 0) {
+      ns = (int)cq[best];
+      ex = __fmul_rn(sq[best], p.rpb);
+      const float th_at = shard_point(lo, hi, best, T);
+      hi = best < T - 1 ? shard_point(lo, hi, best + 1, T) : hi;
+      lo = th_at;
+    } else {
+      hi = shard_point(lo, hi, 0, T);
+    }
+  }
+  if (p.mode == MODE_BISECT && !p.stats) {  // the last step alone (C = 1)
+    if (tid == 0) {
+      p.lo[q] = lo;
+      p.hi[q] = hi;
+      p.n_sel[q] = ns;
+      p.exp[q] = ex;
+    }
+    return;
+  }
+
+  // no block writes block 0's shared memory before all have started
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int64_t per = (lam + C - 1) / C;
+  const int64_t e0 = min((int64_t)rank * per, lam);
+  const int64_t e1 = min(e0 + per, lam);
+  int buf = 0;
+  for (int g0 = 0; g0 < T; g0 += G) {
+    const int ng = min(G, T - g0);
+    float th[G], sum[G];
+    unsigned int cnt[G];
+#pragma unroll
+    for (int t = 0; t < G; ++t) {
+      const int tt = min(g0 + t, T - 1);
+      th[t] = p.mode == MODE_GIVEN ? p.thetas[q * T + tt]
+            : p.mode == MODE_WAVE  ? theta
+                                   : shard_point(lo, hi, tt, T);
+      cnt[t] = 0u;
+      sum[t] = 0.0f;
+    }
+    for (int64_t i = e0 + tid; i < e1; i += NT_BATCH_THREADS) {
+      const float v = xr[i];
+#pragma unroll
+      for (int t = 0; t < G; ++t) {
+        if (v >= th[t]) {
+          cnt[t] += 1u;
+          sum[t] += v;
+        }
+      }
+    }
+    if constexpr (G == 16) {
+      // lanes 2t and 2t + 1 end with threshold t's warp total
+      butterfly<8>(cnt, sum, lane);
+      butterfly<4>(cnt, sum, lane);
+      butterfly<2>(cnt, sum, lane);
+      butterfly<1>(cnt, sum, lane);
+      cnt[0] += __shfl_xor_sync(0xffffffffu, cnt[0], 1);
+      sum[0] += __shfl_xor_sync(0xffffffffu, sum[0], 1);
+      if ((lane & 1) == 0) {
+        w_cnt[warp][lane >> 1] = cnt[0];
+        w_sum[warp][lane >> 1] = sum[0];
+      }
+    } else {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        cnt[0] += __shfl_xor_sync(0xffffffffu, cnt[0], off);
+        sum[0] += __shfl_xor_sync(0xffffffffu, sum[0], off);
+      }
+      if (lane == 0) {
+        w_cnt[warp][0] = cnt[0];
+        w_sum[warp][0] = sum[0];
+      }
+    }
+    __syncthreads();
+    if (g0 == 0) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    if (tid < G) {  // the block's partial of threshold t (its warps in order)
+      unsigned int c = 0u;
+      float s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        c += w_cnt[w][tid];
+        s = s + w_sum[w][tid];
+      }
+      cluster.map_shared_rank(&x_cnt[buf][rank][0], 0)[tid] = c;
+      cluster.map_shared_rank(&x_sum[buf][rank][0], 0)[tid] = s;
+    }
+    cluster.sync();
+    if (rank == 0 && tid < ng) {  // the row's totals, in rank order
+      unsigned int c = 0u;
+      float s = 0.0f;
+      for (int r = 0; r < C; ++r) {
+        c += x_cnt[buf][r][tid];
+        s = s + x_sum[buf][r][tid];
+      }
+      const int t = g0 + tid;
+      if (p.mode == MODE_GIVEN) {
+        p.counts[q * T + t] = (float)c;
+        p.recsum[q * T + t] = s;
+      } else if (p.mode == MODE_WAVE) {
+        p.theta[q] = theta;
+        p.theta_count[q] = has_cut ? (float)c : 0.0f;
+        p.expected[q] = has_cut ? __fmul_rn(s, p.rpb) : 0.0f;
+      } else {
+        p.st[q * 2 * T + t] = (float)c;
+        p.st[q * 2 * T + T + t] = s;
+      }
+    }
+    buf ^= 1;
+  }
+  if (p.mode == MODE_BISECT && rank == 0 && tid == 0) {  // after the barrier: see above
+    p.lo[q] = lo;
+    p.hi[q] = hi;
+    p.n_sel[q] = ns;
+    p.exp[q] = ex;
+  }
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
+    return 132;
+  return n;
+}
+
+// blocks a row is spread over: the least power of two (at most 8) that
+// gives the wave three quarters of a block per SM or more
+int cluster_for(int64_t nq) {
+  const int64_t want = (int64_t)sm_count() * 3 / 4;
+  int c = 1;
+  while (c < NT_BATCH_CLUSTER && nq * c < want) c *= 2;
+  return c;
+}
+
+int launch_batch(const BatchParams& p, int64_t nq, int c, cudaStream_t s) {
+  if (nq == 0) return 0;
+  if (p.T < 1 || nq * c > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(nq * c), 1, 1);
+  cfg.blockDim = dim3(NT_BATCH_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t rc = p.mode == MODE_WAVE ? cudaLaunchKernelEx(&cfg, theta_batch_kernel<1>, p)
+                                             : cudaLaunchKernelEx(&cfg, theta_batch_kernel<16>, p);
+  if (rc != cudaSuccess) return (int)rc;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x [λ], thetas [T] (any T >= 1) -> counts [T], recsum [T]: one launch
@@ -332,13 +534,64 @@ extern "C" int nt_theta_bisect(const float* x, int64_t lam, int64_t rounds, int6
   return launch_bisect(p, (cudaStream_t)stream);
 }
 
+// x [Q, λ], thetas [Q, T] (any T >= 1) -> counts [Q, T], recsum [Q, T]: one launch
 extern "C" int nt_theta_stats_batch(
     const float* x, int64_t nq, int64_t lam, const float* thetas, int64_t T,
     float* counts, float* recsum, void* stream) {
-  if (nq == 0) return 0;
-  if (T < 1 || T > NT_THETA_MAX_T) return (int)cudaErrorInvalidValue;
-  theta_stats_batch_kernel<<<(unsigned)nq, NT_THETA_THREADS, 0,
-                             (cudaStream_t)stream>>>(x, lam, thetas, T, counts,
-                                                     recsum);
-  return (int)cudaGetLastError();
+  if (T > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  BatchParams p = {};
+  p.x = x;
+  p.lam = lam;
+  p.T = (int)T;
+  p.mode = MODE_GIVEN;
+  p.thetas = thetas;
+  p.counts = counts;
+  p.recsum = recsum;
+  return launch_batch(p, nq, cluster_for(nq), (cudaStream_t)stream);
+}
+
+// The device wave's θ-round: x [Q, λ] masked rows, sorted [Q, λ] the same
+// sorted descending, n_cut [Q] -> theta, theta_count, expected [Q]: one launch
+extern "C" int nt_theta_wave(const float* x, const float* sorted, const int32_t* n_cut,
+                             int64_t nq, int64_t lam, float rpb, float* theta,
+                             float* theta_count, float* expected, void* stream) {
+  BatchParams p = {};
+  p.x = x;
+  p.lam = lam;
+  p.T = 1;
+  p.mode = MODE_WAVE;
+  p.sorted = sorted;
+  p.n_cut = n_cut;
+  p.theta = theta;
+  p.theta_count = theta_count;
+  p.expected = expected;
+  p.rpb = rpb;
+  return launch_batch(p, nq, cluster_for(nq), (cudaStream_t)stream);
+}
+
+// One launch of the sharded θ-bisection on this rank's slab x [Q, λ_local]:
+// the previous round's bracket step unless first, then (stats != 0) this
+// round's local statistics into st [Q, 2·fanout]; the carry lo, hi, exp
+// [Q] f32 and n_sel [Q] i32 updated in place.
+extern "C" int nt_theta_bisect_batch(const float* x, int64_t nq, int64_t lam, const float* ks,
+                                     int64_t fanout, float rpb, float hi0, int first, int stats,
+                                     float* lo, float* hi, int32_t* n_sel, float* exp,
+                                     float* st, void* stream) {
+  if (fanout > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  BatchParams p = {};
+  p.x = x;
+  p.lam = lam;
+  p.T = (int)fanout;
+  p.mode = MODE_BISECT;
+  p.rpb = rpb;
+  p.ks = ks;
+  p.hi0 = hi0;
+  p.first = first;
+  p.stats = stats;
+  p.lo = lo;
+  p.hi = hi;
+  p.n_sel = n_sel;
+  p.exp = exp;
+  p.st = st;
+  return launch_batch(p, nq, stats ? cluster_for(nq) : 1, (cudaStream_t)stream);
 }

@@ -56,14 +56,20 @@ _SIGNATURES = {
     # (dens, lam, host rows or None, device rows or None, gamma, excl or None, n_excl,
     #  op_or, out, stream)
     "nt_density_combine_excl": (_P, _I64, _P, _P, _I64, _P, _I64, ctypes.c_int, _P, _P),
-    # (dens, lam, rows, nq, gamma, op_or, out, stream)
-    "nt_density_combine_batch": (_P, _I64, _P, _I64, _I64, ctypes.c_int, _P, _P),
+    # (dens, lam, host table or None, device table or None, nq, gamma, excl or None,
+    #  out, stream)
+    "nt_density_combine_wave": (_P, _I64, _P, _P, _I64, _I64, _P, _P, _P),
     # (x, lam, thetas, T, counts, recsum, stream)
     "nt_theta_stats": (_P, _I64, _P, _I64, _P, _P, _P),
     # (x, lam, rounds, fanout, k, rpb, ths, recsum, lohi, stream)
     "nt_theta_bisect": (_P, _I64, _I64, _I64, ctypes.c_float, ctypes.c_float, _P, _P, _P, _P),
     # (x, nq, lam, thetas, T, counts, recsum, stream)
     "nt_theta_stats_batch": (_P, _I64, _I64, _P, _I64, _P, _P, _P),
+    # (x, sorted, n_cut, nq, lam, rpb, theta, theta_count, expected, stream)
+    "nt_theta_wave": (_P, _P, _P, _I64, _I64, ctypes.c_float, _P, _P, _P, _P),
+    # (x, nq, lam, ks, fanout, rpb, hi0, first, stats, lo, hi, n_sel, exp, st, stream)
+    "nt_theta_bisect_batch": (_P, _I64, _I64, _P, _I64, ctypes.c_float, ctypes.c_float,
+                              ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P),
     # (slab, ids, u, nbytes, out, stream)
     "nt_block_gather": (_P, _P, _I64, _I64, _P, _P),
     # (x, rows, n, out, scratch or None, scratch_stride, stream)

@@ -7,19 +7,26 @@ to 1 after the last row, and padded slots contribute the ⊕-identity.
 :func:`density_combine` is the single-query form, ``[γ]`` row ids → ``[λ]``,
 optionally with the single-query planner's exclusion (listed blocks set to
 +0.0) fused in.
-:func:`density_combine_batch_sharded` is the wave form of a λ-sharded index:
-each rank combines its own ``[rows, λ_local]`` slab for all Q queries, with
-no collective, because ⊕ is elementwise in λ.
+:func:`density_combine_wave` takes an op per query row and, optionally,
+per-row exclusions (listed blocks set to +0.0), so a wave of AND and OR
+queries is one call; :func:`density_combine_batch` is its one-op form.
+:func:`density_combine_batch_sharded` / :func:`density_combine_wave_sharded`
+are the wave forms of a λ-sharded index: each rank combines its own
+``[rows, λ_local]`` slab for all Q queries, with no collective, because ⊕
+is elementwise in λ.
 
-On CUDA the fold is the kernels in ``csrc/density_combine.cu`` (the
-batched kernel, run by the sharded form on the rank's slab, and the
-single-query kernel, which takes up to 64 row ids by value in its launch
-parameters and writes the exclusion in the same launch; each counted under
-its own name); on the CPU it is :func:`density_combine_batch_plain` /
-:func:`density_combine_plain` followed by the exclusion.  Both
-fold γ left to right in f32, like the reference's ``_combine_local`` and
-``combine_densities_np``, so all agree bit for bit, and a rank's slab
-combines to the matching columns of the whole index's combine.
+On CUDA the fold is the kernels in ``csrc/density_combine.cu``: the wave
+kernel (every batched and sharded form, counted as
+``density_combine_batch`` or ``density_combine_batch_sharded``), which
+takes the wave's ops and row ids by value in its launch parameters and
+the exclusion as one CSR list in the same launch, and the single-query
+kernel, which takes up to 64 row ids by value and writes the exclusion in
+the same launch (``density_combine``).  On the CPU it is
+:func:`density_combine_wave_plain` / :func:`density_combine_plain`
+followed by the exclusion.  Both fold γ left to right in f32, like the
+reference's ``_combine_local`` and ``combine_densities_np``, so all agree
+bit for bit, and a rank's slab combines to the matching columns of the
+whole index's combine.
 """
 from __future__ import annotations
 
@@ -31,6 +38,10 @@ from repro_torch.kernels import _lib
 #: row ids a single-query launch carries by value (``NT_COMBINE_BY_VALUE``);
 #: more are copied to the card first and read there by the same kernel
 MAX_IDS_BY_VALUE = 64
+#: int32s of a wave's table (ops ``[Q]``, then row ids ``[Q, γ]``) a wave
+#: launch carries by value (``NT_WAVE_BY_VALUE``); a larger table is copied
+#: to the card first and read there by the same kernel
+WAVE_BY_VALUE = 896
 
 
 def density_combine_batch_plain(
@@ -74,10 +85,7 @@ def exclusion_ids(exclude, lam: int) -> np.ndarray:
     int32 in ``[0, λ)``, sorted ascending, without duplicates.  Negative ids
     count from the end and ids outside ``[-λ, λ)`` raise ``IndexError``, as
     in the reference's ``combined[exclude] = 0.0``."""
-    ex = np.asarray(exclude, dtype=np.int64).ravel()
-    if ex.size and (ex.min() < -lam or ex.max() >= lam):
-        raise IndexError(f"excluded block ids out of range [-{lam}, {lam})")
-    return np.unique(np.where(ex < 0, ex + lam, ex)).astype(np.int32)
+    return exclusion_csr([exclude], lam)[2:]
 
 
 def density_combine(
@@ -143,25 +151,113 @@ def combine_single(densities: torch.Tensor, row_ids: torch.Tensor,
     return out
 
 
-def _launch_batch(name: str, densities: torch.Tensor, row_matrix: torch.Tensor,
-                  op: str) -> torch.Tensor:
-    """The batched fold on CUDA tensors, counted under ``name``."""
-    _lib.require_cuda(name, densities, row_matrix)
+def exclusion_csr(excludes, lam: int) -> np.ndarray:
+    """Per-row host block ids to set to +0.0, as the wave kernel takes them:
+    one int32 array of ``Q + 1`` row offsets, then each row's ids in ``[0,
+    λ)``, ascending, without duplicates.  Negative ids count from the end
+    and ids outside ``[-λ, λ)`` raise ``IndexError``, as in
+    :func:`exclusion_ids`.  One sort for the whole wave."""
+    parts = [np.asarray(e, dtype=np.int64).ravel() for e in excludes]
+    nq = len(parts)
+    flat = np.concatenate(parts) if nq else np.zeros(0, np.int64)
+    if flat.size and (flat.min() < -lam or flat.max() >= lam):
+        raise IndexError(f"excluded block ids out of range [-{lam}, {lam})")
+    off = np.zeros(nq + 1, np.int64)
+    if not flat.size:
+        return off.astype(np.int32)
+    row = np.repeat(np.arange(nq, dtype=np.int64), [p.size for p in parts])
+    key = np.unique(row * lam + np.where(flat < 0, flat + lam, flat))
+    np.cumsum(np.bincount(key // lam, minlength=nq), out=off[1:])
+    if off[-1] > np.iinfo(np.int32).max:
+        raise ValueError("the exclusion list holds more than 2^31 - 1 ids")
+    return np.concatenate([off, key % lam]).astype(np.int32)
+
+
+def density_combine_wave_plain(
+    densities: torch.Tensor, row_matrix: torch.Tensor, is_or: torch.Tensor,
+    excl: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`density_combine_wave`: each row's left
+    fold under its op (``is_or`` ``[Q]`` bool), then the CSR exclusion
+    ``excl`` (:func:`exclusion_csr`, or None) set to +0.0; any device."""
+    out = density_combine_batch_plain(densities, row_matrix, "and")
+    is_or = is_or.to(out.device)
+    if bool(is_or.any()):
+        out = torch.where(is_or[:, None], density_combine_batch_plain(densities, row_matrix, "or"),
+                          out)
+    if excl is not None:
+        nq = row_matrix.shape[0]
+        off = excl[:nq + 1].long()
+        rows = torch.repeat_interleave(torch.arange(nq, device=off.device), off.diff())
+        out[rows.to(out.device), excl[nq + 1:].long().to(out.device)] = 0.0
+    return out
+
+
+def _combine_wave(name: str, densities: torch.Tensor, row_matrix: torch.Tensor, ops,
+                  exclude) -> torch.Tensor:
+    """The wave's fold, each row under its own op, counted under ``name``.
+    Host row ids are range-checked here; on CUDA the ops and ids travel by
+    value in the launch (up to :data:`WAVE_BY_VALUE` int32s, else copied to
+    the card) and the exclusion as one CSR list, all in one launch."""
+    if densities.dtype != torch.float32 or densities.dim() != 2:
+        raise ValueError("densities must be a [rows, λ] float32 tensor")
+    if row_matrix.dtype != torch.int32 or row_matrix.dim() != 2:
+        raise ValueError("row ids must be a [Q, γ_max] int32 tensor")
     nq, gamma = row_matrix.shape
+    ops = list(ops)
+    if len(ops) != nq or any(op not in ("and", "or") for op in ops):
+        raise ValueError(f"ops must give 'and' or 'or' for each of the {nq} rows")
+    if exclude is not None and len(exclude) != nq:
+        raise ValueError(f"exclude must give a list of block ids for each of the {nq} rows")
     lam = densities.shape[1]
-    if nq > 65535:
-        raise ValueError(f"{name} takes at most 65535 queries")
-    out = torch.empty((nq, lam), dtype=torch.float32, device=densities.device)
+    host = row_matrix.device.type == "cpu"
+    if host:
+        rows = np.ascontiguousarray(row_matrix.numpy())
+        if rows.size and (rows.min() < -1 or rows.max() >= densities.shape[0]):
+            raise IndexError(f"row ids out of range [-1, {densities.shape[0]})")
+    is_or = np.asarray([op == "or" for op in ops], dtype=np.int32)
+    csr = exclusion_csr(exclude, lam) if exclude is not None else None
+    if csr is not None and csr.size == nq + 1:
+        csr = None  # nothing excluded
+    if densities.device.type == "cpu" and host:
+        return density_combine_wave_plain(densities, row_matrix, torch.from_numpy(is_or) > 0,
+                                          None if csr is None else torch.from_numpy(csr))
+    _lib.require_cuda(name, densities, *(() if host else (row_matrix,)))
+    dev = densities.device
+    out = torch.empty((nq, lam), dtype=torch.float32, device=dev)
     if nq == 0 or lam == 0:
         return out
+    if host:
+        tab = np.concatenate([is_or, rows.ravel()])
+        dev_tab = None if tab.size <= WAVE_BY_VALUE else torch.from_numpy(tab).to(dev)
+    else:
+        tab, dev_tab = None, torch.cat([torch.from_numpy(is_or).to(dev), row_matrix.reshape(-1)])
+    excl = None if csr is None else torch.from_numpy(csr).to(dev)
     lib = _lib.load()
-    with torch.cuda.device(densities.device):
-        rc = lib.nt_density_combine_batch(
-            densities.data_ptr(), lam, row_matrix.data_ptr(), nq, gamma,
-            int(op == "or"), out.data_ptr(), _lib.stream_of(densities),
+    with torch.cuda.device(dev):
+        rc = lib.nt_density_combine_wave(
+            densities.data_ptr(), lam, tab.ctypes.data if dev_tab is None else None,
+            None if dev_tab is None else dev_tab.data_ptr(), nq, gamma,
+            None if excl is None else excl.data_ptr(), out.data_ptr(), _lib.stream_of(densities),
         )
     _lib.launched(name, rc)
     return out
+
+
+def density_combine_wave(
+    densities: torch.Tensor,  # [rows, λ] f32
+    row_matrix: torch.Tensor,  # [Q, γ_max] int32, padded with -1
+    ops,  # Q of "and" / "or"
+    exclude=None,  # Q lists of host block ids, or None
+) -> torch.Tensor:
+    """``[Q, λ]``: row q is the ⊕-combine of its row ids under ``ops[q]``,
+    bit-identical to :func:`density_combine_batch` of its op, and then the
+    blocks in ``exclude[q]`` are +0.0, as the host mirror's ``where(excl,
+    0.0, combined)``.  Negative block ids count from the end, as in numpy
+    indexing.  On CUDA one launch for the whole wave, whatever its ops,
+    counted as ``density_combine_batch``; on the CPU
+    :func:`density_combine_wave_plain`."""
+    return _combine_wave("density_combine_batch", densities, row_matrix, ops, exclude)
 
 
 def density_combine_batch(
@@ -169,16 +265,28 @@ def density_combine_batch(
     row_matrix: torch.Tensor,  # [Q, γ_max] int32, padded with -1
     op: str = "and",
 ) -> torch.Tensor:
-    """``[Q, λ]`` ⊕-combined densities.
+    """``[Q, λ]`` ⊕-combined densities, every row under ``op``: a
+    :func:`density_combine_wave` of one op.
 
-    Row ids must lie in ``[-1, rows)``; :func:`repro_torch.core.density_map.
-    combine_densities_batch` checks them on the host before they reach the
-    card.
+    Row ids must lie in ``[-1, rows)``; host ids are checked here, device
+    ids are read where they lie, unchecked.
     """
     _check(densities, row_matrix, op, 2)
-    if densities.device.type == "cpu" and row_matrix.device.type == "cpu":
-        return density_combine_batch_plain(densities, row_matrix, op)
-    return _launch_batch("density_combine_batch", densities, row_matrix, op)
+    return _combine_wave("density_combine_batch", densities, row_matrix,
+                         [op] * row_matrix.shape[0], None)
+
+
+def density_combine_wave_sharded(
+    densities_local: torch.Tensor,  # [rows, λ_local] f32, this rank's λ-shard
+    row_matrix: torch.Tensor,  # [Q, γ_max] int32, padded with -1
+    ops,  # Q of "and" / "or"
+    mesh=None,
+    axis: str = "data",
+) -> torch.Tensor:
+    """:func:`density_combine_batch_sharded` with an op per row: the wave's
+    combine on this rank's slab in one launch whatever its ops, counted as
+    ``density_combine_batch_sharded``."""
+    return _combine_wave("density_combine_batch_sharded", densities_local, row_matrix, ops, None)
 
 
 def density_combine_batch_sharded(
@@ -199,9 +307,8 @@ def density_combine_batch_sharded(
     ``mesh`` and ``axis`` (the group the slab belongs to) are not read; they
     keep the reference's call shape.  CUDA tensors launch #2's kernel on the
     slab, counted as ``density_combine_batch_sharded``; CPU tensors take
-    :func:`density_combine_batch_plain`, the reference's ``_combine_local``.
+    the plain fold, the reference's ``_combine_local``.
     """
     _check(densities_local, row_matrix, op, 2)
-    if densities_local.device.type == "cpu" and row_matrix.device.type == "cpu":
-        return density_combine_batch_plain(densities_local, row_matrix, op)
-    return _launch_batch("density_combine_batch_sharded", densities_local, row_matrix, op)
+    return _combine_wave("density_combine_batch_sharded", densities_local, row_matrix,
+                         [op] * row_matrix.shape[0], None)

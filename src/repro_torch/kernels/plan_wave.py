@@ -10,10 +10,11 @@ query's THRESHOLD prefix and TWO-PRONG window on the device:
 2. **sort + cut** — :func:`repro_torch.core.threshold.threshold_sort_batch`
    over the exclusion-masked rows and the prefix cut :func:`_cut_batch`,
    kept as a ``[Q, λ]`` selection mask.
-3. **θ-stats** — the :func:`repro_torch.kernels.theta_stats.
-   theta_stats_batch` kernel at each query's cut threshold θ_q: how many
-   blocks clear θ_q (≥ the prefix length; ties) and the record mass they
-   hold (the §4.1 running-threshold invariant, checked on the device).
+3. **θ-stats** — :func:`repro_torch.kernels.theta_stats.theta_wave`, one
+   launch of the batched θ-statistics kernel that also takes each query's
+   cut threshold θ_q from the sorted rows: how many blocks clear θ_q (≥ the
+   prefix length; ties) and the record mass they hold (the §4.1
+   running-threshold invariant, checked on the device).
 4. **window** — :func:`repro_torch.core.two_prong.two_prong_select_batch`.
 
 :func:`pack_plan` flattens a round into one ``int32 [Q, λ+3]`` matrix, the
@@ -41,9 +42,7 @@ from repro_torch.core.density_map import combine_densities_batch
 from repro_torch.core.threshold import threshold_sort_batch
 from repro_torch.core.two_prong import two_prong_select_batch
 from repro_torch.kernels import _lib
-from repro_torch.kernels.theta_stats import theta_stats_batch
-
-THETA_FANOUT = 8  # θ-stats candidate count
+from repro_torch.kernels.theta_stats import theta_wave
 
 
 class PlanWaveResult(NamedTuple):
@@ -107,14 +106,7 @@ def plan_wave_from_combined(
     sel_sorted = torch.arange(lam, device=dev)[None, :] < n_sel[:, None].long()
     th_mask = torch.zeros((qa, lam), dtype=torch.bool, device=dev)
     th_mask.scatter_(1, si.long(), sel_sorted)
-    has_cut = n_sel > 0
-    last = torch.gather(sd, 1, (n_sel.long() - 1).clamp(min=0)[:, None])[:, 0]
-    theta = torch.where(has_cut, last, 0.0)
-    steps = 1.0 + torch.arange(THETA_FANOUT, dtype=torch.float32, device=dev)
-    thetas = theta[:, None] * steps[None, :]  # θ, 2θ, 3θ, ...
-    counts, recsum = theta_stats_batch(masked, thetas)
-    theta_count = torch.where(has_cut, counts[:, 0], 0.0)
-    expected = torch.where(has_cut, recsum[:, 0] * float(records_per_block), 0.0)
+    theta, theta_count, expected = theta_wave(masked, sd, n_sel, records_per_block)
     tp = two_prong_select_batch(masked, needs, records_per_block)
     return PlanWaveResult(
         combined=masked,

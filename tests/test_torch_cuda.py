@@ -379,6 +379,218 @@ def test_single_query_plans_on_the_card_equal_the_cpu_plans(cuda):
                 assert ua == ub
 
 
+def _wave_inputs(seed: int, q: int, gamma: int, lam: int, excl: str):
+    """A mixed AND/OR wave: ``(dens, rm, ops, exclude)`` with -1 padding and
+    per-row exclusions ("none", "empty" lists, or lists with repeats and a
+    negative id on every other row)."""
+    dens, rm = _combine_inputs(seed, q, gamma, lam)
+    rng = np.random.default_rng(seed + 100)
+    ops = ["or" if b else "and" for b in rng.random(q) < 0.4]
+    exclude = None
+    if excl == "empty":
+        exclude = [np.zeros(0, np.int64)] * q
+    elif excl == "lists":
+        exclude = [np.concatenate([rng.integers(0, lam, 40), [0, 0, -1]]) if i % 2 == 0
+                   else np.zeros(0, np.int64) for i in range(q)]
+    return dens, rm, ops, exclude
+
+
+def _wave_plain(dens, rm, ops, exclude):
+    from repro_torch.kernels.density_combine import density_combine_wave_plain, exclusion_csr
+
+    is_or = torch.tensor([o == "or" for o in ops])
+    csr = None if exclude is None else torch.from_numpy(exclusion_csr(exclude, dens.shape[1]))
+    return density_combine_wave_plain(dens, rm, is_or, csr)
+
+
+@pytest.mark.parametrize("excl", ["none", "empty", "lists"])
+@pytest.mark.parametrize("seed,q,gamma,lam", [(0, 64, 3, 12208), (1, 8, 5, 1001), (2, 3, 1, 37),
+                                              (3, 300, 3, 4096), (4, 5, 2, 1)])
+def test_wave_combine_kernel_bit_identical_to_plain(cuda, seed, q, gamma, lam, excl):
+    """#2 on a mixed AND/OR wave in one launch: λ not a multiple of 4 (1001,
+    37, 1: the scalar loads), a table past the ids a launch carries by value
+    (300 × 4 int32s, copied to the card), device ids, empty and non-empty
+    exclusions; bit for bit the plain version and +0.0 where excluded."""
+    from repro_torch.kernels.density_combine import WAVE_BY_VALUE, density_combine_wave
+
+    dens, rm, ops, exclude = _wave_inputs(seed, q, gamma, lam, excl)
+    want = _wave_plain(dens, rm, ops, exclude)
+    dc = dens.to(cuda)
+    assert (q * (gamma + 1) > WAVE_BY_VALUE) == (q == 300)
+    n0 = _lib.LAUNCHES["density_combine_batch"]
+    out = density_combine_wave(dc, rm, ops, exclude)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["density_combine_batch"] == n0 + 1
+    assert torch.equal(out.cpu(), want)
+    assert not np.signbit(out.cpu().numpy()).any()
+    assert torch.equal(density_combine_wave(dc, rm.to(cuda), ops, exclude), out)
+    assert torch.equal(density_combine_wave(dc, rm, ops, exclude), out)  # the same bits again
+
+
+def test_wave_combine_kernel_on_offset_views(cuda):
+    """Densities and output rows that start off a 16-byte boundary (an
+    offset view of a larger buffer) take the scalar loads, bit for bit."""
+    from repro_torch.kernels.density_combine import density_combine_wave
+
+    dens, rm, ops, exclude = _wave_inputs(5, 16, 3, 4096, "lists")
+    want = _wave_plain(dens, rm, ops, exclude)
+    buf = torch.zeros(dens.numel() + 1, device=cuda)
+    view = buf[1:].view(dens.shape)
+    view.copy_(dens.to(cuda))
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    assert torch.equal(density_combine_wave(view, rm, ops, exclude).cpu(), want)
+    for op in ("and", "or"):
+        assert torch.equal(density_combine_batch(view, rm, op).cpu(),
+                           density_combine_batch_plain(dens, rm, op))
+
+
+@pytest.mark.parametrize("q,lam,T", [(64, 12208, 8), (1, 5000, 16), (3, 7, 1), (8, 1000, 17),
+                                     (130, 3052, 40), (5, 0, 4)])
+def test_theta_batch_kernel_given_thresholds_any_T(cuda, q, lam, T):
+    """#5 with given thresholds, any T in one launch (17 and 40 take two and
+    three passes of 16), at cluster widths 8 (Q ≤ 12), 4, 2 and 1 (Q =
+    130): counts exact, sums to rtol=1e-5, the same bits every run."""
+    rng = np.random.default_rng(q + T)
+    x = (rng.random((q, lam)) ** 3).astype(np.float32)
+    x[rng.random((q, lam)) < 0.3] = 0.0
+    th = np.sort(rng.random((q, T)).astype(np.float32), axis=1)
+    th[0] = 0.0
+    xc, tc = torch.from_numpy(x).to(cuda), torch.from_numpy(th).to(cuda)
+    n0 = _lib.LAUNCHES["theta_stats_batch"]
+    counts, recsum = theta_stats_batch(xc, tc)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["theta_stats_batch"] == n0 + (q > 0)
+    pc, ps = theta_stats_batch_plain(xc, tc)
+    assert torch.equal(counts, pc)
+    torch.testing.assert_close(recsum, ps, rtol=1e-5, atol=0)
+    assert torch.equal(theta_stats_batch(xc, tc)[1], recsum)
+
+
+@pytest.mark.parametrize("q,lam", [(64, 12208), (1, 1000), (9, 7), (130, 3052)])
+def test_theta_wave_kernel_against_plain(cuda, q, lam):
+    """#5's wave round (θ from the cut, then theta_count and expected) on
+    masked rows with rows that have no cut: θ and counts exact, expected to
+    rtol=1e-5, one launch."""
+    from repro_torch.core.threshold import threshold_sort_batch
+    from repro_torch.kernels.theta_stats import theta_wave, theta_wave_plain
+
+    rng = np.random.default_rng(q + lam)
+    x = (rng.random((q, lam)) ** 3).astype(np.float32)
+    x[rng.random((q, lam)) < 0.3] = 0.0
+    x[0] = 0.0  # nothing to cut
+    xc = torch.from_numpy(x).to(cuda)
+    sd = threshold_sort_batch(xc)[1]
+    n_sel = torch.from_numpy(rng.integers(0, lam + 1, q).astype(np.int32)).to(cuda)
+    n_sel[0] = 0
+    n0 = _lib.LAUNCHES["theta_stats_batch"]
+    got = theta_wave(xc, sd, n_sel, 8192)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["theta_stats_batch"] == n0 + 1
+    want = theta_wave_plain(xc, sd, n_sel, 8192)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    assert float(got[1][0]) == float(got[2][0]) == 0.0
+
+
+def _bisect_loops(xc, ks, rpb, rounds, fanout):
+    """The batched θ-bisection of one rank (the all-reduce of a world of one
+    is the identity) on the kernel and on the plain rounds, each round's
+    statistics kept."""
+    from repro_torch.kernels.theta_stats import (
+        bisect_carry, bisect_round_batch, bisect_round_batch_plain,
+    )
+
+    out = []
+    for fn in (bisect_round_batch, bisect_round_batch_plain):
+        c = bisect_carry(xc.shape[0], fanout, xc.device)
+        trace = []
+        for r in range(rounds):
+            c = fn(xc, ks, rpb, c, first=r == 0)
+            trace.append(c.stats.clone())
+        c = fn(xc, ks, rpb, c, first=rounds == 0, stats=False)
+        out.append((c.lo.clone(), c.n_sel.clone(), c.exp.clone(), trace))
+    return out
+
+
+@pytest.mark.parametrize("fanout", [1, 10, 16, 33])
+@pytest.mark.parametrize("q,lam", [(64, 3052), (64, 12208), (1, 1000), (5, 7)])
+def test_bisect_round_kernel_matches_the_plain_rounds(cuda, q, lam, fanout):
+    """#5's sharded bisection round: rounds + 1 launches; every round's
+    counts exact and sums to rtol=1e-5 until the rounds' ``recsum·rpb >= k``
+    tests part (none here), θ*, the count and the bracket bit for bit, the
+    records to rtol (10 and 33 are where a reciprocal multiply would round
+    the steps differently; 33 takes three passes of 16)."""
+    rng = np.random.default_rng(q + lam + fanout)
+    x = (rng.random((q, lam)) * (rng.random((q, lam)) < 0.3)).astype(np.float32)
+    total = x.astype(np.float64).sum(axis=1) * 10
+    ks = np.where(np.arange(q) % 3 == 0, 2 * total + 1, (0.05 + 0.9 * rng.random(q)) * total)
+    xc = torch.from_numpy(x).to(cuda)
+    kc = torch.from_numpy(ks.astype(np.float32)).to(cuda)
+    n0 = _lib.LAUNCHES["theta_stats_batch"]
+    (klo, kn, kexp, kt), (plo, pn, pexp, pt) = _bisect_loops(xc, kc, 10, 3, fanout)
+    assert _lib.LAUNCHES["theta_stats_batch"] == n0 + 4
+    for a, b in zip(kt, pt):
+        assert torch.equal((a[:, fanout:] * 10 >= kc[:, None]), (b[:, fanout:] * 10 >= kc[:, None]))
+        assert torch.equal(a[:, :fanout], b[:, :fanout])
+        torch.testing.assert_close(a[:, fanout:], b[:, fanout:], rtol=1e-5, atol=0)
+    assert torch.equal(klo, plo) and torch.equal(kn, pn)
+    torch.testing.assert_close(kexp, pexp, rtol=1e-5, atol=0)
+    assert bool((klo[::3] == 0.0).all())  # k out of reach: θ* = 0
+
+
+def test_sharded_bisection_and_wave_launch_counts(cuda, tmp_path):
+    """On a world of one over NCCL: ``sharded_threshold_bisect_batch`` makes
+    one #5 launch a round and one more; a device wave of AND and OR
+    queries one #2 launch and one #5 launch a planning round; the host
+    mirror one #2 launch per combine; θ equal to the plain rounds'."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import multi_query
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.core.multi_query import BatchQuery
+    from repro_torch.core.sharded import sharded_threshold_bisect_batch
+    from repro_torch.data.block_store import build_block_store
+    from repro_torch.data.synthetic import make_clustered_table
+
+    t = make_clustered_table(num_records=64_000, num_dims=4, density=0.15, seed=2)
+    store = build_block_store(t, 100, device=cuda)
+    qs = [BatchQuery([(0, 1), (2, 1)], 300), BatchQuery([(0, 1)], 50),
+          BatchQuery([(1, 1), (3, 1)], 2000, "or"), BatchQuery([(2, 0)], 10, algo="two_prong")]
+    _lib.reset_launches()
+    wave = NeedleTailEngine(store, device=cuda).any_k_batch(qs)
+    torch.cuda.synchronize()
+    assert _lib.LAUNCHES["density_combine_batch"] == 1
+    assert _lib.LAUNCHES["theta_stats_batch"] == wave.device_transfers
+    calls = []
+    fn = multi_query._combined_matrix
+    multi_query._combined_matrix = lambda *a: (calls.append(1), fn(*a))[1]
+    try:
+        _lib.reset_launches()
+        NeedleTailEngine(store, device=cuda).any_k_batch(qs, device=False)
+        torch.cuda.synchronize()
+    finally:
+        multi_query._combined_matrix = fn
+    assert _lib.LAUNCHES["density_combine_batch"] == len(calls) > 0
+    rng = np.random.default_rng(0)
+    x = (rng.random((8, 2000)) * (rng.random((8, 2000)) < 0.3)).astype(np.float32)
+    xc = torch.from_numpy(x).to(cuda)
+    ks = torch.full((8,), 300.0, device=cuda)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=60),
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        _lib.reset_launches()
+        r = sharded_threshold_bisect_batch(xc, ks, 10, dist.group.WORLD)
+        torch.cuda.synchronize()
+        assert _lib.LAUNCHES["theta_stats_batch"] == 4
+    finally:
+        dist.destroy_process_group()
+    plo, pn, _, _ = _bisect_loops(xc, ks, 10, 3, 16)[1]
+    assert torch.equal(r.theta, plo) and torch.equal(r.num_selected, pn)
+
+
 @pytest.mark.parametrize(
     "b,hq,hkv,s,t,causal,win,d,dtype",
     [

@@ -24,10 +24,13 @@ from repro.kernels.ref import theta_stats_batch_ref
 from repro_torch.kernels import _lib
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.density_combine import (
-    density_combine, density_combine_batch, density_combine_batch_sharded,
+    density_combine, density_combine_batch, density_combine_batch_sharded, density_combine_wave,
+    density_combine_wave_plain, density_combine_wave_sharded, exclusion_csr,
 )
 from repro_torch.kernels.plan_wave import block_gather
-from repro_torch.kernels.theta_stats import theta_stats, theta_stats_batch
+from repro_torch.kernels.theta_stats import (
+    bisect_carry, bisect_round_batch, theta_stats, theta_stats_batch, theta_wave,
+)
 from repro_torch.kernels.window_scan import prefix_sum
 
 
@@ -54,6 +57,65 @@ def test_combine_plain_bit_identical_to_pallas_and_reference_folds(op, seed, q, 
     np.testing.assert_array_equal(mine, np.asarray(_combine_local(
         jnp.asarray(dens), jnp.asarray(rm), op)))
     np.testing.assert_array_equal(mine, combine_densities_batch_np(dens, rm, op))
+
+
+def _wave_exclude(seed: int, q: int, lam: int, kind: str):
+    """Per-row exclusions: None, all rows empty, or on every other row an
+    unsorted list with a repeat and a negative id (counted from the end)."""
+    if kind == "none":
+        return None
+    if kind == "empty":
+        return [np.zeros(0, np.int64)] * q
+    rng = np.random.default_rng(seed + 50)
+    return [np.concatenate([rng.integers(0, lam, lam // 5 + 1), [0, 0, -1]]) if i % 2 == 0
+            else np.zeros(0, np.int64) for i in range(q)]
+
+
+@pytest.mark.parametrize("excl", ["none", "empty", "lists"])
+@pytest.mark.parametrize("seed,q,gamma,lam", [(0, 8, 3, 1000), (1, 5, 5, 512), (2, 1, 1, 37),
+                                              (3, 7, 2, 1024)])
+def test_wave_combine_plain_bit_identical_to_pallas_per_op_group(seed, q, gamma, lam, excl):
+    """The multi-op combine on a mixed AND/OR wave with -1 padding and a CSR
+    exclusion: bit for bit the reference's Pallas ``density_combine_batch``
+    (interpret mode) run once per op group, then ``jnp.where`` for the
+    exclusion; excluded elements are +0.0.  Its plain version on the CSR
+    list the kernel takes gives the same bits."""
+    dens, rm = _combine_inputs(seed, q, gamma, lam)
+    rng = np.random.default_rng(seed + 10)
+    wave_ops = ["or" if b else "and" for b in rng.random(q) < 0.5]
+    wave_ops[-1] = "or"
+    exclude = _wave_exclude(seed, q, lam, excl)
+    ref = np.zeros((q, lam), np.float32)
+    for op in ("and", "or"):
+        js = [i for i, o in enumerate(wave_ops) if o == op]
+        if js:
+            ref[js] = np.asarray(ops.density_combine_batch(jnp.asarray(dens), jnp.asarray(rm[js]),
+                                                           op))
+    if exclude is not None:
+        mask = np.zeros((q, lam), bool)
+        for i, e in enumerate(exclude):
+            mask[i, e] = True
+        ref = np.asarray(jnp.where(jnp.asarray(mask), jnp.float32(0.0), jnp.asarray(ref)))
+    mine = density_combine_wave(torch.from_numpy(dens), torch.from_numpy(rm), wave_ops,
+                                exclude).numpy()
+    np.testing.assert_array_equal(mine, ref)
+    assert not np.signbit(mine).any()
+    csr = None if exclude is None else torch.from_numpy(exclusion_csr(exclude, lam))
+    plain = density_combine_wave_plain(torch.from_numpy(dens), torch.from_numpy(rm),
+                                       torch.tensor([o == "or" for o in wave_ops]), csr)
+    np.testing.assert_array_equal(plain.numpy(), ref)
+    sharded = density_combine_wave_sharded(torch.from_numpy(dens), torch.from_numpy(rm), wave_ops)
+    if exclude is None:
+        np.testing.assert_array_equal(sharded.numpy(), ref)
+
+
+def test_exclusion_csr_offsets_then_sorted_unique_ids():
+    csr = exclusion_csr([[5, 1, 5, -1], [], [3]], 10)
+    assert csr.dtype == np.int32
+    assert csr.tolist() == [0, 3, 3, 4, 1, 5, 9, 3]
+    assert exclusion_csr([], 10).tolist() == [0]
+    with pytest.raises(IndexError):
+        exclusion_csr([[10]], 10)
 
 
 def _theta_inputs(seed: int, q: int, lam: int, t: int = 8):
@@ -114,6 +176,11 @@ def test_cpu_wrappers_launch_nothing():
     prefix_sum(torch.from_numpy(x))
     tops.threshold_bisect(torch.from_numpy(x[0]), 5.0, 10)
     density_combine_batch_sharded(torch.from_numpy(dens[:, :16].copy()), torch.from_numpy(rm))
+    density_combine_wave(torch.from_numpy(dens), torch.from_numpy(rm), ["or", "and", "and", "or"],
+                         [[1], [], [2, 3], []])
+    xt = torch.from_numpy(x)
+    theta_wave(xt, xt, torch.ones(4, dtype=torch.int32), 10)
+    bisect_round_batch(xt, torch.ones(4), 10, bisect_carry(4, 16, "cpu"), first=True)
     assert _lib.LAUNCHES == before
 
 
@@ -138,11 +205,24 @@ def test_cpu_wrappers_launch_nothing():
     lambda: density_combine_batch_sharded(torch.zeros((4, 8)), torch.zeros((2,), dtype=torch.int32)),
     lambda: density_combine_batch_sharded(torch.zeros((4, 8)),
                                           torch.zeros((2, 2), dtype=torch.int32), op="xor"),
+    lambda: density_combine_wave(torch.zeros((4, 8)), torch.zeros((2, 2), dtype=torch.int32),
+                                 ["and"]),
+    lambda: density_combine_wave(torch.zeros((4, 8)), torch.zeros((2, 2), dtype=torch.int32),
+                                 ["and", "xor"]),
+    lambda: density_combine_wave(torch.zeros((4, 8)), torch.zeros((2, 2), dtype=torch.int32),
+                                 ["and", "or"], [[1]]),
+    lambda: theta_wave(torch.zeros((2, 8)), torch.zeros((2, 8)), torch.zeros((2,)), 10),
+    lambda: theta_wave(torch.zeros((2, 8)), torch.zeros((2, 7)),
+                       torch.zeros((2,), dtype=torch.int32), 10),
+    lambda: bisect_round_batch(torch.zeros((2, 8)), torch.ones(2), 10,
+                               bisect_carry(3, 4, "cpu"), first=True),
 ], ids=["combine_f64", "combine_i64_rows", "combine_op", "theta_q_mismatch",
         "theta_f16", "gather_i64_slab", "gather_i64_ids", "gather_1d_slab",
         "single_combine_2d_rows", "single_combine_i64_rows", "single_theta_2d",
         "single_theta_no_thresholds", "scan_f64", "scan_3d", "sharded_combine_f64",
-        "sharded_combine_1d_rows", "sharded_combine_op"])
+        "sharded_combine_1d_rows", "sharded_combine_op", "wave_ops_per_row", "wave_op",
+        "wave_exclude_per_row", "theta_wave_n_sel_dtype", "theta_wave_shapes",
+        "bisect_round_carry_rows"])
 def test_wrappers_reject_what_the_kernels_do_not_take(call):
     with pytest.raises(ValueError):
         call()

@@ -238,3 +238,36 @@ def test_single_row_two_prong_matches_reference():
         ref = jtp.two_prong_select(jnp.asarray(x[i]), float(k), RPB)
         assert (int(mine.start), int(mine.end)) == (int(ref.start), int(ref.end))
         assert float(mine.expected_records) == float(ref.expected_records)
+
+
+@pytest.mark.parametrize("seed,lam", [(3, 300), (4, 1024), (5, 1)])
+def test_fused_theta_round_matches_reference(seed, lam):
+    """The wave round's θ-statistics in one call (θ from the cut, then
+    ``theta_count`` and ``expected_records``), through
+    ``plan_wave_from_combined``, on rows with ties, a row with nothing, a
+    row with everything excluded (no cut: all three 0) and an unreachable
+    need (the cut takes every nonzero block): θ and ``theta_count`` equal to
+    the reference's, ``expected_records`` within rtol=1e-5 (a θ-sum: the same
+    f32 terms in another order).  ``theta_wave`` on the round's own sorted
+    rows gives the same values."""
+    from repro_torch.kernels.theta_stats import theta_wave
+
+    x = _rows(seed, 6, lam, ties=True)
+    x[0] = 0.0
+    rng = np.random.default_rng(seed)
+    excl = rng.random(x.shape) < 0.2
+    excl[1] = True
+    needs = _needs(x, seed)
+    needs[2] = 1e9
+    mine = pw.plan_wave_from_combined(torch.from_numpy(x), torch.from_numpy(excl),
+                                      torch.from_numpy(needs), RPB)
+    ref = jpw.plan_wave_from_combined(jnp.asarray(x), jnp.asarray(excl), jnp.asarray(needs), RPB)
+    np.testing.assert_array_equal(mine.theta.numpy(), np.asarray(ref.theta))
+    np.testing.assert_array_equal(mine.theta_count.numpy(), np.asarray(ref.theta_count))
+    np.testing.assert_allclose(mine.expected_records.numpy(), np.asarray(ref.expected_records),
+                               rtol=1e-5, atol=0)
+    assert float(mine.theta_count[0]) == float(mine.expected_records[1]) == 0.0
+    sd = threshold.threshold_sort_batch(mine.combined)[1]
+    for a, b in zip(theta_wave(mine.combined, sd, mine.n_sel, RPB),
+                    (mine.theta, mine.theta_count, mine.expected_records)):
+        assert torch.equal(a, b)

@@ -190,6 +190,19 @@ r = planner.bisect_stats_wave(wave, ks)
 for f, v in r._asdict().items():
     out[f"bisect_wave/{f}"] = v.numpy()
 
+# -- the bisection's plain rounds by hand: P = 4 on the slab, P = 1 (a group
+# of this rank alone) on the whole wave; rounds + 1 calls, an all-reduce a round
+from repro_torch.kernels.theta_stats import bisect_carry, bisect_round_batch_plain
+solo = [dist.new_group([r]) for r in range(world)][rank]
+for p, x, group in ((4, wl, S.shard_group(mesh).group), (1, T(wave), solo)):
+    c = bisect_carry(x.shape[0], 16, x.device)
+    for r in range(3):
+        c = bisect_round_batch_plain(x, T(ks), 10, c, first=r == 0)
+        dist.all_reduce(c.stats, group=group)
+    c = bisect_round_batch_plain(x, T(ks), 10, c, first=False, stats=False)
+    out[f"bisect_plain/{p}/theta"], out[f"bisect_plain/{p}/num_selected"] = c.lo.numpy(), c.n_sel.numpy()
+    out[f"bisect_plain/{p}/expected_records"] = c.exp.numpy()
+
 # -- attach_mesh + any_k_batch, both loops
 stores = {}
 for name, rpb in RPB.items():
@@ -351,6 +364,10 @@ out["skew/sufficient"] = np.asarray(r.sufficient)
 r = planner.bisect_stats_wave(wave, ks)
 for f, v in r._asdict().items():
     out[f"bisect_wave/{f}"] = np.asarray(v)
+mesh1 = jax.sharding.Mesh(np.asarray(jax.devices()[:1]), ("data",))
+r = S.sharded_threshold_bisect_batch(S.shard_density_maps(jnp.asarray(wave), mesh1), ks, 10, mesh1)
+for f, v in r._asdict().items():
+    out[f"bisect_batch_p1/{f}"] = np.asarray(v)
 
 stores = {}
 for name, rpb in RPB.items():
@@ -515,6 +532,22 @@ def test_sharded_bisect_equals_reference_at_p4(run, kind):
                                    ref[f"{kind}/expected_records"], rtol=RTOL)
 
 
+@pytest.mark.parametrize("p", [1, 4])
+def test_bisect_plain_rounds_equal_reference_at_p1_and_p4(run, p):
+    """The batched bisection's plain rounds (``bisect_round_batch_plain``, a
+    step and the statistics a call, an all-reduce between calls) against the
+    reference's ``sharded_threshold_bisect_batch`` at P = 1 and P = 4: θ* and
+    ``n_sel`` per query exact, ``exp`` within ``rtol`` (sums in another
+    order; no boundary case on these rows)."""
+    _, ref, ranks = run
+    want = "bisect_batch" if p == 4 else "bisect_batch_p1"
+    for out in ranks:
+        for f in ("theta", "num_selected"):
+            np.testing.assert_array_equal(out[f"bisect_plain/{p}/{f}"], ref[f"{want}/{f}"])
+        np.testing.assert_allclose(out[f"bisect_plain/{p}/expected_records"],
+                                   ref[f"{want}/expected_records"], rtol=RTOL)
+
+
 def test_sharded_ht_terms_equal_reference(run):
     _, ref, ranks = run
     for out in ranks:
@@ -649,6 +682,47 @@ def test_world_of_one_in_process(tmp_path):
                 _assert_saved_equal(mine, ref, "b", len(qs), counters=False)
         eng.detach_mesh()
         assert eng.distributed is None
+    finally:
+        dist.destroy_process_group()
+
+
+def test_one_combine_call_per_wave_on_a_mixed_wave(tmp_path, monkeypatch):
+    """A wave of AND and OR queries: the device wave's joiners are combined
+    in one call (``_flush_joins``), the host mirror makes one call per
+    planned (round, algorithm) group (``_combined_matrix``, exclusions
+    included), and with a sharded planner the device wave's joiners are one
+    call of #3 on the rank's slab (``combine_wave``)."""
+    from repro_torch.core import multi_query
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.core.multi_query import BatchQuery
+    from repro_torch.data.block_store import Table, build_block_store
+    from repro_torch.kernels import density_combine
+    from repro_torch.launch.mesh import make_host_mesh
+
+    calls, plans = [], []
+    combine, plan = density_combine._combine_wave, multi_query._plan_wave
+    monkeypatch.setattr(density_combine, "_combine_wave",
+                        lambda name, *a: (calls.append(name), combine(name, *a))[1])
+    monkeypatch.setattr(multi_query, "_plan_wave",
+                        lambda *a, **k: (plans.append(1), plan(*a, **k))[1])
+    dims, measures, cards = _tables()["clustered"]
+    store = build_block_store(Table(dims=dims, measures=measures, cards=cards),
+                              RPB["clustered"], device="cpu")
+    queries = [BatchQuery(*q) for q in CASES["clustered"][1]]
+    assert {q.op for q in queries} == {"and", "or"}
+    eng = NeedleTailEngine(store, device="cpu")
+    eng.any_k_batch(queries, device=True)
+    assert calls == ["density_combine_batch"]
+    calls.clear()
+    batch = eng.any_k_batch(queries, algo="auto", device=False)  # 2 rounds: exclusions
+    assert calls == ["density_combine_batch"] * len(plans) and len(plans) >= batch.rounds > 1
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=60))
+    try:
+        eng.attach_mesh(make_host_mesh(device_type="cpu"))
+        calls.clear()
+        eng.any_k_batch(queries, device=True)
+        assert calls == ["density_combine_batch_sharded"]
     finally:
         dist.destroy_process_group()
 
