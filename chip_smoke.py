@@ -62,16 +62,52 @@ path must have launched each of its own kernels (``PHASE_KERNELS``):
    rank's per-query digest must equal the sharded phase's, and each rank's
    cold wave must launch #3 once.
 
+Then the rest of the paper's query surface on the same table, each phase
+also run by the port on the CPU copy of the store (plain versions), which
+it must equal:
+
+10. predicates — a wave of 64 queries (``make_tree_wave``): 48 Predicate
+   trees (``Eq``, ``In`` of 2-4 values, ``Range`` over month or day of
+   week, ``Not``, ``And``/``Or`` nested two deep) and 16 pair lists,
+   through the device wave (one #2 launch for the pair lists, one #1 for
+   each ``In`` node compiled on the card, one #5 a round, asserted), then
+11. predicates_host — the host mirror on a fresh engine (rounds, blocks
+   and cache counters equal the device wave's; #2 once a combine), and
+12. predicates_single — ``any_k`` for 8 of its queries.  Every record is
+   re-checked against its tree on the host table in numpy.
+13. forward_optimal — ``forward_optimal_scan`` over a combined row at the
+   full λ = 12,208 with k = 1,000 under ``hdd`` (t = 64), its ``opt_table``
+   equal to the CPU run's bit for bit; then at the reference bench's scale
+   (``make_clustered_table(50_000, num_dims=4, density=0.2, seed=7)``,
+   blocks of 64, λ = 782, k = 100: the faithful DP is O(λ·k·t) Python and
+   takes minutes at λ = 12,208) the faithful DP and ``any_k(algo=
+   "forward_optimal")``, the DP's cost equal to the scan's Opt(k) within
+   1e-4.
+14. aggregate — ``engine.aggregate`` for a pair list and a tree (measure 0,
+   k = 20,000, α = 0.1, both estimators), then ``run_online_aggregate`` to
+   an error SLO of 1% of the offline mean (chunks of 8, at most 64 rounds),
+   whose last estimate must ``==`` the offline estimator on its fetched
+   set; blocks equal the CPU run's, estimates within ``RTOL``; the true
+   mean over every matching record, exact in f64 on the card.
+15. groupby — ``groupby_any_k`` over the 12 carriers of origin 0's flights,
+   k = 1,000 a group, ψ = 8, measure 0: counts, blocks and records equal
+   the CPU run's.
+16. baselines — bitmap (91 rows × 1,562,500 words), lossy-bitmap and EWAH
+   indexes of the whole table on the card, word for word equal to the CPU
+   build's; BITMAP-SCAN, EWAH-SCAN and DISK-SCAN for the 16 pair lists,
+   first-k ids equal to the host table's; Table 2's bytes.  The indexes
+   are freed before the LM phases.
+
 Then the LM serving path, on zamba2-7b at its published widths and full
 depth (81 layers, ~5.74·10⁹ parameters, f32, random weights from
 ``--seed``; the any-k data stays on the card beside it):
 
-10. lm_forward — ``LM.forward`` on a ``[1, 2048]`` token batch with
+17. lm_forward — ``LM.forward`` on a ``[1, 2048]`` token batch with
    ``impl="kernel"``: flash attention (#8) must launch once per ``A``
    occurrence (13) and the SSD scan (#9) once per ``M`` sublayer (68).
    The logits are held against the same forward with ``impl="plain"`` on
    the card within ``LM_ATOL``/``LM_RTOL``.
-11. lm_serve — ``ServeEngine(cfg, model, device="cuda").run_until_drained``
+18. lm_serve — ``ServeEngine(cfg, model, device="cuda").run_until_drained``
    on the launcher's traffic (8 requests, prompts of 4-23 tokens, 16 new
    tokens, 4 slots, ``max_seq`` 128) and on long prompts (4 requests of
    1024-2048 tokens, ``max_seq`` 2176), each beside the same engine with
@@ -87,13 +123,13 @@ Then, with zamba2-7b freed, the sliding-window family: gemma3-12b at its
 published widths and full depth (48 layers ``LLLLLG``, window 1024,
 d_model 3840, 16 heads of 240, 8 kv heads, ~1.26·10¹⁰ parameters, f32):
 
-12. lm_forward_swa — as lm_forward: #8 must launch once per attention
+19. lm_forward_swa — as lm_forward: #8 must launch once per attention
    sublayer, 48 times (40 windowed, 8 global).
-13. lm_serve_swa — as lm_serve on both traffics.  The long prompts exceed
+20. lm_serve_swa — as lm_serve on both traffics.  The long prompts exceed
    the window, so prefill arranges each ``L`` layer's ring of 1024 slots
    (compared slot for slot) and decoding goes on around it.
 
-14. kernels — each kernel at its path's shapes against its plain PyTorch
+21. kernels — each kernel at its path's shapes against its plain PyTorch
    version on the card (exact for the combines, the gather, the prefix scan
    and the θ-counts, ``rtol=1e-5`` for the θ-sums; the reference's own
    tolerances for #8 and #9), timed with CUDA events (median of 25) beside
@@ -185,6 +221,14 @@ PHASE_KERNELS = {
     "sharded": ("density_combine_batch_sharded", "theta_stats_batch", "prefix_sum",
                 "block_gather"),
     "sharded_ranks": ("density_combine_batch_sharded", "prefix_sum", "block_gather"),
+    "predicates": ("density_combine", "density_combine_batch", "theta_stats_batch", "prefix_sum",
+                   "block_gather"),
+    "predicates_host": ("density_combine", "density_combine_batch", "prefix_sum", "block_gather"),
+    "predicates_single": ("density_combine", "prefix_sum", "block_gather"),
+    "forward_optimal": ("density_combine", "block_gather"),
+    "aggregate": ("density_combine", "prefix_sum", "block_gather"),
+    "groupby": ("density_combine", "block_gather"),
+    "baselines": (),  # plain tensor operations: the reference's baselines run no kernel
     "lm_forward": LM_KERNELS,
     "lm_serve": LM_KERNELS,
     "lm_forward_swa": ("flash_attention",),
@@ -303,6 +347,29 @@ def assert_same(a, b, what: str) -> None:
         raise AssertionError(f"{what} differ")
 
 
+def tree_mask(pred, dims: np.ndarray) -> np.ndarray:
+    """A Predicate tree over the host table's ``[n, r]`` rows, in numpy,
+    from the tree's fields alone (not the port's ``mask``)."""
+    kind = type(pred).__name__
+    if kind == "Eq":
+        return dims[:, pred.attr] == pred.value
+    if kind == "In":
+        return np.isin(dims[:, pred.attr], np.asarray(pred.values))
+    if kind == "Not":
+        return ~tree_mask(pred.part, dims)
+    masks = [tree_mask(p, dims) for p in pred.parts]
+    return np.logical_and.reduce(masks) if kind == "And" else np.logical_or.reduce(masks)
+
+
+def query_mask(q, dims: np.ndarray) -> np.ndarray:
+    """Which of the host table's ``[n, r]`` rows satisfy query ``q`` (pairs
+    under its op, or its Predicate tree)."""
+    if isinstance(q.predicates, (list, tuple)):
+        hits = [dims[:, a] == v for a, v in q.predicates]
+        return np.logical_and.reduce(hits) if q.op == "and" else np.logical_or.reduce(hits)
+    return tree_mask(q.predicates, dims)
+
+
 def check_records(table, store, queries, batch, max_refills: int) -> dict:
     """Every returned record satisfies its predicates on the host table and
     carries its measures; ``num_records >= k`` unless the data or the refill
@@ -312,15 +379,13 @@ def check_records(table, store, queries, batch, max_refills: int) -> dict:
         idx = r.record_block * store.records_per_block + r.record_row
         if idx.size and idx.max() >= table.num_records:
             raise AssertionError("a returned record lies in block padding")
-        sub = table.dims[idx]
-        hits = [sub[:, a] == v for a, v in q.predicates]
-        ok = np.logical_and.reduce(hits) if q.op == "and" else np.logical_or.reduce(hits)
+        ok = query_mask(q, table.dims[idx])
         if not ok.all():
             raise AssertionError(f"{(~ok).sum()} returned records fail {q.predicates} {q.op}")
         if idx.size:
             assert_same(r.measures, table.measures[idx], "returned measures")
         if r.num_records < q.k:
-            if int(table.valid_mask(q.predicates, q.op).sum()) < q.k:
+            if int(query_mask(q, table.dims).sum()) < q.k:
                 reasons["full_scan_short"] += 1
             elif r.plan_rounds >= max_refills:
                 reasons["max_refills"] += 1
@@ -1844,6 +1909,401 @@ def lm_phases(model, fphase: str, sphase: str, args, phase_launches: dict) -> in
     return long_seq
 
 
+# ---------------------------------------------------------------------------
+# Predicate trees, FORWARD-OPTIMAL, the §5 aggregate path, group-by and the
+# baselines on the airline-like table.
+# ---------------------------------------------------------------------------
+
+def make_tree_wave(cards: np.ndarray, q: int, seed: int):
+    """``q`` queries, every fourth a pair list (``make_wave``'s) and the rest
+    Predicate trees, cycling through six shapes: ``Eq``, ``In`` of 2-4
+    values, ``Range`` over month or day of week, ``Not``, and ``And`` /
+    ``Or`` nested two deep; leaf values as ``make_wave`` draws them, k
+    log-uniform in [100, 20000], every 8th ``threshold`` and ``two_prong``."""
+    from repro_torch.core import predicates as tp
+    from repro_torch.core.multi_query import BatchQuery
+
+    rng = np.random.default_rng(seed + 1)
+    span = np.minimum(np.asarray(cards), [12, 7, 12, 6, 6])
+    pairs = iter(make_wave(cards, q // 4, seed + 1))
+
+    def eq():
+        a = int(rng.integers(0, len(cards)))
+        return tp.Eq(a, int(rng.integers(0, span[a])))
+
+    def isin():
+        a = int(rng.integers(0, len(cards)))
+        vals = rng.choice(int(span[a]), size=int(rng.integers(2, 5)), replace=False)
+        return tp.In(a, tuple(sorted(int(v) for v in vals)))
+
+    def rng_range():
+        a = int(rng.integers(0, 2))  # month or day of week
+        lo = int(rng.integers(0, cards[a] - 1))
+        return tp.Range(a, lo, int(rng.integers(lo + 1, min(lo + 4, cards[a] - 1) + 1)))
+
+    def leaf():
+        return (eq, isin, rng_range)[int(rng.integers(0, 3))]()
+
+    shapes = [eq, isin, rng_range, lambda: tp.Not(leaf()),
+              lambda: tp.And((tp.Or((leaf(), leaf())), leaf())),
+              lambda: tp.Or((tp.And((leaf(), tp.Not(leaf()))), leaf()))]
+    wave = []
+    for i in range(q):
+        if i % 4 == 3:
+            wave.append(next(pairs))
+            continue
+        k = int(np.exp(rng.uniform(np.log(100), np.log(20000))))
+        algo = {1: "threshold", 2: "two_prong"}.get(i % 8)
+        wave.append(BatchQuery(shapes[len(wave) % 6](), k, algo=algo))
+    return wave
+
+
+def count_in_nodes(pred) -> int:
+    """``In`` nodes of a tree: each compiles with one ``density_combine``."""
+    kind = type(pred).__name__
+    if kind == "In":
+        return 1
+    if kind == "Not":
+        return count_in_nodes(pred.part)
+    return sum(count_in_nodes(p) for p in getattr(pred, "parts", ()))
+
+
+def pick_tree_singles(queries, batch, n: int = 8) -> list[int]:
+    """Wave indices for single ``any_k`` calls: the first tree of each
+    algorithm, the first pair list, the first query that refilled, then the
+    next trees up to ``n``."""
+    trees = [i for i, q in enumerate(queries) if not isinstance(q.predicates, (list, tuple))]
+    pick = [next(i for i in trees if (queries[i].algo or "auto") == a)
+            for a in ("threshold", "two_prong", "auto")]
+    pick.append(next(i for i, q in enumerate(queries) if isinstance(q.predicates, (list, tuple))))
+    pick += [i for i, r in enumerate(batch.results) if r.plan_rounds > 1][:1]
+    pick += [i for i in trees if i not in pick][: max(0, n - len(set(pick)))]
+    return sorted(set(pick))
+
+
+def predicates_check(table, store, cpu_store, queries, run, device: str = "cuda") -> dict:
+    """The tree wave through the device wave, the host mirror and single
+    ``any_k`` calls on ``device`` (each path counted as one ``run`` phase),
+    every record re-checked on the host table, each loop equal to the others
+    and to the device wave run by the port on the CPU."""
+    from repro_torch.core import multi_query
+    from repro_torch.core.engine import NeedleTailEngine
+
+    n_in = sum(count_in_nodes(q.predicates) for q in queries
+               if not isinstance(q.predicates, (list, tuple)))
+    eng = NeedleTailEngine(store, device=device)
+    batch, wall, launches = run("predicates", lambda: eng.any_k_batch(queries, device=True))
+    if device == "cuda":  # the plain versions launch nothing
+        # one combine of the pair lists, one #1 a compiled In node, one θ-round a round
+        check_launches(launches, {"density_combine_batch": 1, "density_combine": n_in,
+                                  "theta_stats_batch": batch.device_transfers}, "predicates")
+    reasons = check_records(table, store, queries, batch, eng.max_refills)
+    host_eng = NeedleTailEngine(store, device=device)
+    with count_calls(multi_query, "combine_densities_wave") as combines:
+        host, host_wall, host_launches = run(
+            "predicates_host", lambda: host_eng.any_k_batch(queries, device=False))
+    if device == "cuda":
+        check_launches(host_launches, {"density_combine_batch": combines["calls"]},
+                       "predicates host mirror")
+    compare_waves(batch, host)
+    if (host.rounds, host.store_blocks_fetched, host.cache_hits) != \
+            (batch.rounds, batch.store_blocks_fetched, batch.cache_hits) or \
+            not np.array_equal(host.unique_blocks_fetched, batch.unique_blocks_fetched):
+        raise AssertionError("the tree wave's host mirror differs from its device wave")
+    pick = pick_tree_singles(queries, batch)
+    single_eng = NeedleTailEngine(store, device=device)
+    times = []
+
+    def singles_fn():
+        out = []
+        for i in pick:
+            q = queries[i]
+            t0 = time.perf_counter()
+            out.append(single_eng.any_k(q.predicates, q.k, q.op, q.algo or "auto"))
+            sync(device)
+            times.append(time.perf_counter() - t0)
+        return out
+
+    singles, single_wall, single_launches = run("predicates_single", singles_fn)
+    for i, r in zip(pick, singles):
+        compare_results(r, batch.results[i], f"tree wave any_k of query {i}")
+    t0 = time.perf_counter()
+    cpu = NeedleTailEngine(cpu_store, device="cpu").any_k_batch(queries, device=True)
+    cpu_wall = time.perf_counter() - t0
+    compare_waves(batch, cpu)
+    return {"walls": {"device_wave": wall, "host_mirror": host_wall, "single": single_wall,
+                      "cpu_device_wave": cpu_wall},
+            "single_s": times, "picked": pick, "rounds": batch.rounds,
+            "transfers": batch.device_transfers,
+            "unique_blocks": int(batch.unique_blocks_fetched.size),
+            "records": sum(r.num_records for r in batch.results), "short_of_k": reasons,
+            "in_nodes": n_in, "launches": {"predicates": launches, "predicates_host": host_launches,
+                                           "predicates_single": single_launches}}
+
+
+FO_BENCH = dict(num_records=50_000, num_dims=4, density=0.2, seed=7)  # bench_forward_optimal
+FO_RPB, FO_K, FO_SCAN_K = 64, 100, 1000
+
+
+def forward_optimal_check(row, run, device: str = "cuda") -> dict:
+    """FORWARD-OPTIMAL: the scan DP over the ``[λ]`` combined ``row`` at
+    k = 1,000 under ``hdd``, on ``device`` and on the CPU (``opt_table`` bit
+    for bit); then, at the reference bench's scale (λ = 782, k = 100), the
+    faithful host DP on the card's combined row and ``any_k(algo=
+    "forward_optimal")``, each equal to the CPU run's, and the DP's cost
+    against the scan's Opt(k)."""
+    from repro_torch.core.cost_model import make_cost_model
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.core.forward_optimal import forward_optimal_faithful, forward_optimal_scan
+    from repro_torch.data.block_store import build_block_store
+    from repro_torch.data.synthetic import make_clustered_table
+
+    cm = make_cost_model("hdd")
+    bench = make_clustered_table(**FO_BENCH)
+    small = build_block_store(bench, FO_RPB, device=device)
+    preds = [(0, 1)]
+    walls = {}
+
+    def card():
+        t0 = time.perf_counter()
+        scan = forward_optimal_scan(row, FO_SCAN_K, RPB, cm)
+        sync(device)
+        walls["scan_full"] = time.perf_counter() - t0
+        eng = NeedleTailEngine(small, cost_model=cm, device=device)
+        comb = eng.combined_density(preds)
+        t0 = time.perf_counter()
+        dp = forward_optimal_faithful(comb, FO_K, FO_RPB, cm)
+        walls["faithful_dp"] = time.perf_counter() - t0
+        small_scan = forward_optimal_scan(comb, FO_K, FO_RPB, cm)
+        t0 = time.perf_counter()
+        r = eng.any_k(preds, FO_K, algo="forward_optimal")
+        walls["any_k"] = time.perf_counter() - t0
+        return scan, dp, float(small_scan.opt_cost), r
+
+    (scan, dp, small_opt, r), wall, launches = run("forward_optimal", card)
+    t0 = time.perf_counter()
+    cpu_scan = forward_optimal_scan(row.cpu(), FO_SCAN_K, RPB, cm)
+    walls["scan_full_cpu"] = time.perf_counter() - t0
+    assert_same(scan.opt_table.cpu().numpy(), cpu_scan.opt_table.numpy(), "the scan's opt_table")
+    cpu_small = small.to("cpu")
+    cpu_eng = NeedleTailEngine(cpu_small, cost_model=cm, device="cpu")
+    if forward_optimal_faithful(cpu_eng.combined_density(preds), FO_K, FO_RPB, cm) != dp:
+        raise AssertionError("the faithful DP differs from the CPU run's")
+    compare_results(r, cpu_eng.any_k(preds, FO_K, algo="forward_optimal"), "any_k forward_optimal")
+    if not np.isclose(dp[1], small_opt, rtol=1e-4, atol=0.0):
+        raise AssertionError(f"the DP's cost {dp[1]} is not the scan's Opt(k) {small_opt}")
+    valid = bench.valid_mask(preds)
+    idx = r.record_block * FO_RPB + r.record_row
+    if not valid[idx].all() or r.num_records < FO_K:
+        raise AssertionError("any_k forward_optimal returned a non-matching record or < k")
+    return {"walls": walls, "wall": wall, "lam_full": int(row.shape[0]),
+            "opt_cost_full": float(scan.opt_cost), "lam_bench": small.num_blocks,
+            "dp_blocks": len(dp[0]), "dp_cost": dp[1], "scan_opt_k": small_opt,
+            "any_k": {"blocks": int(r.blocks_fetched.size), "records": r.num_records,
+                      "rounds": r.plan_rounds, "modeled_io_s": r.modeled_io_s},
+            "launches": launches}
+
+
+AGG_K, AGG_ALPHA, AGG_SLO, AGG_CHUNK, AGG_ROUNDS = 20_000, 0.1, 0.01, 8, 64
+
+
+def offline_estimate(engine, query, plan, population_size):
+    """``NeedleTailEngine.aggregate``'s extraction and estimator, one-shot on
+    an explicit design: what the online fold's last estimate must equal."""
+    from repro_torch.core import estimators as est
+    from repro_torch.core.engine import block_partials
+
+    blocks = np.sort(plan.blocks)
+    bd, bm, bv = engine.block_cache.get_many(engine.store, blocks)
+    tau, n = block_partials(engine._mask(bd, query.predicates, query.op) & bv,
+                            bm[..., query.measure])
+    in_sc = np.isin(blocks, plan.sc)
+    fn = est.horvitz_thompson if query.estimator == "ht" else est.ratio_estimator
+    return fn(tau[in_sc], tau[~in_sc], n[in_sc], n[~in_sc], plan, population_size)
+
+
+def estimate_dict(e) -> dict:
+    return {"total": e.total, "mean": e.mean, "ci95": e.ci_halfwidth(), "var_mean": e.var_mean,
+            "samples": e.num_samples}
+
+
+def aggregate_check(store, cpu_store, cases, run, seed: int, device: str = "cuda") -> dict:
+    """``engine.aggregate`` for each ``(label, predicates)`` case (measure
+    0, both estimators), then ``run_online_aggregate`` to an error SLO of 1%
+    of the offline mean, on ``device``; the fold's last estimate ``==`` the
+    offline estimator on its fetched set; blocks equal the CPU run's and
+    estimates within ``RTOL``; the true mean exact in f64 on ``device``."""
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.core.online_agg import AggregateQuery, run_online_aggregate
+
+    out = {}
+    eng = NeedleTailEngine(store, device=device)
+
+    def card():
+        res = {}
+        for label, preds in cases:
+            for estimator in ("ht", "ratio"):
+                t0 = time.perf_counter()
+                e, qr, plan = eng.aggregate(preds, 0, AGG_K, AGG_ALPHA, estimator=estimator,
+                                            seed=seed)
+                res[label, estimator] = (e, qr, plan, time.perf_counter() - t0)
+            q = AggregateQuery(preds, 0, AGG_K, AGG_ALPHA, seed=seed)
+            slo = AGG_SLO * abs(res[label, "ratio"][0].mean)
+            t0 = time.perf_counter()
+            online = run_online_aggregate(eng, q, error_slo=slo, chunk_blocks=AGG_CHUNK,
+                                          max_rounds=AGG_ROUNDS)
+            res[label, "online"] = (q, slo, online, time.perf_counter() - t0)
+        return res
+
+    res, wall, launches = run("aggregate", card)
+    cpu = NeedleTailEngine(cpu_store, device="cpu")
+    for label, preds in cases:
+        for estimator in ("ht", "ratio"):
+            e, qr, plan, t = res[label, estimator]
+            ce, cqr, _ = cpu.aggregate(preds, 0, AGG_K, AGG_ALPHA, estimator=estimator, seed=seed)
+            assert_same(qr.blocks_fetched, cqr.blocks_fetched, f"aggregate {label} blocks")
+            for f in ("total", "mean", "var_total", "var_mean"):
+                if not np.isclose(getattr(e, f), getattr(ce, f), rtol=RTOL, atol=0.0):
+                    raise AssertionError(f"aggregate {label} {estimator} {f} differs from the CPU")
+            out[f"{label} {estimator}"] = {**estimate_dict(e), "blocks": int(qr.blocks_fetched.size),
+                                           "wall_s": t, "bit_equal_cpu": e == ce}
+        q, slo, online, t = res[label, "online"]
+        if online.estimate != offline_estimate(eng, q, online.plan, online.population_size):
+            raise AssertionError(f"online {label}: the fold differs from the offline estimator")
+        conline = run_online_aggregate(cpu, q, error_slo=slo, chunk_blocks=AGG_CHUNK,
+                                       max_rounds=AGG_ROUNDS)
+        if (online.reason, online.rounds, online.blocks_fetched) != \
+                (conline.reason, conline.rounds, conline.blocks_fetched):
+            raise AssertionError(f"online {label}: rounds or blocks differ from the CPU run's")
+        if not np.isclose(online.estimate.mean, conline.estimate.mean, rtol=RTOL, atol=0.0):
+            raise AssertionError(f"online {label}: estimate differs from the CPU run's")
+        out[f"{label} online"] = {**estimate_dict(online.estimate), "slo": slo,
+                                  "reason": online.reason, "rounds": online.rounds,
+                                  "blocks": online.blocks_fetched, "wall_s": t}
+        # the true mean over every matching record, exact in f64 on the card
+        mask = eng._mask(store.dims, preds) & store.valid_rows
+        out[f"{label} true"] = {
+            "mean": float(store.measures[..., 0].double()[mask].sum() / mask.sum()),
+            "records": int(mask.sum())}
+        del mask
+        sync(device)
+    out["wall"], out["launches"] = wall, launches
+    return out
+
+
+GROUPBY = dict(predicates=[(3, 0)], group_attr=2, k=1000, psi=8, measure=0)  # carrier
+
+
+def groupby_check(table, store, cpu_store, run, device: str = "cuda") -> dict:
+    """``groupby_any_k`` over the 12 carriers of origin 0's flights on
+    ``device``: counts, blocks, records and snapshots equal the CPU run's,
+    every record matches on the host table."""
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.core.groupby import groupby_any_k
+
+    eng = NeedleTailEngine(store, device=device)
+    g, wall, launches = run("groupby", lambda: groupby_any_k(eng, **GROUPBY))
+    t0 = time.perf_counter()
+    c = groupby_any_k(NeedleTailEngine(cpu_store, device="cpu"), **GROUPBY)
+    cpu_wall = time.perf_counter() - t0
+    for f in ("per_group_counts", "blocks_fetched", "record_block", "record_row", "record_group"):
+        assert_same(getattr(g, f), getattr(c, f), f"groupby {f}")
+    for snap, csnap in zip(g.estimate_stream, c.estimate_stream):
+        for grp in snap:
+            if not np.isclose(snap[grp].mean, csnap[grp].mean, rtol=RTOL, atol=0.0):
+                raise AssertionError(f"groupby snapshot of group {grp} differs from the CPU")
+    idx = g.record_block * store.records_per_block + g.record_row
+    a, v = GROUPBY["predicates"][0]
+    if not ((table.dims[idx, a] == v).all()
+            and (table.dims[idx, GROUPBY["group_attr"]] == g.record_group).all()):
+        raise AssertionError("groupby returned a record outside its predicate or group")
+    if (g.per_group_counts != GROUPBY["k"]).any():
+        raise AssertionError(f"groupby counts {g.per_group_counts} short of k")
+    return {"wall": wall, "cpu_wall": cpu_wall, "rounds": g.rounds,
+            "blocks": int(g.blocks_fetched.size), "counts": g.per_group_counts.tolist(),
+            "ci95": {int(k): v.ci_halfwidth() for k, v in g.group_estimates.items()},
+            "launches": launches}
+
+
+def first_k_truth(table, q, k: int, chunk: int = 1 << 22) -> np.ndarray:
+    """The first k matching records of the host table, a stretch at a time."""
+    out, got = [], 0
+    for lo in range(0, table.num_records, chunk):
+        hit = np.flatnonzero(query_mask(q, table.dims[lo:lo + chunk]))[: k - got] + lo
+        out.append(hit)
+        got += hit.size
+        if got >= k:
+            break
+    return np.concatenate(out)
+
+
+def baselines_check(table, store, cpu_store, queries, run, device: str = "cuda") -> dict:
+    """Bitmap, lossy-bitmap and EWAH indexes of the whole table built on
+    ``device`` and by the port on the CPU, word for word equal; BITMAP-SCAN,
+    EWAH-SCAN and DISK-SCAN of the pair ``queries`` on both, first-k ids
+    equal to the host table's truth; Table 2's bytes.  Returns the summary
+    and the ``device`` indexes (the caller frees them)."""
+    import torch
+
+    from repro_torch.core import baselines as tb
+
+    def build(st, dev):
+        dims = st.dims.view(-1, st.dims.shape[-1])[:st.num_records]
+        t0 = time.perf_counter()
+        bm = tb.build_bitmap_index(dims, table.cards, device=dev)
+        sync(dev)
+        t1 = time.perf_counter()
+        ew = tb.build_ewah_index(bm)
+        sync(dev)
+        t2 = time.perf_counter()
+        lossy = tb.build_lossy_bitmap(st.index.densities, st.index.vocab.attr_offsets)
+        return bm, ew, lossy, {"bitmap_s": t1 - t0, "ewah_s": t2 - t1}
+
+    def scans(st, bm, ew):
+        out, t = [], {"bitmap": 0.0, "ewah": 0.0, "disk": 0.0}
+        for q in queries:
+            t0 = time.perf_counter()
+            b = tb.bitmap_scan(bm, q.predicates, q.k, RPB, q.op)
+            t1 = time.perf_counter()
+            e = tb.ewah_scan(ew, q.predicates, q.k, RPB, q.op)
+            t2 = time.perf_counter()
+            valid = (st.predicate_mask(st.dims, q.predicates, q.op) & st.valid_rows).view(-1)
+            d = tb.disk_scan(valid, q.k, RPB)
+            t3 = time.perf_counter()
+            t["bitmap"] += t1 - t0
+            t["ewah"] += t2 - t1
+            t["disk"] += t3 - t2
+            out.append((b, e, d))
+        return out, t
+
+    def card():
+        bm, ew, lossy, tbuild = build(store, device)
+        res, tscan = scans(store, bm, ew)
+        return bm, ew, lossy, res, {**tbuild, **tscan}
+
+    (bm, ew, lossy, res, walls), wall, launches = run("baselines", card)
+    cbm, cew, clossy, cwalls = build(cpu_store, "cpu")
+    if not torch.equal(bm.bits.cpu(), cbm.bits):
+        raise AssertionError("bitmap words differ from the CPU build's")
+    if not torch.equal(lossy.bits.cpu(), clossy.bits):
+        raise AssertionError("lossy-bitmap words differ from the CPU build's")
+    for r, (a, b) in enumerate(zip(ew.streams, cew.streams)):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"EWAH stream of row {r} differs from the CPU build's")
+    cres, ctscan = scans(cpu_store, cbm, cew)
+    for q, got, want in zip(queries, res, cres):
+        truth = first_k_truth(table, q, q.k)
+        for name, (recs, blocks), (crecs, cblocks) in zip(("bitmap", "ewah", "disk"), got, want):
+            assert_same(recs, crecs, f"{name} scan records vs the CPU")
+            assert_same(blocks, cblocks, f"{name} scan blocks vs the CPU")
+            assert_same(recs, truth, f"{name} scan records vs the table")
+    nbytes = {"data": store.data_nbytes(), "density_maps": store.index.nbytes_maps_only(),
+              "density_maps_with_sorted": store.index.nbytes(), "bitmap": bm.nbytes(),
+              "ewah": ew.nbytes(), "lossy_bitmap": lossy.nbytes()}
+    return {"wall": wall, "walls": walls, "cpu_walls": {**cwalls, **ctscan}, "nbytes": nbytes,
+            "queries": len(queries), "launches": launches}, (bm, ew, lossy)
+
+
 def run_phase(name: str, fn):
     """Zero the launch counters, run ``fn``, read them: ``name``'s kernels
     must all have launched.  Returns ``(result, wall seconds, launches)``."""
@@ -1967,7 +2427,7 @@ def main(argv=None) -> int:
     log(f"cpu wave: {time.perf_counter() - t0:.1f} s")
     compare_waves(batch, cpu)
     log("card wave == cpu wave on every query (boundary cases: 0)")
-    del cpu_store, cpu
+    del cpu
     log(f"two-prong contract at round 0: {window_contract(store, queries)}")
 
     # -- 5. host-mirror: the reference's default loop on a fresh engine
@@ -2083,7 +2543,46 @@ def main(argv=None) -> int:
                     for r in ranks)
         + "; every rank == the sharded phase, counters included")
 
-    # -- 10. lm_forward and 11. lm_serve: zamba2-7b at full width on the card
+    # -- 10-16. predicate trees, FORWARD-OPTIMAL, the §5 aggregate path,
+    # group-by and the baselines, each also run by the port on the CPU store
+    tree_queries = make_tree_wave(table.cards, Q, args.seed)
+    t0 = time.perf_counter()
+    pr = predicates_check(table, store, cpu_store, tree_queries, run_phase)
+    phase_launches.update(pr.pop("launches"))
+    log(f"predicates: Q={Q} ({Q - Q // 4} trees with {pr['in_nodes']} In nodes, {Q // 4} pair "
+        f"lists) {pr}; every loop == the device wave == the CPU run; {time.perf_counter() - t0:.1f} "
+        "s in all")
+    t0 = time.perf_counter()
+    fo = forward_optimal_check(rows[0], run_phase)
+    phase_launches["forward_optimal"] = fo.pop("launches")
+    log(f"forward_optimal: {fo}; opt_table == the CPU run's, DP == CPU DP, any_k == CPU any_k, "
+        f"DP cost == scan Opt(k) within 1e-4; {time.perf_counter() - t0:.1f} s in all")
+    from repro_torch.core import predicates as tp
+
+    t0 = time.perf_counter()
+    agg = aggregate_check(store, cpu_store, [
+        ("pairs [(0, 6), (2, 3)]", [(0, 6), (2, 3)]),
+        ("tree And(In(0, (5, 6, 7)), Not(Eq(3, 0)))",
+         tp.And((tp.In(0, (5, 6, 7)), tp.Not(tp.Eq(3, 0)))))], run_phase, args.seed)
+    phase_launches["aggregate"] = agg.pop("launches")
+    log(f"aggregate: {agg}; blocks == the CPU run's, estimates within {RTOL}, each online fold "
+        f"== its offline estimator; {time.perf_counter() - t0:.1f} s in all")
+    t0 = time.perf_counter()
+    gb = groupby_check(table, store, cpu_store, run_phase)
+    phase_launches["groupby"] = gb.pop("launches")
+    log(f"groupby {GROUPBY}: {gb}; counts, blocks and records == the CPU run's; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    t0 = time.perf_counter()
+    bl, held = baselines_check(table, store, cpu_store,
+                               [q for q in tree_queries if isinstance(q.predicates, list)],
+                               run_phase)
+    phase_launches["baselines"] = bl.pop("launches")
+    log(f"baselines: {bl}; words, streams and scans == the CPU run's, first-k ids == the "
+        f"table's; {time.perf_counter() - t0:.1f} s in all")
+    del held, cpu_store
+    torch.cuda.empty_cache()
+
+    # -- 17. lm_forward and 18. lm_serve: zamba2-7b at full width on the card
     # f32 products stay f32 on the card, as in the reference (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2095,7 +2594,7 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
 
-    # -- 12. lm_forward_swa and 13. lm_serve_swa: gemma3-12b at full width
+    # -- 19. lm_forward_swa and 20. lm_serve_swa: gemma3-12b at full width
     model = build_lm(scfg, args.seed)
     swa_seq = lm_phases(model, "lm_forward_swa", "lm_serve_swa", args, phase_launches)
     del model

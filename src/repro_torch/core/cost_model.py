@@ -1,9 +1,10 @@
 """Storage cost model (paper §4.3.1).
 
 Counterpart of ``repro/core/cost_model.py``, reduced to what the device wave
-needs: ``CostModel`` (``RandIO(i, j)`` and the §4.1 ascending-fetch
-``io_time`` the §7.2 ``auto`` arbitration compares) and the paper's two
-measured presets, ``"hdd"`` and ``"ssd"``.  The reference's ``"hbm"`` preset
+needs: ``CostModel`` (``RandIO(i, j)``, the §4.1 ascending-fetch
+``io_time`` the §7.2 ``auto`` arbitration compares and the ``rand_io_table``
+the FORWARD-OPTIMAL DP reads) and the paper's two measured presets,
+``"hdd"`` and ``"ssd"``.  The reference's ``"hbm"`` preset
 carries TPU figures; it, ``"dram"``, ``"ici"`` and the trend-line fitting
 arrive with the tiered-storage slice, with presets measured on the H100.
 """
@@ -41,6 +42,12 @@ class CostModel:
         if ids.size > 1:
             t += float(np.sum(self.rand_io(ids[:-1], ids[1:])))
         return t
+
+    def rand_io_table(self, t: int | None = None) -> np.ndarray:
+        """cost[d] for d = 0..t (cost[0] = 0), used by the FORWARD-OPTIMAL DP."""
+        t = self.max_dist if t is None else t
+        d = np.arange(0, t + 1)
+        return np.where(d == 0, 0.0, self.rand_io(0, d)).astype(np.float64)
 
 
 def _linear_curve(seq: float, far: float, t: int) -> Callable[[np.ndarray], np.ndarray]:

@@ -10,8 +10,8 @@ variants (paper §4.1) are built with it, as in the reference.
 operations in the reference's order, so the bytes are the same, and only
 then moves it to the requested device.  The §3.2 ⊕-combine of a query's
 rows runs on the index's device: :func:`combine_densities` for one query
-(the ``density_combine`` kernel on CUDA, its row ids passed by value and the
-planner's exclusion fused in), :func:`combine_densities_batch` for a
+(the reference's ``combine_densities_np``: the ``density_combine`` kernel
+on CUDA, its row ids passed by value and the planner's exclusion fused in), :func:`combine_densities_batch` for a
 ``[Q, γ_max]`` row matrix and :func:`combine_densities_wave` for a wave
 with an op per query and, optionally, per-query exclusions (one
 ``density_combine_batch`` launch).
@@ -45,6 +45,10 @@ class PredicateVocab:
     def num_rows(self) -> int:
         return int(self.attr_offsets[-1])
 
+    @property
+    def num_attrs(self) -> int:
+        return len(self.attr_cards)
+
     def row(self, attr: int, value: int) -> int:
         if not (0 <= value < self.attr_cards[attr]):
             raise ValueError(f"value {value} out of range for attr {attr}")
@@ -64,6 +68,18 @@ class DensityMapIndex:
     sorted_densities: torch.Tensor  # [num_rows, λ] f32, densities in that order
     records_per_block: int
     num_records: int
+
+    @property
+    def num_blocks(self) -> int:
+        return int(self.densities.shape[1])
+
+    def nbytes(self) -> int:
+        """Index memory (Table 2 accounting): densities + sorted structures."""
+        return int(self.densities.numel() * 4 + self.sorted_block_ids.numel() * 4
+                   + self.sorted_densities.numel() * 4)
+
+    def nbytes_maps_only(self) -> int:
+        return int(self.densities.numel() * 4)
 
     def to(self, device: str | torch.device) -> "DensityMapIndex":
         dev = resolve_device(device)
@@ -113,6 +129,13 @@ def build_density_maps(
         records_per_block=records_per_block,
         num_records=n,
     )
+
+
+def estimated_valid_records(index: DensityMapIndex, combined: torch.Tensor) -> torch.Tensor:
+    """Estimate L, the total number of valid records, from the combined map:
+    a ``[]`` f32 tensor on ``combined``'s device (its sum in the device's
+    order, not the reference's)."""
+    return torch.sum(combined) * index.records_per_block
 
 
 def pack_row_matrix(vocab: PredicateVocab, predicate_lists) -> np.ndarray:

@@ -13,7 +13,11 @@ or TWO-PRONG plan (the ``prefix_sum`` kernel) or the §7.2 ``auto`` choice
 between them, ``setdiff1d`` against the blocks already read, an ascending
 read through the engine-lifetime :class:`~repro_torch.core.block_cache.
 BlockLRUCache` (``block_gather``), then the predicate mask on the card.
-Each plan crosses to the host once, as one packed int32 vector.
+Each plan crosses to the host once, as one packed int32 vector.  A query's
+predicates are ``(attr, value)`` pairs under AND or OR, or a
+:class:`~repro_torch.core.predicates.Predicate` tree compiled on the card;
+``algo="forward_optimal"`` plans with the host DP of Algorithm 3
+(:mod:`repro_torch.core.forward_optimal`) on one host copy of the row.
 
 :meth:`NeedleTailEngine.any_k_batch` evaluates a wave of queries
 (:mod:`repro_torch.core.multi_query`), on the device or through the
@@ -22,28 +26,37 @@ host-mirror loop; per query it returns what ``any_k`` returns.  After
 engine on the same store and queries, and the waves plan over the
 λ-sharded density wave (:mod:`repro_torch.core.sharded`), with equal
 results.
+
+:meth:`NeedleTailEngine.aggregate` is the §5 hybrid-sampled estimate: the
+design is drawn on the host (:mod:`repro_torch.core.hybrid`), its blocks
+are read and their per-block sums taken on the card
+(:func:`block_partials`), and the estimators run on the host
+(:mod:`repro_torch.core.estimators`).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import TYPE_CHECKING, Sequence
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
+from repro_torch.core import estimators as est
 from repro_torch.core.block_cache import BlockLRUCache, PlanOrderCache
 from repro_torch.core.cost_model import CostModel, make_cost_model
 from repro_torch.core.density_map import AND, combine_densities
+from repro_torch.core.forward_optimal import forward_optimal_faithful
+from repro_torch.core.hybrid import HybridPlan, plan_hybrid
+from repro_torch.core.predicates import Predicate
 from repro_torch.core.threshold import threshold_select
 from repro_torch.core.two_prong import two_prong_select
 from repro_torch.device import resolve_device
+from repro_torch.kernels.density_combine import exclusion_ids
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.core.multi_query import BatchQueryResult
     from repro_torch.data.block_store import BlockStore
-
-Predicates = Sequence[tuple[int, int]]
 
 # what later slices of the port carry, by constructor argument
 _LATER = {
@@ -118,23 +131,33 @@ class NeedleTailEngine:
         comparison): the engine's cost model over the ascending ids."""
         return self.cost.io_time(block_ids)
 
-    def combined_density(self, predicates: Predicates, op: str = AND,
+    def combined_density(self, predicates, op: str = AND,
                          exclude: np.ndarray | None = None) -> torch.Tensor:
-        """``[λ]`` f32 ⊕-combined density on the engine's device, with the
-        blocks in ``exclude`` set to +0.0 (in the combine's own launch on
-        CUDA)."""
+        """``[λ]`` f32 combined density on the engine's device, with the
+        blocks in ``exclude`` set to +0.0: a ``Predicate`` tree compiled by
+        :mod:`repro_torch.core.predicates`, or the ⊕-combine of ``(attr,
+        value)`` pairs under ``op`` (the exclusion in the combine's own
+        launch on CUDA)."""
         from repro_torch.core.multi_query import check_predicates
 
         check_predicates(predicates, op)
+        if isinstance(predicates, Predicate):
+            out = predicates.density(self.store.index)
+            if exclude is not None and len(exclude):
+                ids = exclusion_ids(exclude, out.shape[0])
+                out[torch.from_numpy(ids).to(out.device).long()] = 0.0
+            return out
         rows = self.store.index.vocab.rows(predicates)
         return combine_densities(self.store.index.densities, rows, op, exclude)
 
-    def _mask(self, block_dims: torch.Tensor, predicates: Predicates, op: str = AND):
+    def _mask(self, block_dims: torch.Tensor, predicates, op: str = AND):
+        if isinstance(predicates, Predicate):
+            return predicates.mask(block_dims)
         return self.store.predicate_mask(block_dims, predicates, op)
 
     def plan(
         self,
-        predicates: Predicates,
+        predicates,
         k: int,
         op: str = AND,
         algo: str = "auto",
@@ -146,12 +169,17 @@ class NeedleTailEngine:
         host as one packed int32 vector (THRESHOLD ids, -1 past the cut,
         then ``num_selected``, then the TWO-PRONG window), so a plan costs
         one device→host copy whichever algorithm it takes.
+        ``forward_optimal`` runs the host DP of Algorithm 3 on one host copy
+        of the combined row, as the reference does.
         """
         from repro_torch.core.multi_query import check_algo
 
         check_algo(algo)
         combined = self.combined_density(predicates, op, exclude)
         rpb = self.store.records_per_block
+        if algo == "forward_optimal":
+            sel, _ = forward_optimal_faithful(combined, k, rpb, self.cost)
+            return np.asarray(sel, dtype=np.int64), algo
         parts = []
         if algo in ("threshold", "auto"):
             r = threshold_select(combined, float(k), rpb)
@@ -175,7 +203,7 @@ class NeedleTailEngine:
 
     # ------------------------------------------------------------------ query
     def _records(
-        self, predicates: Predicates, op: str, blocks: np.ndarray, slabs
+        self, predicates, op: str, blocks: np.ndarray, slabs
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """``(record_block, record_row, measures)`` of the valid records
         matching the query in ``blocks`` (ascending), in block-then-row
@@ -188,7 +216,7 @@ class NeedleTailEngine:
 
     def any_k(
         self,
-        predicates: Predicates,
+        predicates,
         k: int,
         op: str = AND,
         algo: str = "auto",
@@ -287,3 +315,111 @@ class NeedleTailEngine:
         if sharded and planner is None:
             raise ValueError("sharded=True but no mesh attached; call attach_mesh")
         return run_batch(self, queries, algo=algo, plan_on_host=not device, planner=planner)
+
+    # -------------------------------------------------------------- aggregate
+    def aggregate(
+        self,
+        predicates,
+        measure: int,
+        k: int,
+        alpha: float = 0.1,
+        op: str = AND,
+        estimator: str = "ratio",
+        algo: str = "threshold",
+        seed: int = 0,
+    ) -> tuple[est.Estimate, QueryResult, HybridPlan]:
+        """Hybrid-sampled aggregate estimation (paper §5): the combine and
+        the any-k plan on the card, the hybrid design drawn on the host
+        from one copy of the combined row, one ascending read of the
+        design's blocks through the block cache, the mask and the per-block
+        partials (:func:`block_partials`) on the card, then the estimator's
+        scalar sums on the host."""
+        t0 = time.perf_counter()
+        combined = self.combined_density(predicates, op).cpu().numpy()
+        rpb = self.store.records_per_block
+        anyk_blocks, _ = self.plan(predicates, k, op, algo)
+        rng = np.random.default_rng(seed)
+        plan = plan_hybrid(anyk_blocks, combined, k, alpha, rpb, rng)
+        blocks = np.sort(plan.blocks)
+        bd, bm, bv = self.block_cache.get_many(self.store, blocks)
+        mask = self._mask(bd, predicates, op) & bv
+        tau_i, n_i = block_partials(mask, bm[..., measure])
+        in_sc = np.isin(blocks, plan.sc)
+        L = float(np.sum(combined) * rpb)  # estimated population size
+        fn = est.horvitz_thompson if estimator == "ht" else est.ratio_estimator
+        e = fn(tau_i[in_sc], tau_i[~in_sc], n_i[in_sc], n_i[~in_sc], plan, L)
+        hit = torch.nonzero(mask)
+        meas = bm[hit[:, 0], hit[:, 1]].cpu().numpy()
+        hit = hit.cpu().numpy()
+        qr = QueryResult(
+            record_block=blocks[hit[:, 0]],
+            record_row=hit[:, 1],
+            measures=meas,
+            blocks_fetched=blocks,
+            algo=f"hybrid-{algo}",
+            cpu_time_s=time.perf_counter() - t0,
+            modeled_io_s=self.cost.io_time(blocks),
+            plan_rounds=1,
+        )
+        return e, qr, plan
+
+
+_NP_BUFSIZE = 8192  # numpy reduces a long axis in chunks of its buffer size
+_NP_BLOCKSIZE = 128  # numpy's pairwise-sum leaf
+
+
+def _np_pairwise(x: torch.Tensor) -> torch.Tensor:
+    """numpy's ``pairwise_sum`` over the last axis, vectorised over the
+    leading ones: below 8 elements a left fold; up to 128, eight strided
+    accumulators folded left to right, combined as ((0+1)+(2+3))+((4+5)+(6+7)),
+    then the rest; above, the two halves at a multiple of 8.  Equal halves
+    are stacked on a new axis and summed as one."""
+    n = x.shape[-1]
+    if n < 8:
+        acc = x[..., 0] if n else x.new_zeros(x.shape[:-1])
+        for i in range(1, n):
+            acc = acc + x[..., i]
+        return acc
+    if n <= _NP_BLOCKSIZE:
+        m = n - n % 8
+        lanes = x[..., :m].reshape(*x.shape[:-1], m // 8, 8)
+        r = lanes[..., 0, :]
+        for i in range(1, m // 8):
+            r = r + lanes[..., i, :]
+        acc = ((r[..., 0] + r[..., 1]) + (r[..., 2] + r[..., 3])) + \
+            ((r[..., 4] + r[..., 5]) + (r[..., 6] + r[..., 7]))
+        for i in range(m, n):
+            acc = acc + x[..., i]
+        return acc
+    half = n // 2 - (n // 2) % 8
+    if 2 * half == n:
+        both = _np_pairwise(x.reshape(*x.shape[:-1], 2, half))
+        return both[..., 0] + both[..., 1]
+    return _np_pairwise(x[..., :half]) + _np_pairwise(x[..., half:])
+
+
+def _np_sum(x: torch.Tensor) -> torch.Tensor:
+    """``np.sum(x, axis=-1)`` of a float32 array, bit for bit: the axis in
+    chunks of numpy's buffer size, each chunk's pairwise sum added left to
+    right.  Every element's sum is the same tree of single f32 adds whatever
+    the leading shape, so a block's sum does not depend on the blocks beside
+    it (a reduction kernel picks its order by shape)."""
+    acc = None
+    for lo in range(0, max(x.shape[-1], 1), _NP_BUFSIZE):
+        part = _np_pairwise(x[..., lo:lo + _NP_BUFSIZE])
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def block_partials(mask: torch.Tensor, vals: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """Per-block §5 statistics of fetched blocks, on their device:
+    ``τ_i``, the f32 sum of ``vals`` over the rows ``mask`` keeps, and
+    ``n_i``, the count of those rows (``mask`` and ``vals`` ``[..., R]``).
+    Returned as host arrays, f32 and f64 as the reference's extraction
+    gives them.  ``τ_i`` adds in numpy's order (:func:`_np_sum`), so it
+    equals the reference's bit for bit, and ``aggregate`` and the online
+    fold, which both use this, agree under ``==`` however the blocks are
+    batched."""
+    tau = _np_sum(torch.where(mask, vals, 0.0))
+    n = mask.sum(dim=-1)
+    return tau.cpu().numpy(), n.cpu().numpy().astype(np.float64)

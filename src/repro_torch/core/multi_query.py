@@ -6,7 +6,9 @@ Counterpart of ``repro/core/multi_query.py``.  Q concurrent
 1. **One combine** — the wave's predicate rows are ⊕-combined into a
    ``[Q, λ]`` matrix on the device, each under its query's op
    (:func:`repro_torch.core.density_map.combine_densities_wave`, one launch
-   of the ``density_combine_batch`` kernel).
+   of the ``density_combine_batch`` kernel); a query's
+   :class:`~repro_torch.core.predicates.Predicate` tree is compiled on the
+   device beside it (:func:`_wave_rows`).
 2. **Plan rounds**, in one of two loops:
 
    * the **device wave** (``run_batch(plan_on_host=False)``): a
@@ -25,7 +27,9 @@ Counterpart of ``repro/core/multi_query.py``.  Q concurrent
      query's THRESHOLD prefix on the host.
 
    Both make the §7.2 ``auto`` cost comparison on the host (the cost model
-   is float64 host code).
+   is float64 host code), and both plan ``forward_optimal`` queries with
+   the host DP of Algorithm 3 on a host copy of their rows, as the
+   reference does.
 3. **Union fetch** — each round's deduplicated ascending union goes through
    the engine-lifetime :class:`~repro_torch.core.block_cache.BlockLRUCache`
    (one store read of the misses); when the cache holds the whole union, one
@@ -48,7 +52,7 @@ rows (#3) and the round plans the shards
 (:meth:`~repro_torch.core.sharded.DistributedAnyK.device_round_fn`); in the
 host-mirror loop the memo misses go to the planner's wave methods.  Plans
 and results equal the unsharded ones.  Left for later slices of the port:
-``Predicate`` trees and ``forward_optimal``, tiers and the obs hooks.
+tiers and the obs hooks.
 """
 from __future__ import annotations
 
@@ -60,8 +64,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.density_map import AND, OR, combine_densities_wave, pack_row_matrix
+from repro_torch.core.forward_optimal import forward_optimal_faithful
+from repro_torch.core.predicates import Predicate
 from repro_torch.core.threshold import threshold_cut, threshold_sort_batch
 from repro_torch.core.two_prong import two_prong_select_batch
+from repro_torch.kernels.density_combine import exclusion_ids
 from repro_torch.kernels.plan_wave import (
     apply_chosen, join_wave_slots, pack_plan, plan_wave_from_combined, unpack_plan,
 )
@@ -69,36 +76,32 @@ from repro_torch.kernels.plan_wave import (
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.core.engine import NeedleTailEngine, QueryResult
 
-_ALGOS = ("threshold", "two_prong", "auto")
+_ALGOS = ("threshold", "two_prong", "auto", "forward_optimal")
 # (query, block) pairs whose predicate masks are evaluated per launch group;
 # bounds the [pairs, R] temporaries (4096 × 8192 rows × 4 B = 128 MiB)
 _PAIR_CHUNK = 4096
 
 
 def check_algo(algo: str) -> None:
-    """Raise for an algorithm this slice of the port does not carry."""
-    if algo == "forward_optimal":
-        raise NotImplementedError(
-            "forward_optimal arrives with the predicates slice, which ports "
-            "core/predicates.py and core/forward_optimal.py"
-        )
+    """Raise ``ValueError`` for an algorithm the engine does not know."""
     if algo not in _ALGOS:
         raise ValueError(f"unknown algo {algo!r}")
 
 
 def check_predicates(predicates, op: str) -> None:
-    """Raise for predicates this slice of the port does not carry: only
-    non-empty lists of ``(attr, value)`` pairs under AND or OR."""
+    """A query's predicates are a :class:`~repro_torch.core.predicates.
+    Predicate` tree or a non-empty sequence of ``(attr, value)`` pairs, and
+    its op is AND or OR."""
     if op not in (AND, OR):
         raise ValueError(f"unknown op {op!r}")
+    if isinstance(predicates, Predicate):
+        return
     pairs = isinstance(predicates, (list, tuple)) and len(predicates) > 0 and all(
         isinstance(p, (list, tuple)) and len(p) == 2 for p in predicates
     )
     if not pairs:
-        raise NotImplementedError(
-            "only lists of (attr, value) pairs are supported; Predicate trees "
-            "arrive with the predicates slice, which ports core/predicates.py"
-        )
+        raise TypeError("predicates must be a Predicate tree or a non-empty sequence of "
+                        f"(attr, value) pairs, not {predicates!r}")
 
 
 def _check_query(q: "BatchQuery") -> None:
@@ -109,13 +112,15 @@ def _check_query(q: "BatchQuery") -> None:
 
 @dataclasses.dataclass(frozen=True)
 class BatchQuery:
-    """One wave member: a LIMIT-k query over ⊕-combined (attr, value) pairs.
+    """One wave member: a LIMIT-k query over ⊕-combined (attr, value) pairs
+    or a :class:`~repro_torch.core.predicates.Predicate` tree (``op`` is
+    then not read).
 
     ``algo`` overrides the batch-level algorithm for this query; ``None``
     inherits the ``algo`` argument of the ``any_k_batch`` call.
     """
 
-    predicates: Sequence[tuple[int, int]]
+    predicates: Sequence[tuple[int, int]] | Predicate
     k: int
     op: str = AND
     algo: str | None = None
@@ -298,18 +303,16 @@ class DeviceWave:
         return st
 
     def _flush_joins(self) -> None:
-        """One ⊕-combine for the queued joiners, each row under its own op
-        (#2, or #3 on this rank's λ-shard with a sharded planner), then one
-        scatter seats them all."""
+        """The queued joiners' rows in one :func:`_wave_rows` (one ⊕-combine
+        for the pair lists, #2, or #3 on this rank's λ-shard with a sharded
+        planner; Predicate trees compiled beside it), then one scatter seats
+        them all."""
         if not self._joining:
             return
         joining, self._joining = self._joining, []
         dev = self.engine.device
-        dens = self.engine.store.index.densities
-        queries = [self.slots[slot].query for slot in joining]
-        rm = pack_row_matrix(self.engine.store.index.vocab, [q.predicates for q in queries])
-        combine = combine_densities_wave if self.planner is None else self.planner.combine_wave
-        rows = combine(dens, rm, [q.op for q in queries])
+        rows = _wave_rows(self.engine, [self.slots[slot].query for slot in joining],
+                          planner=self.planner)
         excl_rows = np.zeros((len(joining), self.lam), dtype=bool)
         for j, slot in enumerate(joining):
             ex = self.slots[slot].exclude
@@ -348,11 +351,24 @@ class DeviceWave:
         packed_np = packed.cpu().numpy()
         ds.transfers += 1
         th_mask, _, tps, tpe = unpack_plan(packed_np, self.lam)
+        # forward_optimal occupants plan on the host DP, from the host mirror
+        # of their rows (exclusions applied), as the reference does
+        fo_active = [st for st in active
+                     if (st.query.algo or self.default_algo) == "forward_optimal"]
+        fo_plans: dict[int, np.ndarray] = {}
+        if fo_active:
+            fo_rows = _combined_matrix(engine, fo_active).cpu().numpy()
+            for st, comb in zip(fo_active, fo_rows):
+                sel, _ = forward_optimal_faithful(comb, st.need, self.rpb, engine.cost)
+                fo_plans[id(st)] = np.asarray(sel, dtype=np.int64)
         self.chosen = np.full((self.qb,), -1, np.int8)
         wave_blocks: list[np.ndarray] = []
         for s, st in zip(active_slots, active):
             a = st.query.algo or self.default_algo
-            if a == "threshold":
+            if a == "forward_optimal":
+                plan = fo_plans[id(st)]
+                st.used_algo = a
+            elif a == "threshold":
                 plan = np.flatnonzero(th_mask[s]).astype(np.int64)
                 self.chosen[s] = 0
                 st.used_algo = a
@@ -376,14 +392,17 @@ class DeviceWave:
 
 
 def _predicate_table(states: list[_QueryState]):
-    """Per-query ``(attrs [J, γ_max], values [J, γ_max], is_or [J])``, with
-    attr -1 marking a padded slot."""
-    gmax = max(len(st.query.predicates) for st in states)
+    """Per-query ``(attrs [J, γ_max], values [J, γ_max], is_or [J])`` of the
+    pair lists, with attr -1 marking a padded slot; a Predicate tree's row
+    is all padding (its mask is the tree's own)."""
+    pairs = [st.query.predicates for st in states]
+    gmax = max([len(p) for p in pairs if not isinstance(p, Predicate)], default=1)
     attrs = np.full((len(states), gmax), -1, np.int64)
     vals = np.zeros((len(states), gmax), np.int64)
-    for j, st in enumerate(states):
-        for g, (a, v) in enumerate(st.query.predicates):
-            attrs[j, g], vals[j, g] = a, v
+    for j, p in enumerate(pairs):
+        if not isinstance(p, Predicate):
+            for g, (a, v) in enumerate(p):
+                attrs[j, g], vals[j, g] = a, v
     is_or = np.asarray([st.query.op == OR for st in states])
     return attrs, vals, is_or
 
@@ -399,7 +418,8 @@ def _wave_records(
     reference's order (the query's blocks ascending, then rows).  Each
     (query, block) pair's mask is the reference's ``predicate_mask`` fold
     (AND over the pairs from ``True``, OR from ``False``; padded slots are
-    the identity) ANDed with the valid rows.
+    the identity), or for a Predicate tree its ``mask`` over the query's
+    pairs of the group, ANDed with the valid rows.
     """
     dims_u, meas_u, valid_u = slabs
     dev = dims_u.device
@@ -408,6 +428,7 @@ def _wave_records(
     pos = np.concatenate([np.searchsorted(union, b) for b in blocks])
     owner = np.repeat(np.arange(len(states)), sizes)
     attrs, vals, is_or = _predicate_table(states)
+    trees = np.asarray([isinstance(st.query.predicates, Predicate) for st in states])
     rows_idx = torch.arange(r, device=dev)[None, :]
     pair_hits, rec_rows, rec_meas = [], [], []
     for lo in range(0, pos.size, _PAIR_CHUNK):
@@ -424,7 +445,11 @@ def _wave_records(
             acc_and &= eq | pad
             acc_or |= eq & ~pad
         or_p = torch.from_numpy(is_or[own]).to(dev)[:, None]
-        mask = torch.where(or_p, acc_or, acc_and) & valid_u[p]
+        mask = torch.where(or_p, acc_or, acc_and)
+        for j in np.unique(own[trees[own]]):
+            sel = torch.from_numpy(np.flatnonzero(own == j)).to(dev)
+            mask[sel] = states[j].query.predicates.mask(dims_u[p[sel]])
+        mask &= valid_u[p]
         hit = torch.nonzero(mask)  # [n, 2] (pair, row), row-major order
         rec_meas.append(meas_u[p[hit[:, 0]], hit[:, 1]].cpu().numpy())
         hit = hit.cpu().numpy()
@@ -530,13 +555,49 @@ def _device_plan_loop(
 # The host-mirror loop: the reference's default path and byte-identity oracle.
 # --------------------------------------------------------------------------
 
+def _wave_rows(engine: "NeedleTailEngine", queries: list[BatchQuery], exclude=None,
+               planner=None) -> torch.Tensor:
+    """``[n, λ]`` combined rows of ``queries`` on the engine's device
+    (``[n, λ_local]``, this rank's λ-shard, with a sharded ``planner``).
+    The pair lists take one ⊕-combine, each under its own op, with each
+    query's ``exclude`` blocks zeroed in it (one #2 launch; #3 on the
+    rank's slab with a planner, which takes no exclusions); each Predicate
+    tree is compiled on the same index (or slab), then its excluded blocks
+    set to +0.0."""
+    index = engine.store.index
+    trees = [j for j, q in enumerate(queries) if isinstance(q.predicates, Predicate)]
+    pairs = [j for j, q in enumerate(queries) if not isinstance(q.predicates, Predicate)]
+
+    def combine(js):
+        rm = pack_row_matrix(index.vocab, [queries[j].predicates for j in js])
+        ops = [queries[j].op for j in js]
+        if planner is not None:
+            return planner.combine_wave(index.densities, rm, ops)
+        return combine_densities_wave(index.densities, rm, ops,
+                                      None if exclude is None else [exclude[j] for j in js])
+
+    if not trees:
+        return combine(pairs)
+    width = index.num_blocks if planner is None else planner.local_width(index.num_blocks)
+    out = torch.empty((len(queries), width), dtype=torch.float32, device=engine.device)
+    if pairs:
+        out[torch.as_tensor(pairs, device=engine.device)] = combine(pairs)
+    for j in trees:
+        pred = queries[j].predicates
+        row = pred.density(index) if planner is None else planner.predicate_row(index, pred)
+        if exclude is not None and len(exclude[j]):
+            ids = exclusion_ids(exclude[j], width)
+            row[torch.from_numpy(ids).to(engine.device).long()] = 0.0
+        out[j] = row
+    return out
+
+
 def _combined_matrix(engine: "NeedleTailEngine", states: list[_QueryState]) -> torch.Tensor:
     """``[Qa, λ]`` combined densities on the engine's device, exclusions
-    applied: one ``density_combine_batch`` launch, whatever the ⊕ ops, with
-    each query's excluded blocks zeroed in it."""
-    rm = pack_row_matrix(engine.store.index.vocab, [st.query.predicates for st in states])
-    return combine_densities_wave(engine.store.index.densities, rm,
-                                  [st.query.op for st in states], [st.exclude for st in states])
+    applied: one ``density_combine_batch`` launch for the pair lists,
+    whatever their ⊕ ops, with each query's excluded blocks zeroed in it,
+    and each Predicate tree compiled beside it (:func:`_wave_rows`)."""
+    return _wave_rows(engine, [st.query for st in states], [st.exclude for st in states])
 
 
 def _plan_wave(
@@ -550,6 +611,9 @@ def _plan_wave(
     the round once (unless the plan-order memo holds it) and each query cuts
     its own prefix on the host; TWO-PRONG dedups on (row, need) pairs.
 
+    ``forward_optimal`` runs the host DP on each row of the host mirror
+    (sequential by nature), with or without a planner.
+
     With a sharded ``planner`` the (row, need) pairs the memo misses are
     planned by its wave methods, one collective per planner: THRESHOLD ids
     come back ascending (the same set; the §4.1 fetch sort and the ``auto``
@@ -560,6 +624,13 @@ def _plan_wave(
     combined_dev = _combined_matrix(engine, states)
     combined = combined_dev.cpu().numpy()  # the host mirror: row bytes key the memo
     rpb = engine.store.records_per_block
+    if algo == "forward_optimal":  # the host DP of Algorithm 3, as the reference
+        plans = []
+        for st, comb in zip(states, combined):
+            sel, _ = forward_optimal_faithful(comb, st.need, rpb, engine.cost)
+            plans.append(np.asarray(sel, dtype=np.int64))
+            st.used_algo = algo
+        return plans
     needs = np.asarray([float(st.need) for st in states], dtype=np.float32)
     qa = len(states)
     row_key = [c.tobytes() for c in combined]

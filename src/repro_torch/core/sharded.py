@@ -38,7 +38,10 @@ every rank holds whole.  :class:`DistributedAnyK` wraps them for
 (replicated, as the engine's host mirror is) and shard it themselves, and
 its :meth:`~DistributedAnyK.device_round_fn` is the device wave's round,
 whose combine is #3 on the rank's slab, one launch a wave whatever its ops
-(:func:`repro_torch.kernels.density_combine.density_combine_wave_sharded`).
+(:func:`repro_torch.kernels.density_combine.density_combine_wave_sharded`)
+and whose Predicate trees compile on the rank's slab of the index
+(:meth:`~DistributedAnyK.predicate_row`).  ``forward_optimal`` queries plan
+on the host DP in every loop, as in the reference.
 
 Left for later slices: the peer-memory tier (``peer_group``,
 ``fetch_remote``), and an interconnect cost preset measured on H100s for
@@ -46,6 +49,7 @@ Left for later slices: the peer-memory tier (``peer_group``,
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -488,6 +492,17 @@ class DistributedAnyK:
         rm = torch.from_numpy(np.asarray(row_matrix, np.int32))
         return density_combine_wave_sharded(self.local_index(densities), rm, ops, self.mesh,
                                             self.axis)
+
+    def predicate_row(self, index, pred) -> torch.Tensor:
+        """``[λ_local]``: the ``Predicate`` tree ``pred`` compiled on this
+        rank's slab of ``index`` (elementwise in λ, so equal to those
+        columns of the whole row), its padding columns past λ set to +0.0
+        (a ``Not`` would make them dense and plannable)."""
+        local = dataclasses.replace(index, densities=self.local_index(index.densities))
+        row = pred.density(local)
+        valid = index.num_blocks - self.sg.index * row.shape[0]
+        row[max(valid, 0):] = 0.0
+        return row
 
     # ------------------------------------------------------------ scalar plans
     @staticmethod

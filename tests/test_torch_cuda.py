@@ -822,3 +822,144 @@ def test_gemma3_one_cycle_at_full_width_on_the_card(cuda):
         for pos in range(plen, 1099):
             lg, cache = decode_step(model, cache, toks[:, pos], pos)
             torch.testing.assert_close(lg, logits[:, pos], atol=2e-3, rtol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# Predicate trees, FORWARD-OPTIMAL, the §5 aggregate path and the baselines:
+# each on-card function against the same call on the CPU.
+# ---------------------------------------------------------------------------
+
+def _agg_stores(cuda, n=40_000, rpb=200):
+    from repro_torch.data.block_store import build_block_store
+    from repro_torch.data.synthetic import make_clustered_table
+
+    t = make_clustered_table(n, num_dims=4, density=0.15, seed=5, correlated_measure=True)
+    return t, build_block_store(t, rpb, device="cpu"), build_block_store(t, rpb, device=cuda)
+
+
+def _trees():
+    from repro_torch.core import predicates as tp
+
+    return [tp.Eq(0, 1), tp.In(1, (0, 1)), tp.Range(2, 0, 1),
+            tp.And((tp.Eq(0, 1), tp.Not(tp.Eq(3, 0)))),
+            tp.Or((tp.And((tp.Eq(0, 1), tp.Eq(1, 1))), tp.Not(tp.In(2, (1,))))),
+            tp.Not(tp.Or((tp.Eq(0, 0), tp.Eq(1, 0))))]
+
+
+def test_predicate_trees_on_the_card_equal_the_cpu(cuda):
+    _, cpu, card = _agg_stores(cuda)
+    for pred in _trees():
+        d = pred.density(card.index)
+        assert d.device == card.device
+        assert torch.equal(d.cpu(), pred.density(cpu.index))
+        assert torch.equal(pred.mask(card.dims).cpu(), pred.mask(cpu.dims))
+
+
+def test_tree_and_forward_optimal_waves_on_the_card_equal_the_cpu(cuda):
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.core.multi_query import BatchQuery
+
+    _, cpu, card = _agg_stores(cuda)
+    queries = [BatchQuery(p, 300 + 50 * i) for i, p in enumerate(_trees())]
+    queries += [BatchQuery([(0, 1), (2, 1)], 200, "and", "forward_optimal"),
+                BatchQuery([(1, 1), (3, 1)], 150, "or")]
+    for device in (True, False):
+        mine = NeedleTailEngine(card, device=cuda).any_k_batch(queries, device=device)
+        ref = NeedleTailEngine(cpu, device="cpu").any_k_batch(queries, device=device)
+        for m, r in zip(mine.results, ref.results):
+            for f in ("record_block", "record_row", "measures", "blocks_fetched"):
+                np.testing.assert_array_equal(getattr(m, f), getattr(r, f))
+            assert (m.algo, m.plan_rounds) == (r.algo, r.plan_rounds)
+
+
+def test_forward_optimal_scan_on_the_card_equals_the_cpu(cuda):
+    from repro_torch.core.cost_model import make_cost_model
+    from repro_torch.core.forward_optimal import forward_optimal_scan
+
+    rng = np.random.default_rng(0)
+    x = (rng.random(1500) ** 3).astype(np.float32)
+    x[rng.random(1500) < 0.4] = 0.0
+    for kind, k in (("hdd", 300), ("ssd", 1000)):
+        cm = make_cost_model(kind)
+        mine = forward_optimal_scan(torch.from_numpy(x).to(cuda), k, 64, cm)
+        ref = forward_optimal_scan(torch.from_numpy(x), k, 64, cm)
+        assert torch.equal(mine.opt_table.cpu(), ref.opt_table)
+
+
+def test_block_partials_on_the_card_equal_the_cpu(cuda):
+    """The per-block sums add in numpy's order on either device (the CPU
+    tests hold that order against the numpy of the reference's machine)."""
+    from repro_torch.core.engine import block_partials
+
+    rng = np.random.default_rng(1)
+    for shape in ((7, 8192), (3, 5, 8192), (4, 200), (2, 20000)):
+        vals = torch.from_numpy((rng.normal(size=shape) * 50).astype(np.float32))
+        mask = torch.from_numpy(rng.random(shape) < 0.4)
+        tau, n = block_partials(mask.to(cuda), vals.to(cuda))
+        ref_tau, ref_n = block_partials(mask, vals)
+        np.testing.assert_array_equal(tau, ref_tau)
+        np.testing.assert_array_equal(n, ref_n)
+
+
+def test_aggregate_online_and_groupby_on_the_card_equal_the_cpu(cuda):
+    from repro_torch.core import predicates as tp
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.core.groupby import groupby_any_k
+    from repro_torch.core.online_agg import AggregateQuery, run_online_aggregate
+
+    _, cpu, card = _agg_stores(cuda)
+    ce, ge = NeedleTailEngine(cpu, device="cpu"), NeedleTailEngine(card, device=cuda)
+    for preds in ([(0, 1), (1, 1)], tp.And((tp.Eq(0, 1), tp.Not(tp.Eq(2, 0))))):
+        for estimator in ("ht", "ratio"):
+            e, qr, plan = ge.aggregate(preds, 0, k=2000, estimator=estimator, seed=3)
+            re, rqr, rplan = ce.aggregate(preds, 0, k=2000, estimator=estimator, seed=3)
+            assert e == re
+            np.testing.assert_array_equal(qr.blocks_fetched, rqr.blocks_fetched)
+            np.testing.assert_array_equal(qr.measures, rqr.measures)
+        q = AggregateQuery(preds, 0, k=2000, alpha=0.4, seed=5)
+        res = run_online_aggregate(ge, q, chunk_blocks=8, max_rounds=6)
+        ref = run_online_aggregate(ce, q, chunk_blocks=8, max_rounds=6)
+        assert res.stream == ref.stream and res.blocks_fetched == ref.blocks_fetched
+    for measure in (None, 0):
+        g = groupby_any_k(ge, [(0, 1)], 1, 500, psi=8, measure=measure)
+        r = groupby_any_k(ce, [(0, 1)], 1, 500, psi=8, measure=measure)
+        for f in ("per_group_counts", "blocks_fetched", "record_block", "record_row",
+                  "record_group"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(r, f))
+        assert g.estimate_stream == r.estimate_stream
+
+
+def test_baselines_on_the_card_equal_the_cpu(cuda):
+    from repro_torch.core import baselines as tb
+
+    t, cpu, card = _agg_stores(cuda)
+    dims = card.dims.view(-1, card.dims.shape[-1])[:t.num_records]
+    idx = tb.build_bitmap_index(dims, t.cards, device=cuda)
+    ref = tb.build_bitmap_index(t.dims, t.cards, device="cpu")
+    assert torch.equal(idx.bits.cpu(), ref.bits)
+    eidx, eref = tb.build_ewah_index(idx), tb.build_ewah_index(ref)
+    for a, b in zip(eidx.streams, eref.streams):
+        assert torch.equal(a.cpu(), b)
+        assert torch.equal(tb.ewah_decompress(a, idx.bits.shape[1]).cpu(),
+                           tb.ewah_decompress(b, idx.bits.shape[1]))
+    lossy = tb.build_lossy_bitmap(card.index.densities, card.index.vocab.attr_offsets)
+    lref = tb.build_lossy_bitmap(cpu.index.densities, cpu.index.vocab.attr_offsets)
+    assert torch.equal(lossy.bits.cpu(), lref.bits)
+    for preds, op in (([(0, 1), (1, 1)], "and"), ([(2, 0), (3, 1)], "or")):
+        for k in (1, 500, 10 ** 7):
+            for got, want in zip(tb.bitmap_scan(idx, preds, k, 200, op),
+                                 tb.bitmap_scan(ref, preds, k, 200, op)):
+                np.testing.assert_array_equal(got, want)
+            for got, want in zip(tb.ewah_scan(eidx, preds, k, 200, op),
+                                 tb.ewah_scan(eref, preds, k, 200, op)):
+                np.testing.assert_array_equal(got, want)
+            for got, want in zip(
+                    tb.bitmap_random(idx, preds, k, 200, np.random.default_rng(1), op),
+                    tb.bitmap_random(ref, preds, k, 200, np.random.default_rng(1), op)):
+                np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(tb.lossy_bitmap_scan(lossy, preds, op),
+                                      tb.lossy_bitmap_scan(lref, preds, op))
+        truth = torch.from_numpy(t.valid_mask(preds, op))
+        for got, want in zip(tb.disk_scan(truth.to(cuda), 300, 200),
+                             tb.disk_scan(truth, 300, 200)):
+            np.testing.assert_array_equal(got, want)

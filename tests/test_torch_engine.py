@@ -254,8 +254,8 @@ def test_slot_joining_mid_wave_matches_a_solo_run():
 
 
 @pytest.mark.parametrize("bad,exc", [
-    (dict(algo="forward_optimal"), NotImplementedError),
-    (dict(predicates=object()), NotImplementedError),
+    (dict(predicates=[]), TypeError),
+    (dict(predicates=object()), TypeError),
     (dict(algo="nope"), ValueError),
     (dict(op="xor"), ValueError),
 ])

@@ -40,7 +40,12 @@ def test_importing_every_port_module_leaves_jax_and_repro_out():
         env={**os.environ, "PYTHONPATH": str(REPO / "src")}, timeout=120,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    assert len(mods) >= 18
+    assert len(mods) >= 28
+    assert {'repro_torch.core.predicates', 'repro_torch.core.forward_optimal',
+            'repro_torch.core.hybrid', 'repro_torch.core.estimators',
+            'repro_torch.core.online_agg', 'repro_torch.core.groupby',
+            'repro_torch.core.baselines', 'repro_torch.serving.admission',
+            'repro_torch.storage', 'repro_torch.storage.prefetch'} <= set(mods)
     assert {'repro_torch.core.block_cache', 'repro_torch.kernels.ops',
             'repro_torch.kernels.window_scan', 'repro_torch.kernels.flash_attention',
             'repro_torch.kernels.ssd_chunk', 'repro_torch.configs', 'repro_torch.models.lm',
@@ -81,6 +86,7 @@ def _tiny_table():
 def _entry_points():
     from repro_torch import resolve_device
     from repro_torch.convert import store_from_reference
+    from repro_torch.core.baselines import build_bitmap_index
     from repro_torch.core.density_map import build_density_maps
     from repro_torch.core.engine import NeedleTailEngine
     from repro_torch.data.block_store import build_block_store
@@ -120,6 +126,7 @@ def _entry_points():
         "NeedleTailEngine": lambda: NeedleTailEngine(cpu_store),
         "store.to": lambda: cpu_store.to("cuda"),
         "make_host_mesh": lambda: make_host_mesh(),
+        "build_bitmap_index": lambda: build_bitmap_index(t.dims, t.cards),
     }
 
 
@@ -127,7 +134,7 @@ def _entry_points():
     "name", ["resolve_device", "build_density_maps", "build_block_store",
              "store_from_reference", "NeedleTailEngine", "store.to", "init_params", "LM",
              "init_cache", "ServeEngine", "lm_params_from_reference", "launch.serve.main",
-             "make_host_mesh"],
+             "make_host_mesh", "build_bitmap_index"],
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():

@@ -21,6 +21,7 @@ that the tests compare:
 A world of one runs in this process.
 """
 import datetime
+import inspect
 import json
 import os
 import pathlib
@@ -65,6 +66,22 @@ CASES = {
     "disjoint_pair": ("disjoint", [([(0, 1)], 150, "and"), ([(1, 1)], 150, "and")]),
 }
 RPB = {"clustered": 100, "uniform": 64, "skewed": 50, "disjoint": 100}
+# Predicate trees on "uniform" (λ = 235, not a multiple of P), as nested
+# lists for _tree: each Not makes the zero-padded columns of the last shard
+# dense unless they are zeroed
+TREES = ("uniform", [(["Not", ["Eq", 0, 0]], 500),
+                     (["And", ["Not", ["In", 1, [0, 1]]], ["Eq", 2, 2]], 90),
+                     (["Or", ["Eq", 0, 1], ["Not", ["In", 2, [0, 1]]]], 700)])
+
+
+def _tree(m, spec):
+    """The tree ``spec`` describes, built from predicate module ``m``."""
+    op, *args = spec
+    if op in ("And", "Or"):
+        return getattr(m, op)(tuple(_tree(m, a) for a in args))
+    if op == "Not":
+        return m.Not(_tree(m, args[0]))
+    return m.In(args[0], tuple(args[1])) if op == "In" else m.Eq(*args)
 WARM = "clustered"  # the warm replan's and the group > 1 case's table
 
 
@@ -143,7 +160,7 @@ from repro_torch.data.block_store import Table, build_block_store
 from repro_torch.kernels.density_combine import density_combine_batch_sharded
 from repro_torch.launch.mesh import make_host_mesh
 
-CASES, RPB, ALGOS, WARM, CANDS = json.loads(sys.argv[5])
+CASES, RPB, ALGOS, WARM, CANDS, TREES, TREE_BUILDER = json.loads(sys.argv[5])
 mesh = make_host_mesh(device_type="cpu")
 inp = dict(np.load(f"{io}/inputs.npz"))
 out = {}
@@ -227,6 +244,15 @@ for case, (table, qs) in CASES.items():
             eng = NeedleTailEngine(stores[table], device="cpu")
             eng.attach_mesh(mesh)
             save(f"wave/{case}/{algo}/{int(device)}", eng.any_k_batch(queries, algo=algo, device=device))
+
+# -- Predicate trees compiled on the slabs of a λ that P does not divide
+from repro_torch.core import predicates as tp
+exec(TREE_BUILDER)
+for device in (True, False):
+    eng = NeedleTailEngine(stores[TREES[0]], device="cpu")
+    eng.attach_mesh(mesh)
+    save(f"trees/{int(device)}", eng.any_k_batch(
+        [BatchQuery(_tree(tp, spec), k) for spec, k in TREES[1]], algo="auto", device=device))
 
 # -- the warm replan, both loops: counters and memo
 queries = [BatchQuery(p, k, op) for p, k, op in CASES[WARM][1][:3]]
@@ -318,7 +344,7 @@ S.sharded_threshold_bisect = jax.jit(S.sharded_threshold_bisect, static_argnums=
 S.sharded_ht_terms = jax.jit(S.sharded_ht_terms, static_argnums=(2, 3))
 
 io = sys.argv[1]
-CASES, RPB, ALGOS, WARM, CANDS = json.loads(sys.argv[2])
+CASES, RPB, ALGOS, WARM, CANDS, _, _ = json.loads(sys.argv[2])
 mesh = jax.make_mesh((4,), ("data",))
 inp = dict(np.load(f"{io}/inputs.npz"))
 out = {}
@@ -406,7 +432,8 @@ np.savez(f"{io}/ref.npz", **out)
 
 
 def _config() -> str:
-    return json.dumps([CASES, RPB, list(ALGOS), WARM, list(THRESHOLD_CANDIDATES)])
+    return json.dumps([CASES, RPB, list(ALGOS), WARM, list(THRESHOLD_CANDIDATES), TREES,
+                       inspect.getsource(_tree)])
 
 
 @pytest.fixture(scope="module")
@@ -590,6 +617,22 @@ def test_attached_mesh_waves_equal_reference_any_k_batch(run, stores, case, algo
             _assert_saved_equal(mine, ref, "b", len(qs))
             transfers, rounds = out[f"{prefix}/counters"][4], out[f"{prefix}/counters"][0]
             assert rounds <= transfers <= rounds + 1 if device else transfers == 0
+
+
+def test_trees_on_shards_of_an_uneven_lambda_equal_reference(run, stores):
+    """Predicate trees with a Not compiled on each rank's slab of λ = 235
+    at P = 4: both loops give the reference's (unsharded) results."""
+    from repro.core import predicates as jp
+
+    _, _, ranks = run
+    ref = _saved_batch(JaxEngine(stores[TREES[0]]).any_k_batch(
+        [JaxQuery(_tree(jp, spec), k) for spec, k in TREES[1]], algo="auto"))
+    for out in ranks:
+        for device in (1, 0):
+            prefix = f"trees/{device}"
+            mine = {k.replace(prefix, "b"): v for k, v in out.items() if k.startswith(prefix)}
+            mine["b/counters"] = mine["b/counters"][:4]
+            _assert_saved_equal(mine, ref, "b", len(TREES[1]))
 
 
 def test_disjoint_queries_plan_on_opposite_shards(run):

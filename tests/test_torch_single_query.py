@@ -166,8 +166,8 @@ def test_any_k_stops_at_max_refills_and_on_empty_plans():
 
 
 @pytest.mark.parametrize("bad,exc", [
-    (dict(algo="forward_optimal"), NotImplementedError),
-    (dict(predicates=object()), NotImplementedError),
+    (dict(predicates=[]), TypeError),
+    (dict(predicates=object()), TypeError),
     (dict(algo="nope"), ValueError),
     (dict(op="xor"), ValueError),
 ])
