@@ -160,6 +160,38 @@ d_model 3840, 16 heads of 240, 8 kv heads, ~1.26·10¹⁰ parameters, f32):
    path it replaced, by CUDA events and host clock.  The build must show
    no spills for the kernels of the last two redesigns (``NEW_KERNELS``).
 
+Then tiered block storage (``repro_torch.storage``) on the same table, the
+LMs freed, each phase's store reads through #7:
+
+22. tiered — the wave on ``make_tier_stack(256 MiB, None)`` (~993 blocks
+   in tier 0 on the card over unbounded pinned host memory,
+   ``CostAwarePolicy``), cold then warm: both equal the flat wave phase's
+   (records, blocks, rounds, store reads, cache hits); the warm wave reads
+   0 store blocks with 0 evictions.  Then ``RecencyPolicy`` over 128 MiB /
+   256 MiB: demotions cascade (``hbm.demotions_out == dram.demotions_in +
+   hbm.evictions``) and, the 552.6 MB union exceeding both, blocks drop;
+   results unchanged.  The same calls on the CPU copy give equal
+   ``tier_counters()`` and ``snapshot()``; ``get_device`` of the union
+   equals ``store.fetch``.  Wall times, per-tier hits, peak device memory.
+23. calibration — the ``hbm`` level fitted (``calibrate_model``) on CUDA-
+   event timings of #7 over the tier-0 pool, the ``dram`` level on copies
+   from the pinned tier-1 pool to the card, the backing level through
+   ``StoreTimingBackend`` on the card; fits, bandwidth and latency printed
+   (these give the port's ``hbm`` and ``dram`` presets).  An engine with
+   ``calibrated_cost=True`` and a ``PlanLedger``: its wave equals a flat
+   engine's on the fitted model; the ledger's q-errors printed.
+24. append_compact — ``engine.append`` of 10⁶ airline rows (seed + 1) on
+   the tiered engine, then ``engine.compact`` from the first dirtied block:
+   each time exactly the dirtied tail leaves every tier, the store (slabs
+   and index) equals ``build_block_store`` of the same table bit for bit,
+   and the next wave equals a fresh flat engine's; timed on the card and on
+   the CPU copy.
+25. prefetch — the wave's 48 ``auto`` queries (the memo predicts the plan
+   ``auto`` picks): the memo warmed by a host-mirror wave, the tiers
+   cleared, ``TierPrefetcher.kick`` + ``drain(wait=True)``: the next wave's
+   round 0 reads 0 store blocks and equals a flat engine's; the async mode
+   (a side stream) admits what the sync mode does, with equal results.
+
 The last lines are the ``{"kernels": [...]}`` JSON, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
@@ -233,6 +265,11 @@ PHASE_KERNELS = {
     "lm_serve": LM_KERNELS,
     "lm_forward_swa": ("flash_attention",),
     "lm_serve_swa": ("flash_attention",),
+    "tiered": ("density_combine_batch", "theta_stats_batch", "prefix_sum", "block_gather"),
+    "calibration": ("density_combine_batch", "theta_stats_batch", "prefix_sum", "block_gather"),
+    "append_compact": ("density_combine_batch", "theta_stats_batch", "prefix_sum",
+                       "block_gather"),
+    "prefetch": ("density_combine_batch", "theta_stats_batch", "prefix_sum", "block_gather"),
 }
 SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 65_537, 12_208)
 RTOL = 1e-5
@@ -2304,6 +2341,374 @@ def baselines_check(table, store, cpu_store, queries, run, device: str = "cuda")
             "queries": len(queries), "launches": launches}, (bm, ew, lossy)
 
 
+TIER_HBM_BYTES = 256 << 20  # ~993 blocks of the 10⁸ table: the Q = 64 union does not fit
+RECENCY_TIERS = (128 << 20, 256 << 20)  # 384 MiB in all: the union must drop blocks
+APPEND_ROWS = 1_000_000
+PREFETCH_MAX_BLOCKS = 1 << 16  # no cap: the whole predicted round 0
+# reads a timed call, so one block's share stands out of the jitter; at most
+# 25 runs × 4 reads × 6 copies stay inside the card's launch queue, so the
+# host never waits to enqueue and the events time the card alone
+CALIBRATION_REPS = 4
+
+
+def tier_state(stack) -> dict:
+    """Per-tier counters and resident ids (LRU order) of a tier stack."""
+    return {"counters": stack.tier_counters(), "snapshot": stack.snapshot(),
+            "resident": [list(t.block_ids()) for t in stack.tiers]}
+
+
+def wave_counts(b) -> tuple:
+    return (b.rounds, b.store_blocks_fetched, b.cache_hits,
+            tuple(int(x) for x in b.unique_blocks_fetched))
+
+
+def tiered_check(store, cpu_store, queries, flat, flat_walls: dict, run, device: str = "cuda",
+                 hbm_bytes: int = TIER_HBM_BYTES, recency: tuple = RECENCY_TIERS) -> dict:
+    """The wave on a tier stack (``hbm_bytes`` on the card over unbounded
+    pinned host memory, ``CostAwarePolicy``), cold then warm, equal to the
+    flat engine's wave ``flat`` in records, blocks and counts; the warm wave
+    reads no store block and drops none.  Then ``RecencyPolicy`` over
+    ``recency`` budgets: demotions cascade and, the union exceeding both
+    budgets, blocks drop; results unchanged.  The same calls on the CPU copy
+    give the same counters, and ``get_device`` of the union the store's
+    bytes."""
+    import torch
+
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.storage import CostAwarePolicy, RecencyPolicy, TierStack, make_tier_stack
+
+    nb = TierStack.block_nbytes(store)
+
+    def waves(st, on_store, dev):
+        eng = NeedleTailEngine(on_store, tiers=st, device=dev)
+        out = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out.append(eng.any_k_batch(queries, device=True))
+            sync(dev)
+            out.append(time.perf_counter() - t0)
+        return eng, *out
+
+    def sequence(on_store, dev):
+        # device_fill as on the card: two store reads a miss batch on the CPU too
+        cost = make_tier_stack(hbm_bytes, None, policy=CostAwarePolicy(), device_fill=True,
+                               device=dev)
+        rec = make_tier_stack(*recency, policy=RecencyPolicy(), device_fill=True, device=dev)
+        return (cost, waves(cost, on_store, dev)), (rec, waves(rec, on_store, dev))
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ((stack, (eng, cold, cold_s, warm, warm_s)),
+     (rstack, (_, rcold, rcold_s, rwarm, rwarm_s))), wall, launches = run(
+        "tiered", lambda: sequence(store, device))
+    peak = peak_gb(device)
+    for b in (cold, warm, rcold, rwarm):
+        compare_waves(flat, b)
+    if wave_counts(cold) != wave_counts(flat):
+        raise AssertionError("the cold tiered wave's rounds, blocks or counts differ from the "
+                             "flat wave's")
+    if (warm.rounds, warm.store_blocks_fetched, stack.stats.evictions) != (flat.rounds, 0, 0):
+        raise AssertionError(f"warm tiered wave: {warm.store_blocks_fetched} store blocks read, "
+                             f"{stack.stats.evictions} evictions")
+    tc = rstack.tier_counters()
+    union = int(flat.unique_blocks_fetched.size)
+    if not tc["hbm.demotions_out"] > 0 or \
+            tc["hbm.demotions_out"] != tc["dram.demotions_in"] + tc["hbm.evictions"]:
+        raise AssertionError(f"recency demotions do not cascade: {tc}")
+    if union * nb > sum(recency) and rstack.stats.evictions == 0:
+        raise AssertionError("the union exceeds the recency budgets, yet nothing dropped")
+    t0 = time.perf_counter()
+    (cstack, (_, ccold, _, cwarm, _)), (crstack, _) = sequence(cpu_store, "cpu")
+    cpu_wall = time.perf_counter() - t0
+    compare_waves(ccold, cold)
+    compare_waves(cwarm, warm)
+    for mine, cpu in ((stack, cstack), (rstack, crstack)):
+        a, b = tier_state(mine), tier_state(cpu)
+        if a != b:
+            diff = {k: (a[k], b[k]) for k in ("counters", "snapshot") if a[k] != b[k]}
+            raise AssertionError(f"the card's tier counters differ from the CPU run's: {diff}, "
+                                 f"residents equal: {a['resident'] == b['resident']}")
+    ids = np.sort(flat.unique_blocks_fetched)
+    got, want = stack.get_device(store, ids), store.fetch(ids)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("get_device of the union differs from store.fetch")
+    return {"engine": eng, "stack": stack, "launches": launches, "wall": wall,
+            "walls": {"flat_cold": flat_walls["cold"], "flat_warm": flat_walls["warm"],
+                      "tiered_cold": cold_s, "tiered_warm": warm_s, "recency_cold": rcold_s,
+                      "recency_warm": rwarm_s, "cpu_sequence": cpu_wall},
+            "union_blocks": union, "block_bytes": nb,
+            "tier_blocks": [len(t) for t in stack.tiers],
+            "tier_stats": {"cold": cold.tier_stats, "warm": warm.tier_stats},
+            "recency": {"counters": tc, "evictions": rstack.stats.evictions,
+                        "warm_store_blocks": rwarm.store_blocks_fetched},
+            "peak_gb": peak}
+
+
+class PoolTimer:
+    """Timing adapter of tier 0: ``block_gather`` of slots of a tier's pool
+    on the card (one launch per tensor), timed by CUDA events over
+    ``CALIBRATION_REPS`` reads, per read."""
+
+    def __init__(self, pool):
+        self.pool = pool
+        self.max_block_id = int(pool[0].shape[0]) - 1
+        self.calls = 0
+
+    def levels(self):
+        return {"hbm"}
+
+    def io_seconds(self, level: str, block_ids) -> float:
+        import torch
+
+        from repro_torch.kernels.plan_wave import block_gather
+
+        ids = np.clip(np.asarray(list(block_ids), np.int64), 0, self.max_block_id)
+        ids_t = torch.from_numpy(ids.astype(np.int32)).to(self.pool[0].device)
+        d, m, v = self.pool
+        def reads():
+            for _ in range(CALIBRATION_REPS):
+                block_gather(d, ids_t), block_gather(m, ids_t)
+                block_gather(v.view(torch.int8), ids_t)
+
+        self.calls += 1
+        return time_ms(reads) / 1e3 / CALIBRATION_REPS
+
+
+class PinnedTimer:
+    """Timing adapter of tier 1: a copy from a pinned host pool to the card,
+    one ``non_blocking`` copy per tensor per contiguous run of slots,
+    timed by CUDA events over ``CALIBRATION_REPS`` copies, per copy."""
+
+    def __init__(self, pool, device):
+        self.pool, self.device = pool, device
+        self.max_block_id = int(pool[0].shape[0]) - 1
+        self.calls = 0
+
+    def levels(self):
+        return {"dram"}
+
+    def io_seconds(self, level: str, block_ids) -> float:
+        import torch
+
+        ids = np.unique(np.clip(np.asarray(list(block_ids), np.int64), 0, self.max_block_id))
+        cuts = np.flatnonzero(np.diff(ids) != 1) + 1
+        runs = [(int(r[0]), int(r[-1]) + 1) for r in np.split(ids, cuts)]
+        dst = [torch.empty((ids.size, *p.shape[1:]), dtype=p.dtype, device=self.device)
+               for p in self.pool]
+
+        def copies():
+            for _ in range(CALIBRATION_REPS):
+                off = 0
+                for a, b in runs:
+                    for p, o in zip(self.pool, dst):
+                        o[off:off + b - a].copy_(p[a:b], non_blocking=True)
+                    off += b - a
+
+        self.calls += 1
+        return time_ms(copies) / 1e3 / CALIBRATION_REPS
+
+
+def calibration_check(store, stack, queries, run, device: str = "cuda",
+                      hbm_bytes: int = TIER_HBM_BYTES) -> dict:
+    """Fit the ``hbm`` level on the tier-0 pool (:class:`PoolTimer`), the
+    ``dram`` level on the pinned pool of tier 1 (:class:`PinnedTimer`) and
+    the backing level through ``StoreTimingBackend`` on the card, each with
+    ``calibrate_model``; print the fits and the bandwidth and latency they
+    give (``seq = block_bytes / BW``, ``far = seq + latency``).  Then an
+    engine with ``calibrated_cost=True`` and a ``PlanLedger``: its wave
+    equals a flat engine's given the same fitted model."""
+    from repro_torch.core.cost_model import make_cost_model
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.core.plan_ledger import PlanLedger
+    from repro_torch.storage import StoreTimingBackend, TierStack, calibrate_model, make_tier_stack
+
+    nb = TierStack.block_nbytes(store)
+
+    def card():
+        fits = {"hbm": calibrate_model(PoolTimer(stack.tiers[0]._pool), "hbm",
+                                       base=make_cost_model("hbm", nb)),
+                "dram": calibrate_model(PinnedTimer(stack.tiers[1]._pool, store.device), "dram",
+                                        base=make_cost_model("dram", nb)),
+                "hdd": calibrate_model(StoreTimingBackend(store), "hdd",
+                                       base=make_cost_model("hdd"))}
+        eng = NeedleTailEngine(store, tiers=make_tier_stack(hbm_bytes, None, device=device),
+                               calibrated_cost=True, ledger=PlanLedger(), device=device)
+        t0 = time.perf_counter()
+        batch = eng.any_k_batch(queries, device=True)
+        sync(device)
+        return fits, eng, batch, time.perf_counter() - t0
+
+    (fits, eng, batch, wave_s), wall, launches = run("calibration", card)
+    flat = NeedleTailEngine(store, cost_model=eng.cost, device=device).any_k_batch(queries)
+    compare_waves(flat, batch)
+    if (batch.rounds, tuple(batch.unique_blocks_fetched)) != \
+            (flat.rounds, tuple(flat.unique_blocks_fetched)):
+        raise AssertionError("the calibrated wave's rounds or blocks differ from the flat wave's")
+    levels = {}
+    for lv, cm in fits.items():
+        levels[lv] = {"seq_s": cm.seq_cost, "max_dist": cm.max_dist, "far_s": cm.far_cost,
+                      "kappa_s": cm.first_block_cost, "bytes_per_s": nb / cm.seq_cost,
+                      "latency_s": max(cm.far_cost - cm.seq_cost, 0.0)}
+    engine_fit = {"seq_s": eng.cost.seq_cost, "max_dist": eng.cost.max_dist,
+                  "far_s": eng.cost.far_cost, "kappa_s": eng.cost.first_block_cost}
+    qerrors = {f"{site}/{tier}": {"qerror": st.qerror, "max": st.max_qerror, "count": st.count}
+               for (site, tier), st in eng.ledger.sites.items()}
+    return {"levels": levels, "engine_hdd_fit": engine_fit, "qerrors": qerrors,
+            "block_bytes": nb, "wave_s": wave_s, "wall": wall, "launches": launches}
+
+
+def append_compact_check(table, store, cpu_store, eng, stack, queries, run, seed: int,
+                         device: str = "cuda", rows: int = APPEND_ROWS) -> dict:
+    """On the tiered engine ``eng`` (holding the wave's blocks), append
+    ``rows`` records of ``make_real_like_table("airline", seed=seed + 1)``,
+    then compact the tail from the first dirtied block; after each, exactly
+    the dirtied blocks left every tier, the store (slabs and index) equals
+    ``build_block_store`` of the same table bit for bit, and the next wave
+    equals a fresh flat engine's on it.  Append and compaction are timed on
+    the card and on the CPU copy."""
+    import torch
+
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.data.append import append_records, dirtied_block_ids
+    from repro_torch.data.block_store import Table, build_block_store
+    from repro_torch.data.synthetic import make_real_like_table
+    from repro_torch.storage import compact_tail
+
+    extra = make_real_like_table("airline", num_records=rows, seed=seed + 1)
+    new = Table(extra.dims, extra.measures, table.cards)
+    dims = np.concatenate([table.dims, new.dims])
+    meas = np.concatenate([table.measures, new.measures])
+
+    def resident() -> set:
+        return {int(b) for t in stack.tiers for b in t.block_ids()}
+
+    def rewrite(fn):
+        """``fn``'s store, its seconds, the residents before and after it,
+        the copies it evicted, then the next wave and its seconds."""
+        held, inv0 = resident(), stack.stats.invalidations
+        sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        secs = time.perf_counter() - t0
+        left, evicted = resident(), stack.stats.invalidations - inv0
+        t0 = time.perf_counter()
+        wave = eng.any_k_batch(queries, device=True)
+        sync(device)
+        return out, secs, held, left, evicted, wave, time.perf_counter() - t0
+
+    tail = store.num_records // store.records_per_block  # the first dirtied block
+    stack.ensure(eng.store, [store.num_blocks - 1])  # the partial tail block resident too
+    if not np.array_equal(dirtied_block_ids(store, rows),
+                          np.arange(tail, -(-(store.num_records + rows) // RPB))):
+        raise AssertionError("dirtied_block_ids is not the tail from the partial block on")
+    (grown, compacted), wall, launches = run(
+        "append_compact", lambda: (rewrite(lambda: eng.append(new)),
+                                   rewrite(lambda: eng.compact(tail))))
+    out = {"wall": wall, "launches": launches, "rows": rows, "tail_start": tail}
+    lo = tail * store.records_per_block
+    order = np.lexsort(dims[lo:].T[::-1])
+    tables = {"append": (dims, meas),
+              "compact": (np.concatenate([dims[:lo], dims[lo:][order]]),
+                          np.concatenate([meas[:lo], meas[lo:][order]]))}
+    for what, (new_store, secs, held, left, evicted, wave, wave_s) in (
+            ("append", grown), ("compact", compacted)):
+        dirty = set(range(tail, new_store.num_blocks))
+        if left & dirty or left != held - dirty or evicted != len(held & dirty):
+            raise AssertionError(f"{what}: the tiers did not evict exactly the dirtied blocks")
+        t0 = time.perf_counter()
+        full = build_block_store(Table(*tables[what], table.cards), store.records_per_block,
+                                 device=device)
+        build_s = time.perf_counter() - t0
+        for name in ("dims", "measures", "valid_rows"):
+            if not torch.equal(getattr(new_store, name), getattr(full, name)):
+                raise AssertionError(f"{what}: {name} differ from the full build's")
+        for name in ("densities", "sorted_block_ids", "sorted_densities"):
+            if not torch.equal(getattr(new_store.index, name), getattr(full.index, name)):
+                raise AssertionError(f"{what}: index {name} differ from the full build's")
+        del full
+        fresh = NeedleTailEngine(new_store, device=device).any_k_batch(queries)
+        compare_waves(fresh, wave)
+        if wave_counts(fresh)[0] != wave.rounds:
+            raise AssertionError(f"{what}: the wave's rounds differ from a fresh engine's")
+        out[what] = {"card_s": secs, "full_build_s": build_s, "wave_s": wave_s,
+                     "blocks": new_store.num_blocks, "evicted": len(held & dirty),
+                     "kept": len(held - dirty), "wave_store_blocks": wave.store_blocks_fetched}
+    t0 = time.perf_counter()
+    cpu_grown = append_records(cpu_store, new)
+    t1 = time.perf_counter()
+    cpu_compacted = compact_tail(cpu_grown, tail)
+    t2 = time.perf_counter()
+    for cpu, mine in ((cpu_grown, grown[0]), (cpu_compacted, compacted[0])):
+        for name in ("densities", "sorted_block_ids", "sorted_densities"):
+            if not torch.equal(getattr(cpu.index, name), getattr(mine.index, name).cpu()):
+                raise AssertionError(f"the CPU run's index {name} differs from the card's")
+    out["append"]["cpu_s"], out["compact"]["cpu_s"] = t1 - t0, t2 - t1
+    return out
+
+
+def prefetch_check(store, queries, run, device: str = "cuda",
+                   hbm_bytes: int = TIER_HBM_BYTES) -> dict:
+    """Warm the plan memo with one host-mirror wave on a tiered engine,
+    clear the tiers, ``kick`` the same requests and ``drain(wait=True)``:
+    the next wave's round 0 reads no store block, and its results equal a
+    flat engine's.  Sync and async (side-stream) prefetchers give the same
+    admissions and results.  The wave's ``auto`` queries only: the memo
+    predicts the plan ``auto`` would choose, which needs both of a query's
+    memoized plans, and a query pinned to one algorithm memoizes one."""
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.storage import TierPrefetcher, make_tier_stack, predicted_wave_blocks
+
+    queries = [q for q in queries if q.algo is None]
+    flat = NeedleTailEngine(store, device=device).any_k_batch(queries)
+
+    def mode(async_fetch: bool):
+        st = make_tier_stack(hbm_bytes, None, device=device)
+        eng = NeedleTailEngine(store, tiers=st, device=device)
+        eng.any_k_batch(queries, device=False)  # the host mirror memoizes round 0's plans
+        st.clear()
+        if predicted_wave_blocks(eng, queries)[1] != len(queries):
+            raise AssertionError("the host-mirror wave left a query's round 0 unpredicted")
+        pf = TierPrefetcher(eng, max_blocks=PREFETCH_MAX_BLOCKS, async_fetch=async_fetch)
+        sync(device)
+        t0 = time.perf_counter()
+        issued = pf.kick(queries)
+        t1 = time.perf_counter()
+        moved = pf.drain(wait=True)
+        sync(device)
+        t2 = time.perf_counter()
+        admitted = tier_state(st)
+        reads, ensure = [], st.ensure
+        st.ensure = lambda s, ids: reads.append(ensure(s, ids)) or reads[-1]
+        t3 = time.perf_counter()
+        wave = eng.any_k_batch(queries, device=True)
+        sync(device)
+        t4 = time.perf_counter()
+        del st.ensure
+        pf.observe_wave(wave.unique_blocks_fetched)
+        return {"issued": issued, "moved": moved, "kick_s": t1 - t0, "drain_s": t2 - t1,
+                "wave_s": t4 - t3, "round_reads": reads, "stats": pf.stats.snapshot(),
+                "admitted": admitted, "wave": wave}
+
+    (sync_run, async_run), wall, launches = run("prefetch", lambda: (mode(False), mode(True)))
+    for name, r in (("sync", sync_run), ("async", async_run)):
+        if not r["round_reads"] or r["round_reads"][0] != 0 or not r["issued"]:
+            raise AssertionError(f"{name} prefetch: round 0 read {r['round_reads'][:1]} store "
+                                 f"blocks after issuing {r['issued']}")
+        compare_waves(flat, r["wave"])
+    if sync_run["admitted"]["counters"] != async_run["admitted"]["counters"] or \
+            sync_run["admitted"]["resident"] != async_run["admitted"]["resident"] or \
+            sync_run["issued"] != async_run["issued"] or \
+            sync_run["stats"]["fetched"] != async_run["stats"]["fetched"]:
+        raise AssertionError("the async prefetcher's admissions differ from the sync one's")
+    out = {"wall": wall, "launches": launches, "queries": len(queries)}
+    for name, r in (("sync", sync_run), ("async", async_run)):
+        out[name] = {k: r[k] for k in ("issued", "moved", "kick_s", "drain_s", "wave_s",
+                                       "round_reads", "stats")}
+        out[name]["hbm_blocks"] = len(r["admitted"]["resident"][0])
+    return out
+
+
 def run_phase(name: str, fn):
     """Zero the launch counters, run ``fn``, read them: ``name``'s kernels
     must all have launched.  Returns ``(result, wall seconds, launches)``."""
@@ -2606,6 +3011,38 @@ def main(argv=None) -> int:
             e["ptxas"] = redesigned[e["name"]]
     entries += lm_kernel_rows(cfg, phase_launches, long_seq, args.seed, torch.device("cuda"),
                               swa=(scfg, swa_seq), profile=args.profile)
+
+    # -- 22-25. tiered storage on the same table, the LMs freed
+    cpu_store = store.to("cpu")
+    t0 = time.perf_counter()
+    ti = tiered_check(store, cpu_store, queries, batch, {"cold": wall, "warm": warm_wall},
+                      run_phase)
+    phase_launches["tiered"] = ti.pop("launches")
+    tier_engine, tier_stack = ti.pop("engine"), ti.pop("stack")
+    log(f"tiered: {ti}; both waves == the flat wave (records, blocks, counts), the warm one "
+        f"read 0 store blocks with 0 evictions; recency demotions cascade; the CPU run's "
+        f"counters == the card's; get_device == store.fetch; {time.perf_counter() - t0:.1f} s "
+        "in all")
+    t0 = time.perf_counter()
+    ca = calibration_check(store, tier_stack, queries, run_phase)
+    phase_launches["calibration"] = ca.pop("launches")
+    for lv, fit in ca.pop("levels").items():
+        log(f"calibration {lv}: {fit}")
+    log(f"calibration: {ca}; the calibrated wave == a flat engine's on the fitted model; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    t0 = time.perf_counter()
+    ac = append_compact_check(table, store, cpu_store, tier_engine, tier_stack, queries,
+                              run_phase, args.seed)
+    phase_launches["append_compact"] = ac.pop("launches")
+    log(f"append_compact: {ac}; each evicted exactly the dirtied tail from every tier, its "
+        f"store == build_block_store bit for bit, its wave == a fresh flat engine's; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    del tier_engine, tier_stack, cpu_store
+    t0 = time.perf_counter()
+    pf = prefetch_check(store, queries, run_phase)
+    phase_launches["prefetch"] = pf.pop("launches")
+    log(f"prefetch: {pf}; round 0 read 0 store blocks in both modes, async admissions == "
+        f"sync; {time.perf_counter() - t0:.1f} s in all")
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

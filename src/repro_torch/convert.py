@@ -4,7 +4,9 @@
 DensityMap index from the numpy arrays of a reference store, so both
 packages answer the same queries on the same bytes;
 :func:`lm_params_from_reference` builds the port's :class:`LM` from a
-reference parameter tree, so both packages compute the same function.  The
+reference parameter tree, so both packages compute the same function;
+:func:`cost_model_from_reference` carries a reference ``CostModel``'s
+numbers, so both packages price and place with the same presets.  The
 caller does the ``np.asarray`` on the reference side; this module imports
 nothing of it.
 """
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.cost_model import CostModel
 from repro_torch.core.density_map import DensityMapIndex, PredicateVocab
 from repro_torch.data.block_store import BlockStore
 from repro_torch.device import resolve_device
@@ -111,3 +114,13 @@ def lm_params_from_reference(params_np: Mapping, cfg: ArchConfig,
     if missing:
         raise ValueError(f"the reference tree left {missing} unfilled")
     return model
+
+
+def cost_model_from_reference(model) -> CostModel:
+    """The port's :class:`CostModel` with a reference model's name, costs,
+    plateau and curve (a numpy function of the distance, taken as it is)."""
+    return CostModel(
+        name=str(model.name), seq_cost=float(model.seq_cost), max_dist=int(model.max_dist),
+        far_cost=float(model.far_cost), curve=model.curve,
+        first_block_cost=float(model.first_block_cost),
+    )

@@ -347,6 +347,14 @@ class PlanOrderCache:
         while len(od) > self.max_entries:
             od.popitem(last=False)
 
+    def peek_threshold(self, row_bytes: bytes):
+        """:meth:`get_threshold` without counting or touching."""
+        return self._threshold.get(row_bytes)
+
+    def peek_two_prong(self, row_bytes: bytes, need: float):
+        """:meth:`get_two_prong` without counting or touching."""
+        return self._two_prong.get((row_bytes, float(need)))
+
     def get_threshold(self, row_bytes: bytes):
         hit = self._threshold.get(row_bytes)
         if hit is not None:

@@ -27,6 +27,15 @@ engine on the same store and queries, and the waves plan over the
 λ-sharded density wave (:mod:`repro_torch.core.sharded`), with equal
 results.
 
+With ``tiers=`` (a :class:`~repro_torch.storage.tiers.TierStack`) every
+read goes through byte-budgeted tiers, a slot pool on the card over pinned
+host memory, instead of the flat cache; ``append``, ``compact``,
+``replace_store`` and ``recalibrate`` maintain the store and the cost
+models (:mod:`repro_torch.data.append`, :mod:`repro_torch.storage.compact`,
+:mod:`repro_torch.storage.calibration`), and a
+:class:`~repro_torch.core.plan_ledger.PlanLedger` records predicted against
+observed I/O.
+
 :meth:`NeedleTailEngine.aggregate` is the §5 hybrid-sampled estimate: the
 design is drawn on the host (:mod:`repro_torch.core.hybrid`), its blocks
 are read and their per-block sums taken on the card
@@ -59,14 +68,7 @@ if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.data.block_store import BlockStore
 
 # what later slices of the port carry, by constructor argument
-_LATER = {
-    "tiers": "tiered-storage slice",
-    "residency_aware": "tiered-storage slice",
-    "calibrated_cost": "tiered-storage slice",
-    "timing_backend": "tiered-storage slice",
-    "ledger": "tiered-storage slice",
-    "obs": "serving and observability slice",
-}
+_LATER = {"obs": "serving and observability slice"}
 
 
 @dataclasses.dataclass
@@ -93,7 +95,15 @@ class NeedleTailEngine:
     runs the plain PyTorch versions of the kernels.  ``cache_bytes`` sizes
     the engine-lifetime block cache (``None`` unbounded, ``0`` off; its
     slabs live on ``device``) and ``plan_cache_entries`` the plan-order
-    memo of the host-mirror loop.
+    memo of the host-mirror loop.  ``tiers`` (a :class:`~repro_torch.
+    storage.tiers.TierStack` on ``device``) replaces the flat cache with
+    byte-budgeted tiers; ``residency_aware`` prices ``auto``'s candidates by
+    where their blocks are resident; ``ledger`` (a :class:`~repro_torch.
+    core.plan_ledger.PlanLedger`) records predicted against observed I/O
+    and corrects prices; ``timing_backend`` answers what a read costs, and
+    ``calibrated_cost`` refits the cost models from it at start
+    (a :class:`~repro_torch.storage.calibration.StoreTimingBackend` over
+    the store when none is given).
     """
 
     def __init__(
@@ -103,6 +113,11 @@ class NeedleTailEngine:
         max_refills: int = 8,
         cache_bytes: int | None = None,
         plan_cache_entries: int = 4096,
+        tiers=None,
+        residency_aware: bool = False,
+        calibrated_cost: bool = False,
+        timing_backend=None,
+        ledger=None,
         device: str | torch.device = "cuda",
         **later,
     ):
@@ -112,24 +127,149 @@ class NeedleTailEngine:
             if value not in (None, False):
                 raise NotImplementedError(f"{name} arrives with the {_LATER[name]} of the port")
         self.device = resolve_device(device)
+        self._check_device(store)
+        self.store = store
+        self.cost = cost_model or make_cost_model("hdd")
+        self.max_refills = max_refills
+        # tiers: a repro_torch.storage.TierStack replaces the flat cache (same
+        # surface; budgets live on its tiers, cache_bytes is then ignored)
+        if tiers is not None and tiers.device != self.device:
+            raise ValueError(f"tier stack on {tiers.device}, engine on {self.device}")
+        self.block_cache = tiers if tiers is not None else BlockLRUCache(cache_bytes)
+        # residency_aware: the §7.2 auto arbitration prices candidate plans by
+        # effective tier cost; opt-in, since it changes the physical plan
+        self.residency_aware = bool(residency_aware)
+        self.plan_cache = PlanOrderCache(plan_cache_entries)
+        self.distributed = None  # the sharded planner, once a mesh is attached
+        store.register_invalidation_listener(self.block_cache.invalidate)
+        # measured-cost feedback (storage.calibration, core.plan_ledger),
+        # shared with a tier stack so every pricing site agrees
+        self.ledger = ledger
+        self.timing_backend = timing_backend
+        if hasattr(self.block_cache, "effective_io_time"):
+            if ledger is not None:
+                self.block_cache.ledger = ledger
+            if timing_backend is not None:
+                self.block_cache.timing_backend = timing_backend
+        if calibrated_cost:
+            # calibrate at engine start against real store reads unless a
+            # backend was given
+            if self.timing_backend is None:
+                from repro_torch.storage.calibration import StoreTimingBackend
+
+                self.timing_backend = StoreTimingBackend(store, levels={self.cost.name})
+                if hasattr(self.block_cache, "effective_io_time"):
+                    self.block_cache.timing_backend = self.timing_backend
+            self.recalibrate()
+
+    def _check_device(self, store: "BlockStore") -> None:
         if store.device != self.device:
             raise ValueError(
                 f"store lives on {store.device}, engine asked for {self.device}; "
                 "move it with store.to(device)"
             )
+
+    # ------------------------------------------------------------------ store
+    def _adopt(self, store: "BlockStore") -> None:
+        """Move the block cache's listener to ``store`` and read from it; the
+        old store's slabs are freed once nothing else holds them."""
+        self.store.unregister_invalidation_listener(self.block_cache.invalidate)
         self.store = store
-        self.cost = cost_model or make_cost_model("hdd")
-        self.max_refills = max_refills
-        self.block_cache = BlockLRUCache(cache_bytes)
-        self.plan_cache = PlanOrderCache(plan_cache_entries)
-        self.distributed = None  # the sharded planner, once a mesh is attached
         store.register_invalidation_listener(self.block_cache.invalidate)
+        if self.distributed is not None:  # the sharded planner's geometry
+            self.distributed.rpb = store.records_per_block
+
+    def replace_store(self, store: "BlockStore") -> None:
+        """Swap in an unrelated store: full cache flush (no shared lineage)."""
+        self._check_device(store)
+        self._adopt(store)
+        self.block_cache.clear()
+        self.plan_cache.clear()
+
+    def append(self, new) -> "BlockStore":
+        """Append the rows of the :class:`~repro_torch.data.block_store.Table`
+        ``new`` on the store's device (:func:`repro_torch.data.append.
+        append_records`) and adopt the grown store.  The block cache is
+        notified with exactly the dirtied tail block ids, so untouched cached
+        blocks survive; plan-memo entries are keyed on density bytes, which
+        change for every dirtied row, so stale ones can never be hit."""
+        from repro_torch.data.append import append_records
+
+        grown = append_records(self.store, new)  # notifies block_cache
+        self._adopt(grown)
+        return grown
+
+    def compact(self, tail_start: int) -> "BlockStore":
+        """Re-sort the tail from block ``tail_start`` on by dimension values
+        (:func:`repro_torch.storage.compact.compact_tail`) and adopt the
+        compacted store, with :meth:`append`'s invalidation contract.  The
+        compacted store is a new store version: results match the
+        sequential oracle per version."""
+        from repro_torch.storage.compact import compact_tail
+
+        fresh = compact_tail(self.store, tail_start)  # notifies block_cache
+        self._adopt(fresh)
+        return fresh
+
+    # ------------------------------------------------------------ calibration
+    def recalibrate(self, **fit_kw) -> dict:
+        """Refit cost models from the timing backend.  With a tier stack,
+        every measurable tier and the backing model are refit in place and
+        the engine adopts the stack's fitted backing model; otherwise the
+        engine's model is refit.  Returns ``{level: fitted CostModel}``
+        (empty without a backend)."""
+        be = self.timing_backend
+        if be is None:
+            return {}
+        from repro_torch.storage.calibration import calibrate_model, measurable
+
+        fitted: dict = {}
+        cal = getattr(self.block_cache, "calibrate", None)
+        if cal is not None:
+            fitted = cal(be, **fit_kw)
+            if self.block_cache.backing.name == self.cost.name and self.cost.name in fitted:
+                self.cost = fitted[self.cost.name]
+        if self.cost.name not in fitted and measurable(be, self.cost.name):
+            self.cost = calibrate_model(be, self.cost.name, base=self.cost, **fit_kw)
+            fitted[self.cost.name] = self.cost
+        if self.ledger is not None:
+            for level in fitted:  # refit models subsume the old corrections
+                self.ledger.reset_correction(level)
+        return fitted
 
     # ------------------------------------------------------------------ plans
     def plan_cost(self, block_ids) -> float:
         """Modeled I/O cost of a candidate plan (the §7.2 ``auto``
-        comparison): the engine's cost model over the ascending ids."""
-        return self.cost.io_time(block_ids)
+        comparison).  With ``residency_aware`` and a tier stack, residents
+        are priced by their tier's model and only misses by the backing
+        model (``TierStack.effective_io_time``); otherwise the engine's
+        model prices every block, scaled by the plan ledger's correction for
+        its level (uniform across a comparison, so it never flips the
+        argmin)."""
+        if self.residency_aware:
+            eff = getattr(self.block_cache, "effective_io_time", None)
+            if eff is not None:
+                return eff(block_ids, backing=self.cost)
+        t = self.cost.io_time(block_ids)
+        return t * self.ledger.correction(self.cost.name) if self.ledger is not None else t
+
+    def _record_arbitration(self, blocks: np.ndarray, predicted: float) -> None:
+        """Ledger the §7.2 ``auto`` decision: the quoted cost of the chosen
+        blocks vs the timing backend's measurement.  Only on the flat
+        pricing path, for a backend that can measure the planning model's
+        level and does not wrap this store (observing would re-read it)."""
+        lg, be = self.ledger, self.timing_backend
+        if lg is None or be is None or blocks.size == 0:
+            return
+        if self.residency_aware and hasattr(self.block_cache, "effective_io_time"):
+            return
+        if getattr(be, "store", None) is self.store:
+            return
+        from repro_torch.storage.calibration import measurable
+
+        if measurable(be, self.cost.name):
+            lg.record("arbitration", self.cost.name, predicted,
+                      be.io_seconds(self.cost.name, blocks))
 
     def combined_density(self, predicates, op: str = AND,
                          exclude: np.ndarray | None = None) -> torch.Tensor:
@@ -199,7 +339,10 @@ class NeedleTailEngine:
         if algo == "two_prong":
             return b2, algo
         # §7.2 Discussion: plan with both, cost both, take the cheaper
-        return (bt, "threshold") if self.plan_cost(bt) <= self.plan_cost(b2) else (b2, "two_prong")
+        ct, c2 = self.plan_cost(bt), self.plan_cost(b2)
+        blocks, used, cost = (bt, "threshold", ct) if ct <= c2 else (b2, "two_prong", c2)
+        self._record_arbitration(blocks, cost)
+        return blocks, used
 
     # ------------------------------------------------------------------ query
     def _records(

@@ -146,6 +146,9 @@ class BatchQueryResult:
     # round whose plans come up empty ends the loop); 0 on the host loop
     device_transfers: int = 0
     active_per_round: list = dataclasses.field(default_factory=list)
+    # tiered storage only (engine.block_cache is a storage.TierStack): the
+    # batch's per-tier placement deltas, "<tier>.<counter>"; None when flat
+    tier_stats: dict | None = None
     # host wall seconds of each planning round (plan + fetch), synchronised
     round_seconds: list = dataclasses.field(default_factory=list)
 
@@ -379,7 +382,7 @@ class DeviceWave:
             else:  # auto — §7.2: cost both on the host, take the cheaper
                 bt = np.flatnonzero(th_mask[s]).astype(np.int64)
                 b2 = np.arange(int(tps[s]), int(tpe[s]), dtype=np.int64)
-                ct, c2 = engine.cost.io_time(bt), engine.cost.io_time(b2)
+                ct, c2 = engine.plan_cost(bt), engine.plan_cost(b2)
                 if ct <= c2:
                     plan, self.chosen[s], st.used_algo = bt, 0, "threshold"
                 else:
@@ -840,6 +843,8 @@ def run_batch(
     states = [new_query_state(q) for q in queries]
     cache = engine.block_cache
     hits0, store0 = cache.stats.hits, cache.stats.store_blocks_fetched
+    tier_fn = getattr(cache, "tier_counters", None)
+    tier0 = tier_fn() if tier_fn is not None else None
     touched: list[int] = []  # unique block ids, first-touch order
     touched_set: set[int] = set()
     missed: list[np.ndarray] = []  # id arrays read from the store
@@ -875,5 +880,7 @@ def run_batch(
         cache_hits=int(cache.stats.hits - hits0),
         device_transfers=device_transfers,
         active_per_round=active_counts,
+        tier_stats=({k: v - tier0[k] for k, v in tier_fn().items()}
+                    if tier0 is not None else None),
         round_seconds=round_seconds,
     )

@@ -435,10 +435,11 @@ class DistributedAnyK:
     two_prong_group : int
         G of the wave TWO-PRONG; the default 1 is exact.
     remote_cost : repro_torch.core.cost_model.CostModel | None
-        Prices :meth:`fetch_plan` (``last_fetch_io_s``).  ``None`` leaves
-        fetches unpriced: the reference's default, the ``"ici"`` preset, is
-        a TPU interconnect figure, and a preset measured on H100s arrives
-        with the tiered-storage slice.
+        Prices :meth:`fetch_plan` (``last_fetch_io_s``; residency-aware
+        when the cache is a tier stack).  ``None`` leaves fetches unpriced:
+        the reference's default, the ``"ici"`` preset, is a TPU
+        interconnect figure, and a preset measured on H100s arrives with
+        the multi-GPU slice.
     peer_group : None
         The peer-memory tier; raises until the peer-tier slice lands.
     device : str | torch.device | None
@@ -526,7 +527,11 @@ class DistributedAnyK:
         the read; without one it stays 0.0."""
         ids = self.plan_block_ids(plan)
         if self.remote_cost is not None:
-            self.last_fetch_io_s = self.remote_cost.io_time(ids)
+            # priced BEFORE the read, residency-aware on a tier stack: only
+            # blocks no tier holds cross at the remote price
+            eff = getattr(self.block_cache, "effective_io_time", None)
+            self.last_fetch_io_s = (eff(ids, backing=self.remote_cost) if eff is not None
+                                    else self.remote_cost.io_time(ids))
         if self.block_cache is not None:
             return (ids, *self.block_cache.get_many(store, ids))
         return (ids, *store.fetch(ids))

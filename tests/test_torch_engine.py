@@ -288,8 +288,8 @@ def test_cost_presets_price_plans_as_the_reference(kind):
     for _ in range(5):
         ids = rng.integers(0, 500, rng.integers(0, 40))
         assert mine.io_time(ids) == ref.io_time(ids)
-    with pytest.raises(NotImplementedError, match="tiered-storage"):
-        make_cost_model("hbm")
+    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+        make_cost_model("ici")
 
 
 @pytest.mark.parametrize("preds,op", [([(0, 1)], "and"), ([(0, 1), (2, 0)], "and"),

@@ -46,6 +46,10 @@ def test_importing_every_port_module_leaves_jax_and_repro_out():
             'repro_torch.core.online_agg', 'repro_torch.core.groupby',
             'repro_torch.core.baselines', 'repro_torch.serving.admission',
             'repro_torch.storage', 'repro_torch.storage.prefetch'} <= set(mods)
+    assert {'repro_torch.storage.tiers', 'repro_torch.storage.policy',
+            'repro_torch.storage.calibration', 'repro_torch.storage.residency',
+            'repro_torch.storage.compact', 'repro_torch.core.plan_ledger',
+            'repro_torch.data.append'} <= set(mods)
     assert {'repro_torch.core.block_cache', 'repro_torch.kernels.ops',
             'repro_torch.kernels.window_scan', 'repro_torch.kernels.flash_attention',
             'repro_torch.kernels.ssd_chunk', 'repro_torch.configs', 'repro_torch.models.lm',
@@ -89,7 +93,9 @@ def _entry_points():
     from repro_torch.core.baselines import build_bitmap_index
     from repro_torch.core.density_map import build_density_maps
     from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.core.cost_model import make_cost_model
     from repro_torch.data.block_store import build_block_store
+    from repro_torch.storage import Tier, TierStack, make_tier_stack
 
     t = _tiny_table()
     cpu_store = build_block_store(t, 16, device="cpu")
@@ -127,6 +133,8 @@ def _entry_points():
         "store.to": lambda: cpu_store.to("cuda"),
         "make_host_mesh": lambda: make_host_mesh(),
         "build_bitmap_index": lambda: build_bitmap_index(t.dims, t.cards),
+        "make_tier_stack": lambda: make_tier_stack(None, None),
+        "TierStack": lambda: TierStack([Tier("hbm", None, make_cost_model("ssd"), device=True)]),
     }
 
 
@@ -134,7 +142,7 @@ def _entry_points():
     "name", ["resolve_device", "build_density_maps", "build_block_store",
              "store_from_reference", "NeedleTailEngine", "store.to", "init_params", "LM",
              "init_cache", "ServeEngine", "lm_params_from_reference", "launch.serve.main",
-             "make_host_mesh", "build_bitmap_index"],
+             "make_host_mesh", "build_bitmap_index", "make_tier_stack", "TierStack"],
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
