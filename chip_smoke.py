@@ -192,6 +192,36 @@ LMs freed, each phase's store reads through #7:
    round 0 reads 0 store blocks and equals a flat engine's; the async mode
    (a side stream) admits what the sync mode does, with equal results.
 
+Serving and observability (``ServeEngine``, ``serving/admission.py``,
+``obs/``), each phase beside the path it drives:
+
+26. serve_exemplar — after the sharded phase, inside its NCCL world: the
+   wave's 64 queries as exemplar requests (each ``auto``) on 16 slots, a
+   fake clock: ``run_continuous`` on the device wave (#2 once per join
+   flush, #5 once a tick, asserted), on the host-mirror round
+   (``serve_exemplar_host``: #2 once a tick), ``drain_exemplar_requests``
+   (``serve_exemplar_drain``) and over the mesh (``serve_exemplar_mesh``:
+   #3 once per join flush); every request equal to the all-``auto`` wave,
+   the wave phase's ``auto`` queries and 8 solo ``any_k``.  Then a real
+   clock (SLO 50 ms, one arrival a tick): the admission waits' p50 / p99.
+27. serve_aggregate — after the baselines: 8 online aggregates on 4 slots
+   (six error SLOs set from their solo runs' half-widths, one modeled-I/O
+   deadline, one without); each stream equal to its solo run on a fresh
+   card engine (``==``) and on the CPU copy (``rtol``); the error SLOs
+   answer ``"ci"``, one mid-wave.
+28. obs — both kinds traced by a ``TraceRecorder``, equal to the untraced
+   run; the export read by ``tools/trace_report.py`` (a subprocess), which
+   must rebuild one path per request.
+29. serve_lm_continuous (after lm_serve) and 30. serve_lm_continuous_swa
+   (after lm_serve_swa) — ``run_continuous`` with joiners prefilled at the
+   position counter and grafted into the live cache (gemma3-12b past its
+   window, so the rings wrap), kernel against plain, near-ties counted; the
+   joiner at ``pos`` equal to its solo wave; #8/#9 once per sublayer a
+   prefill.
+31. serve_tiered (last) — the requests in groups of 8 on a 256 MiB tier 0:
+   the residency probe, the asynchronous prefetcher, the cost gate and a
+   refit every 8 ticks; equal to the all-``auto`` wave.
+
 The last lines are the ``{"kernels": [...]}`` JSON, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
@@ -201,6 +231,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import datetime
 import hashlib
 import json
@@ -270,6 +301,19 @@ PHASE_KERNELS = {
     "append_compact": ("density_combine_batch", "theta_stats_batch", "prefix_sum",
                        "block_gather"),
     "prefetch": ("density_combine_batch", "theta_stats_batch", "prefix_sum", "block_gather"),
+    "serve_exemplar": ("density_combine_batch", "theta_stats_batch", "prefix_sum",
+                       "block_gather"),
+    "serve_exemplar_host": ("density_combine_batch", "prefix_sum", "block_gather"),
+    "serve_exemplar_drain": ("density_combine_batch", "theta_stats_batch", "prefix_sum",
+                             "block_gather"),
+    "serve_exemplar_mesh": ("density_combine_batch_sharded", "prefix_sum", "block_gather"),
+    "serve_aggregate": ("density_combine", "prefix_sum", "block_gather"),
+    "obs": ("density_combine", "density_combine_batch", "theta_stats_batch", "prefix_sum",
+            "block_gather"),
+    "serve_lm_continuous": LM_KERNELS,
+    "serve_lm_continuous_swa": ("flash_attention",),
+    "serve_tiered": ("density_combine_batch", "theta_stats_batch", "prefix_sum",
+                     "block_gather"),
 }
 SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 65_537, 12_208)
 RTOL = 1e-5
@@ -2709,6 +2753,553 @@ def prefetch_check(store, queries, run, device: str = "cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+# Serving and observability: the SLO admission controller, the continuous
+# exemplar, aggregate and LM slot loops of ServeEngine, and the trace plane.
+# ---------------------------------------------------------------------------
+SERVE_SLOTS = 16  # exemplar slots, and the admission wave cap
+SERVE_SLO_S = 10.0  # the fake-clock runs' latency SLO: launches are full or refills
+SERVE_REAL_SLO_S = 0.05  # the real-clock run's latency SLO
+SERVE_CHEAP_COST_S = 0.007  # the cost gate: at most one far read of the hdd backing model
+SERVE_TIER_GROUP = 8  # the tiered run's requests arrive in groups of this many
+SERVE_RECALIBRATE_EVERY = 8
+SERVE_IDLE_TICKS = 3  # held idle ticks before the tiered run's clock jumps to the deadline
+AGG_SERVE_ALPHA = 0.3
+AGG_SERVE_SLOTS = 4
+# the solo round whose CI half-width becomes each error-SLO request's SLO;
+# then one request with a modeled-I/O deadline and one without an SLO
+AGG_SERVE_CI_ROUNDS = (3, 5, 8, 12, 4, 6)
+AGG_SERVE_ROUNDS = 12  # max_rounds of every aggregate request
+# the LM join runs: a first prompt, a joiner of the same length (it joins at
+# pos == its length, so its tokens equal its solo wave's) and a shorter one
+# that joins later, left-padded to pos; new tokens each; cache capacity
+LM_JOIN = {"plens": (20, 20, 9), "max_new": (12, 4, 4), "max_seq": 64}
+# gemma3-12b: past its 1,024 window, so the joiners' prefill rings wrap
+SWA_JOIN = {"plens": (1100, 1100, 600), "max_new": (12, 4, 4), "max_seq": 1152}
+
+
+class FakeClock:
+    """A settable clock for the admission controller."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+@contextlib.contextmanager
+def count_join_flushes():
+    """Count ``DeviceWave`` join flushes that seat at least one joiner (one
+    combine launch each: #2, or #3 with a sharded planner)."""
+    from repro_torch.core.multi_query import DeviceWave
+
+    fn, seen = DeviceWave._flush_joins, {"flushes": 0}
+
+    def counted(self):
+        if self._joining:
+            seen["flushes"] += 1
+        return fn(self)
+
+    DeviceWave._flush_joins = counted
+    try:
+        yield seen
+    finally:
+        DeviceWave._flush_joins = fn
+
+
+def auto_wave(queries):
+    """The wave as ``ServeEngine`` runs it: each query under ``auto``."""
+    from repro_torch.core.multi_query import BatchQuery
+
+    return [BatchQuery(q.predicates, q.k, q.op) for q in queries]
+
+
+def exemplar_server(device: str, clock=None, slo_s: float = SERVE_SLO_S,
+                    cheap_cost_s: float | None = None, **kw):
+    from repro_torch.serving import AdmissionPolicy, ServeEngine
+
+    return ServeEngine(None, None, max_slots=SERVE_SLOTS, device=device,
+                       clock=clock or FakeClock(),
+                       exemplar_policy=AdmissionPolicy(slo_s=slo_s, max_wave=SERVE_SLOTS,
+                                                       cheap_cost_s=cheap_cost_s), **kw)
+
+
+def compare_requests(reqs, results, what: str) -> None:
+    for i, (r, res) in enumerate(zip(reqs, results)):
+        if not r.done:
+            raise AssertionError(f"{what}: request {i} not served")
+        compare_results(r.result, res, f"{what} request {i}")
+
+
+def serve_exemplar_check(store, queries, batch, run, device: str = "cuda", mesh=None) -> dict:
+    """The wave's 64 queries as exemplar requests through ``ServeEngine``
+    (16 slots, a fake clock): the continuous loop on the device wave
+    (``run_continuous``), on the host-mirror round, the drained waves
+    (``drain_exemplar_requests``) and, given ``mesh``, the device wave over
+    the λ-sharded planner; each request's records equal the all-``auto``
+    wave's (and, for the wave's ``auto`` queries, the wave phase's) and 8
+    equal solo ``any_k``.  Launches: #2 once per join flush and #5 once a
+    tick on the device wave, #2 once a tick on the host mirror, #3 once per
+    flush under the mesh.  Then a real clock (SLO 50 ms) with requests
+    arriving one a tick: the admission waits' p50 and p99."""
+    from repro_torch.core import multi_query
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.obs import TraceRecorder
+
+    auto = auto_wave(queries)
+    ref = NeedleTailEngine(store, device=device).any_k_batch(auto, device=True)
+    for i, q in enumerate(queries):
+        if q.algo is None:
+            compare_results(ref.results[i], batch.results[i], f"all-auto wave query {i}")
+    solo = NeedleTailEngine(store, device=device)
+    for i in range(min(8, len(auto))):
+        compare_results(solo.any_k(auto[i].predicates, auto[i].k, auto[i].op), ref.results[i],
+                        f"solo any_k of query {i}")
+    out = {}
+
+    def serve(name: str, drain: bool = False, **kw):
+        engine = NeedleTailEngine(store, device=device)
+        srv = exemplar_server(device, **kw)
+        reqs = [srv.submit_exemplar_request(q.predicates, q.k, q.op) for q in auto]
+
+        def go():
+            with count_join_flushes() as fl, count_calls(multi_query, "_combined_matrix") as cm:
+                t0 = time.perf_counter()
+                done = (srv.drain_exemplar_requests(engine) if drain
+                        else srv.run_continuous(engine)["exemplar"])
+                sync(device)
+                return done, fl["flushes"], cm["calls"], time.perf_counter() - t0
+
+        (done, flushes, combines, secs), wall, launches = run(name, go)
+        if sorted(r.rid for r in done) != [r.rid for r in reqs]:
+            raise AssertionError(f"{name}: served {len(done)} of {len(reqs)} requests")
+        compare_requests(reqs, ref.results, name)
+        loop = srv._exemplar_loop
+        ticks = loop.sched.rounds if loop is not None else 0
+        res = {"wall_s": secs, "ticks": ticks, "flushes": flushes,
+               "admission": dataclasses.asdict(srv.exemplar_admission.stats),
+               "last_wave_stats": {k: v for k, v in srv.last_wave_stats.items()
+                                   if k not in ("answered",)}}
+        if loop is not None:
+            res["slot_occupancy"] = loop.sched.occupancy
+            res["s_per_tick"] = secs / max(ticks, 1)
+        if device == "cuda":
+            if drain:
+                want = {"density_combine_batch": flushes}
+            elif kw.get("exemplar_mesh") is not None:
+                want = {"density_combine_batch_sharded": flushes, "density_combine_batch": 0}
+            elif kw.get("exemplar_device"):
+                want = {"density_combine_batch": flushes, "theta_stats_batch": ticks}
+            else:
+                want = {"density_combine_batch": combines}
+            check_launches(launches, want, name)
+            res["launches_checked"] = want
+        out[name] = res
+        return launches
+
+    launches = serve("serve_exemplar", exemplar_device=True)
+    out["launches"] = {"serve_exemplar": launches}
+    out["launches"]["serve_exemplar_host"] = serve("serve_exemplar_host", exemplar_device=False)
+    out["launches"]["serve_exemplar_drain"] = serve("serve_exemplar_drain", drain=True,
+                                                    exemplar_device=True)
+    if mesh is not None:
+        out["launches"]["serve_exemplar_mesh"] = serve("serve_exemplar_mesh", exemplar_device=True,
+                                                       exemplar_mesh=mesh)
+    # a real clock: requests arrive one a tick, the pool claims under the
+    # 50 ms SLO (full, deadline) or refills mid-wave; waits from the metrics
+    rec = TraceRecorder(enabled=False)  # the metrics plane alone: no events, no clock reads
+    engine = NeedleTailEngine(store, device=device)
+    srv = exemplar_server(device, clock=time.monotonic, slo_s=SERVE_REAL_SLO_S,
+                          exemplar_device=True, obs=rec)
+    reqs = []
+    t0 = time.perf_counter()
+    for q in auto:
+        reqs.append(srv.submit_exemplar_request(q.predicates, q.k, q.op))
+        srv.step(engine)
+    while not all(r.done for r in reqs):
+        srv.step(engine)
+    sync(device)
+    compare_requests(reqs, ref.results, "serve_exemplar real clock")
+    st = srv.exemplar_admission.stats
+    out["ref"] = ref
+    out["real_clock"] = {"wall_s": time.perf_counter() - t0,
+                         "ticks": srv._exemplar_loop.sched.rounds,
+                         "wait_p50_s": rec.metrics.quantile("admission.wait_s", 0.5),
+                         "wait_p99_s": rec.metrics.quantile("admission.wait_s", 0.99),
+                         "admission": dataclasses.asdict(st), "events": len(rec.events)}
+    return out
+
+
+class TierPoolClock:
+    """Timing backend of tier 0 for the serving loop's periodic refits: one
+    read of the given slots of the tier-0 pool (#7 on each tensor), host
+    clock, synchronised.  Measures the ``hbm`` level only, so a refit moves
+    placement, never the engine's plans."""
+
+    def __init__(self, stack):
+        self.stack = stack
+        self.calls = 0
+
+    def levels(self):
+        return {"hbm"}
+
+    @property
+    def max_block_id(self) -> int:
+        return int(self.stack.tiers[0]._pool[0].shape[0]) - 1
+
+    def io_seconds(self, level: str, block_ids) -> float:
+        import torch
+
+        from repro_torch.kernels.plan_wave import block_gather
+
+        d, m, v = self.stack.tiers[0]._pool
+        ids = np.clip(np.asarray(list(block_ids), np.int64), 0, self.max_block_id)
+        ids_t = torch.from_numpy(ids.astype(np.int32)).to(d.device)
+        sync(d.device)
+        t0 = time.perf_counter()
+        block_gather(d, ids_t), block_gather(m, ids_t), block_gather(v.view(torch.int8), ids_t)
+        sync(d.device)
+        self.calls += 1
+        return time.perf_counter() - t0
+
+
+def serve_tiered_check(store, queries, ref, run, device: str = "cuda",
+                       hbm_bytes: int = TIER_HBM_BYTES) -> dict:
+    """The same requests on a tiered engine (256 MiB tier 0 over pinned
+    host memory, a ``PlanLedger``, tier 0's timing backend), its plan memo
+    warmed by one host-mirror wave and the tiers then cleared:
+    ``exemplar_residency``, the asynchronous prefetcher, the cost gate
+    (``cheap_cost_s``) and a refit every 8 ticks.  Requests arrive in
+    groups of 8 on a fake clock (``drain=False``: an idle pool claims under
+    the policy; after 3 held ticks the clock jumps to the deadline).  The
+    records equal the all-``auto`` wave's ``ref``."""
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.core.plan_ledger import PlanLedger
+    from repro_torch.storage import TierPrefetcher, make_tier_stack
+
+    auto = auto_wave(queries)
+    stack = make_tier_stack(hbm_bytes, None, device=device)
+    timer = TierPoolClock(stack)
+    eng = NeedleTailEngine(store, tiers=stack, ledger=PlanLedger(), timing_backend=timer,
+                           device=device)
+    eng.any_k_batch(auto, device=False)  # the host mirror memoizes round 0's plans
+    stack.clear()
+    clk = FakeClock()
+    srv = exemplar_server(device, clock=clk, cheap_cost_s=SERVE_CHEAP_COST_S,
+                          exemplar_device=True, exemplar_residency=True, exemplar_prefetch=True,
+                          recalibrate_every=SERVE_RECALIBRATE_EVERY)
+    pf = TierPrefetcher(eng, max_blocks=PREFETCH_MAX_BLOCKS, async_fetch=True)
+    srv._prefetcher = (eng, pf)  # the loop's prefetcher, in its asynchronous mode
+    refits = []
+    recal = eng.recalibrate
+    eng.recalibrate = lambda **kw: refits.append(sorted(recal(**kw))) or refits[-1]
+
+    def go():
+        reqs, ticks, jumps = [], 0, 0
+        t0 = time.perf_counter()
+        for lo in range(0, len(auto), SERVE_TIER_GROUP):
+            group = [srv.submit_exemplar_request(q.predicates, q.k, q.op)
+                     for q in auto[lo:lo + SERVE_TIER_GROUP]]
+            reqs += group
+            held = 0
+            while not all(r.done for r in group):
+                srv.exemplar_tick(eng)
+                ticks += 1
+                clk.advance(0.001)
+                idle = srv._exemplar_loop.sched.busy == 0 and srv.exemplar_admission.pending
+                held = held + 1 if idle else 0
+                if held >= SERVE_IDLE_TICKS:
+                    clk.advance(SERVE_SLO_S)
+                    jumps += 1
+                    held = 0
+        pf.drain(wait=True)
+        sync(device)
+        return reqs, ticks, jumps, time.perf_counter() - t0
+
+    (reqs, ticks, jumps, secs), wall, launches = run("serve_tiered", go)
+    compare_requests(reqs, ref.results, "serve_tiered")
+    st = srv.exemplar_admission.stats
+    return {"wall_s": secs, "ticks": ticks, "deadline_jumps": jumps,
+            "slot_occupancy": srv._exemplar_loop.sched.occupancy,
+            "launch_reasons": {k: getattr(st, k) for k in (
+                "full_waves", "deadline_waves", "resident_waves", "cheap_waves", "refill_waves")},
+            "last_cost_price_s": srv.exemplar_admission.last_cost_price_s,
+            "prefetch": pf.stats.snapshot(), "refits": len(refits), "timer_calls": timer.calls,
+            "plan_qerror": srv.last_wave_stats["plan_qerror"],
+            "tiers": stack.tier_counters(), "launches": launches}
+
+
+def aggregate_plan(store, queries, seed: int, device: str = "cuda") -> list[dict]:
+    """Eight aggregate requests over the wave's first 8 predicate sets
+    (measure 0, k 20,000, α 0.3, seeds ``seed + i``), with each request's
+    solo stream on a fresh engine on ``device`` for ``AGG_SERVE_ROUNDS``
+    rounds and its chunks' prices: six error SLOs at the solo half-width of
+    round ``AGG_SERVE_CI_ROUNDS[i]``, one modeled-I/O deadline two and a
+    half chunks past its first, one without an SLO."""
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.core.online_agg import AggregateQuery, OnlineAggregator
+    from repro_torch.storage.prefetch import effective_block_cost
+
+    plans = []
+    for i, q in enumerate(queries[:8]):
+        eng = NeedleTailEngine(store, device=device)
+        aq = AggregateQuery(q.predicates, 0, AGG_K, AGG_SERVE_ALPHA, op=q.op, seed=seed + i)
+        agg = OnlineAggregator(eng, aq, chunk_blocks=AGG_CHUNK)
+        stream, widths, prices = [], [], []
+        for _ in range(AGG_SERVE_ROUNDS):
+            prices.append(effective_block_cost(eng, agg.next_blocks()))
+            stream.append(agg.fold())
+            widths.append(agg.halfwidth())
+            if agg.exhausted:
+                break
+        agg.close()
+        plan = {"query": aq, "stream": stream, "widths": widths, "error_slo": None,
+                "deadline_s": None}
+        if i < len(AGG_SERVE_CI_ROUNDS):
+            plan["error_slo"] = widths[min(AGG_SERVE_CI_ROUNDS[i], len(widths)) - 1]
+        elif i == len(AGG_SERVE_CI_ROUNDS):
+            plan["deadline_s"] = prices[0] + 2.5 * max(prices[1:3], default=prices[0])
+        plans.append(plan)
+    return plans
+
+
+def submit_aggregates(srv, plans) -> list:
+    return [srv.submit_aggregate_request(
+        p["query"].predicates, 0, AGG_K, op=p["query"].op, error_slo=p["error_slo"],
+        deadline_s=p["deadline_s"], alpha=AGG_SERVE_ALPHA, seed=p["query"].seed,
+        chunk_blocks=AGG_CHUNK, max_rounds=AGG_SERVE_ROUNDS) for p in plans]
+
+
+def check_aggregate_streams(reqs, plans, what: str) -> None:
+    for r, p in zip(reqs, plans):
+        if not r.done or r.stream != p["stream"][:r.rounds] or r.result is not r.stream[-1]:
+            raise AssertionError(f"{what}: request {r.rid}'s stream differs from its solo run")
+        if p["deadline_s"] is not None and r.spent_io_s > p["deadline_s"]:
+            raise AssertionError(f"{what}: request {r.rid} spent past its deadline")
+
+
+def serve_aggregate_check(store, cpu_store, queries, run, seed: int,
+                          device: str = "cuda") -> dict:
+    """Eight aggregate requests (:func:`aggregate_plan`) through the
+    continuous aggregate pool of 4 slots (``run_continuous``): each
+    request's per-round stream equals its solo run on a fresh card engine
+    (``==``) and on the CPU copy (within ``RTOL``); the error SLOs answer
+    ``"ci"``, one mid-wave (its slot refilled), and the deadline request
+    never spends past its budget."""
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.core.online_agg import OnlineAggregator
+    from repro_torch.serving import AdmissionPolicy, ServeEngine
+
+    plans = aggregate_plan(store, queries, seed, device)
+    eng = NeedleTailEngine(store, device=device)
+    srv = ServeEngine(None, None, max_slots=AGG_SERVE_SLOTS, device=device, clock=FakeClock(),
+                      aggregate_policy=AdmissionPolicy(slo_s=SERVE_SLO_S, max_wave=AGG_SERVE_SLOTS))
+    reqs = submit_aggregates(srv, plans)
+
+    def go():
+        t0 = time.perf_counter()
+        done = srv.run_continuous(eng)["aggregate"]
+        sync(device)
+        return done, time.perf_counter() - t0
+
+    (done, secs), wall, launches = run("serve_aggregate", go)
+    if sorted(r.rid for r in done) != [r.rid for r in reqs]:
+        raise AssertionError("serve_aggregate: not every request was answered")
+    check_aggregate_streams(reqs, plans, "serve_aggregate")
+    ci = [r for r, p in zip(reqs, plans) if p["error_slo"] is not None]
+    if any(r.reason != "ci" for r in ci):
+        raise AssertionError(f"serve_aggregate: error SLOs answered {[r.reason for r in ci]}")
+    if srv.aggregate_admission.stats.refill_waves < 1:
+        raise AssertionError("serve_aggregate: no slot was freed and refilled mid-wave")
+    cpu = NeedleTailEngine(cpu_store, device="cpu")
+    bit_equal = 0
+    for r, p in zip(reqs, plans):
+        agg = OnlineAggregator(cpu, p["query"], chunk_blocks=AGG_CHUNK)
+        cstream = [agg.fold() for _ in range(r.rounds)]
+        agg.close()
+        for a, b in zip(r.stream, cstream):
+            if not all(np.isclose(getattr(a, f), getattr(b, f), rtol=RTOL, atol=0.0)
+                       for f in ("total", "mean", "var_total", "var_mean")):
+                raise AssertionError(f"serve_aggregate: request {r.rid} differs from the CPU")
+        bit_equal += r.stream == cstream
+    return {"wall_s": secs, "ticks": srv._aggregate_loop.sched.rounds,
+            "slot_occupancy": srv._aggregate_loop.sched.occupancy,
+            "answers": [{"rid": r.rid, "reason": r.reason, "rounds": r.rounds,
+                         "halfwidth": r.result.ci_halfwidth(), "mean": r.result.mean,
+                         "spent_io_s": r.spent_io_s, "error_slo": p["error_slo"],
+                         "deadline_s": p["deadline_s"]} for r, p in zip(reqs, plans)],
+            "admission": dataclasses.asdict(srv.aggregate_admission.stats),
+            "cpu_bit_equal": bit_equal, "plans": plans, "launches": launches}
+
+
+def lm_join_run(model, join: dict, prompts, impl: str):
+    """A first prompt prefilled alone, then the others submitted: each joins
+    the live wave when a slot is free and its prompt fits ``pos``.  The
+    second joins the next tick, at ``pos`` equal to its length."""
+    from repro_torch.serving import ServeEngine
+
+    eng = ServeEngine(model.cfg, model, max_slots=2, max_seq=join["max_seq"], impl=impl,
+                      device=model.device)
+    first = eng.submit(prompts[0], max_new_tokens=join["max_new"][0])
+    eng.lm_tick()
+    rest = [eng.submit(p, max_new_tokens=n) for p, n in zip(prompts[1:], join["max_new"][1:])]
+    eng.run_continuous()
+    joins = [t["joiners"] for t in eng.lm_tick_stats[1:] if t["joiners"]]
+    if eng.lm_tick_stats[1]["joiners"] != 1 or len(joins) < len(rest):
+        raise AssertionError(f"{model.cfg.name}: joiners seated at ticks {joins}, not one each")
+    return eng, [first, *rest]
+
+
+def lm_prefills(eng) -> int:
+    """Prefills of a continuous run: the first wave's and each joiners'."""
+    return sum(1 for t in eng.lm_tick_stats if t["joiners"])
+
+
+def lm_tick_times(eng, wall: float) -> dict:
+    pre = [t["prefill_s"] for t in eng.lm_tick_stats if t["joiners"]]
+    dec = [t["decode_s"] for t in eng.lm_tick_stats if t["active"]]
+    new = sum(t["active"] for t in eng.lm_tick_stats) + sum(
+        t["joiners"] for t in eng.lm_tick_stats)
+    return {"ticks": len(eng.lm_tick_stats), "prefills": len(pre),
+            "prefill_s_per_tick": float(np.mean(pre)) if pre else 0.0,
+            "decode_s_per_tick": float(np.mean(dec)) if dec else 0.0,
+            "tokens": new, "tokens_per_s": new / wall if wall > 0 else None}
+
+
+def lm_continuous_check(model, join: dict, seed: int, run, phase: str,
+                        traffic: dict | None = None) -> dict:
+    """``run_continuous`` on ``model`` through ``run`` as ``phase``, with the
+    kernels: ``traffic`` (the launcher's) when given, and the join run
+    (:func:`lm_join_run`); each again with ``impl="plain"``, tokens equal
+    but for counted near-ties.  #8 and #9 launch once per attention and
+    Mamba sublayer a prefill.  The joiner whose prompt length equals
+    ``pos`` gives its solo wave's tokens."""
+    cfg = model.cfg
+    prompts = serve_prompts(cfg, traffic, seed) if traffic else []
+    rng = np.random.default_rng(seed + 1)
+    jp = [rng.integers(0, cfg.vocab, n) for n in join["plens"]]
+
+    def continuous(impl):
+        out = {}
+        if traffic:
+            from repro_torch.serving import ServeEngine
+
+            eng = ServeEngine(cfg, model, max_slots=traffic["slots"], max_seq=traffic["max_seq"],
+                              impl=impl, device=model.device)
+            reqs = [eng.submit(p, max_new_tokens=traffic["max_new"]) for p in prompts]
+            t0 = time.perf_counter()
+            eng.run_continuous()
+            sync(model.device)
+            out["traffic"] = (eng, reqs, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        jeng, jreqs = lm_join_run(model, join, jp, impl)
+        sync(model.device)
+        out["join"] = (jeng, jreqs, time.perf_counter() - t0)
+        return out
+
+    import torch
+
+    with torch.inference_mode():
+        kern, wall, launches = run(phase, lambda: continuous("kernel"))
+        prefills = sum(lm_prefills(e) for e, _, _ in kern.values())
+        check_launches(launches, {k: n * prefills for k, n in lm_layer_counts(cfg).items()}, phase)
+        plain = continuous("plain")
+        from repro_torch.serving import ServeEngine
+
+        solo = ServeEngine(cfg, model, max_slots=2, max_seq=join["max_seq"], device=model.device)
+        solo.submit(jp[1], max_new_tokens=join["max_new"][1])
+        solo_req = solo.run_until_drained()[0]
+    res = {"wall_s": wall, "launches": launches, "prefills": prefills}
+    for name, (eng, reqs, secs) in kern.items():
+        res[name] = {"kernel": lm_tick_times(eng, secs),
+                     "plain": lm_tick_times(plain[name][0], plain[name][2]),
+                     "streams": compare_streams(reqs, plain[name][1], LM_ATOL)}
+    res["join"]["joiner_vs_solo"] = compare_streams([kern["join"][1][1]], [solo_req], LM_ATOL)
+    res["join"]["joiners_at_ticks"] = [i for i, t in enumerate(kern["join"][0].lm_tick_stats)
+                                       if i and t["joiners"]]
+    return res
+
+
+def obs_check(store, queries, plans, run, device: str = "cuda") -> dict:
+    """One continuous run of the 64 exemplar requests and the 8 aggregate
+    requests traced by a ``TraceRecorder``, beside the same run untraced:
+    records, streams, reasons and rounds identical.  The export goes
+    through the unchanged ``tools/trace_report.py`` (a subprocess, exit 0),
+    which must reconstruct one completed path per request."""
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.obs import TraceRecorder
+    from repro_torch.serving import AdmissionPolicy
+
+    auto = auto_wave(queries)
+    repo = Path(__file__).resolve().parent
+
+    def serve(rec):
+        eng = NeedleTailEngine(store, device=device)
+        srv = exemplar_server(device, exemplar_device=True, obs=rec,
+                              aggregate_policy=AdmissionPolicy(slo_s=SERVE_SLO_S,
+                                                               max_wave=SERVE_SLOTS))
+        ex = [srv.submit_exemplar_request(q.predicates, q.k, q.op) for q in auto]
+        ag = submit_aggregates(srv, plans)
+        t0 = time.perf_counter()
+        srv.run_continuous(eng)
+        sync(device)
+        return srv, ex, ag, time.perf_counter() - t0
+
+    rec = TraceRecorder()
+    (srv, ex, ag, secs), wall, launches = run("obs", lambda: serve(rec))
+    _, pex, pag, psecs = serve(None)
+    for i, (a, b) in enumerate(zip(ex, pex)):
+        compare_results(a.result, b.result, f"obs exemplar {i} traced vs untraced")
+    for a, b in zip(ag, pag):
+        if (a.stream, a.reason, a.rounds) != (b.stream, b.reason, b.rounds):
+            raise AssertionError(f"obs: aggregate {a.rid} traced differs from untraced")
+    check_aggregate_streams(ag, plans, "obs")
+    sys.path.insert(0, str(repo))
+    from tools.trace_report import load_events, request_paths
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = rec.export_jsonl(str(Path(tmp) / "trace.jsonl"))
+        report = subprocess.run([sys.executable, str(repo / "tools" / "trace_report.py"), path,
+                                 "--requests", "4"], capture_output=True, text=True, timeout=300)
+        if report.returncode != 0:
+            raise AssertionError(f"trace_report exited {report.returncode}: {report.stderr}")
+        head = report.stdout.splitlines()[0]
+        paths = request_paths(load_events(path))
+    want = len(ex) + len(ag)
+    if head != f"trace: {len(rec.events)} events, {want} completed requests" or \
+            sorted(paths) != sorted(r.rid for r in ex + ag) or rec.dropped:
+        raise AssertionError(f"trace_report: {head!r} for {want} requests, {rec.dropped} dropped")
+    cov = [p["coverage"] for p in paths.values()]
+    return {"traced_s": secs, "untraced_s": psecs, "events": len(rec.events),
+            "dropped": rec.dropped, "report": head,
+            "coverage": {q: float(np.quantile(cov, q)) for q in (0.0, 0.5, 0.99)},
+            "prometheus_lines": len(rec.metrics.render_prometheus().splitlines()),
+            "wait_p50_s": rec.metrics.quantile("admission.wait_s", 0.5),
+            "wait_p99_s": rec.metrics.quantile("admission.wait_s", 0.99),
+            "report_lines": report.stdout.splitlines()[:12], "launches": launches}
+
+
+def lm_continuous_phase(model, phase: str, join: dict, seed: int, phase_launches: dict,
+                        traffic: dict | None = None) -> None:
+    """:func:`lm_continuous_check` on ``model``, logged."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = lm_continuous_check(model, join, seed, run_phase, phase, traffic)
+    phase_launches[phase] = res.pop("launches")
+    for name in ("traffic", "join"):
+        if name in res:
+            log(f"{phase} {model.cfg.name} {name}: {res.pop(name)}")
+    log(f"{phase}: {res}; kernel tokens == plain but for counted near-ties, the joiner at pos "
+        f"== its solo wave; peak {peak_gb('cuda'):.2f} GB; {time.perf_counter() - t0:.1f} s "
+        "in all")
+
+
 def run_phase(name: str, fn):
     """Zero the launch counters, run ``fn``, read them: ``name``'s kernels
     must all have launched.  Returns ``(result, wall seconds, launches)``."""
@@ -2911,6 +3502,14 @@ def main(argv=None) -> int:
                             rank=0, device_id=torch.device("cuda", torch.cuda.current_device()))
     try:
         sh = sharded_check(store, queries, batch, warm, rows, run_phase, profile=args.profile)
+        # -- serve_exemplar: the wave's queries as requests through ServeEngine,
+        # the mesh variant on this world of one
+        from repro_torch.launch.mesh import make_host_mesh
+
+        t0 = time.perf_counter()
+        se = serve_exemplar_check(store, queries, batch, run_phase,
+                                  mesh=make_host_mesh(device_type="cuda"))
+        serve_wall = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     phase_launches["sharded"] = sh.pop("launches")
@@ -2947,6 +3546,15 @@ def main(argv=None) -> int:
                     f"seconds {r['round_seconds']}, frontier all_gather {r['collective_ms']} ms"
                     for r in ranks)
         + "; every rank == the sharded phase, counters included")
+    auto_ref = se.pop("ref")
+    phase_launches.update(se.pop("launches"))
+    for name in ("serve_exemplar", "serve_exemplar_host", "serve_exemplar_drain",
+                 "serve_exemplar_mesh"):
+        log(f"{name}: {se.pop(name)}")
+    log(f"serve_exemplar real clock (SLO {SERVE_REAL_SLO_S} s, one arrival a tick): "
+        f"{se.pop('real_clock')}")
+    log(f"serve_exemplar: {Q} requests, {SERVE_SLOTS} slots, each loop == the all-auto wave "
+        f"(the wave phase's auto queries, 8 solo any_k); {serve_wall:.1f} s in all")
 
     # -- 10-16. predicate trees, FORWARD-OPTIMAL, the §5 aggregate path,
     # group-by and the baselines, each also run by the port on the CPU store
@@ -2984,6 +3592,19 @@ def main(argv=None) -> int:
     phase_launches["baselines"] = bl.pop("launches")
     log(f"baselines: {bl}; words, streams and scans == the CPU run's, first-k ids == the "
         f"table's; {time.perf_counter() - t0:.1f} s in all")
+    t0 = time.perf_counter()
+    sa = serve_aggregate_check(store, cpu_store, queries, run_phase, args.seed)
+    phase_launches["serve_aggregate"] = sa.pop("launches")
+    plans = sa.pop("plans")
+    log(f"serve_aggregate: {sa}; each stream == its solo run on a fresh card engine (==) and "
+        f"the CPU copy's (rtol {RTOL}); {time.perf_counter() - t0:.1f} s in all")
+    t0 = time.perf_counter()
+    ob = obs_check(store, queries, plans, run_phase)
+    phase_launches["obs"] = ob.pop("launches")
+    for line in ob.pop("report_lines"):
+        log(f"  {line}")
+    log(f"obs: {ob}; traced == untraced (records, streams, reasons); trace_report rebuilt "
+        f"every request; {time.perf_counter() - t0:.1f} s in all")
     del held, cpu_store
     torch.cuda.empty_cache()
 
@@ -2996,12 +3617,15 @@ def main(argv=None) -> int:
     cfg, scfg = get_config(LM_ARCH), get_config(SWA_ARCH)
     model = build_lm(cfg, args.seed)
     long_seq = lm_phases(model, "lm_forward", "lm_serve", args, phase_launches)
+    lm_continuous_phase(model, "serve_lm_continuous", LM_JOIN, args.seed, phase_launches,
+                        SERVE_TRAFFIC["launcher"])
     del model
     torch.cuda.empty_cache()
 
     # -- 19. lm_forward_swa and 20. lm_serve_swa: gemma3-12b at full width
     model = build_lm(scfg, args.seed)
     swa_seq = lm_phases(model, "lm_forward_swa", "lm_serve_swa", args, phase_launches)
+    lm_continuous_phase(model, "serve_lm_continuous_swa", SWA_JOIN, args.seed, phase_launches)
     del model
     torch.cuda.empty_cache()
 
@@ -3043,6 +3667,10 @@ def main(argv=None) -> int:
     phase_launches["prefetch"] = pf.pop("launches")
     log(f"prefetch: {pf}; round 0 read 0 store blocks in both modes, async admissions == "
         f"sync; {time.perf_counter() - t0:.1f} s in all")
+    t0 = time.perf_counter()
+    st = serve_tiered_check(store, queries, auto_ref, run_phase)
+    phase_launches["serve_tiered"] = st.pop("launches")
+    log(f"serve_tiered: {st}; == the all-auto wave; {time.perf_counter() - t0:.1f} s in all")
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

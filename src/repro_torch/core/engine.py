@@ -34,7 +34,9 @@ host memory, instead of the flat cache; ``append``, ``compact``,
 models (:mod:`repro_torch.data.append`, :mod:`repro_torch.storage.compact`,
 :mod:`repro_torch.storage.calibration`), and a
 :class:`~repro_torch.core.plan_ledger.PlanLedger` records predicted against
-observed I/O.
+observed I/O.  ``obs=`` (a :class:`~repro_torch.obs.TraceRecorder`) traces
+each ``any_k`` round, the ``auto`` arbitration and each refit, and is
+shared with a tier stack so its fetch events land in the same stream.
 
 :meth:`NeedleTailEngine.aggregate` is the §5 hybrid-sampled estimate: the
 design is drawn on the host (:mod:`repro_torch.core.hybrid`), its blocks
@@ -62,14 +64,11 @@ from repro_torch.core.threshold import threshold_select
 from repro_torch.core.two_prong import two_prong_select
 from repro_torch.device import resolve_device
 from repro_torch.kernels.density_combine import exclusion_ids
+from repro_torch.obs.trace import NULL_SPAN
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.core.multi_query import BatchQueryResult
     from repro_torch.data.block_store import BlockStore
-
-# what later slices of the port carry, by constructor argument
-_LATER = {"obs": "serving and observability slice"}
-
 
 @dataclasses.dataclass
 class QueryResult:
@@ -103,7 +102,10 @@ class NeedleTailEngine:
     and corrects prices; ``timing_backend`` answers what a read costs, and
     ``calibrated_cost`` refits the cost models from it at start
     (a :class:`~repro_torch.storage.calibration.StoreTimingBackend` over
-    the store when none is given).
+    the store when none is given).  ``obs`` (a :class:`~repro_torch.obs.
+    TraceRecorder`) records ``anyk.round`` spans and ``plan.arbitration``
+    and ``calibration.refit`` events from the host copies the engine
+    already holds: tracing adds no device synchronisation.
     """
 
     def __init__(
@@ -118,14 +120,9 @@ class NeedleTailEngine:
         calibrated_cost: bool = False,
         timing_backend=None,
         ledger=None,
+        obs=None,
         device: str | torch.device = "cuda",
-        **later,
     ):
-        for name, value in later.items():
-            if name not in _LATER:
-                raise TypeError(f"unexpected argument {name!r}")
-            if value not in (None, False):
-                raise NotImplementedError(f"{name} arrives with the {_LATER[name]} of the port")
         self.device = resolve_device(device)
         self._check_device(store)
         self.store = store
@@ -146,6 +143,11 @@ class NeedleTailEngine:
         # shared with a tier stack so every pricing site agrees
         self.ledger = ledger
         self.timing_backend = timing_backend
+        # obs: a repro_torch.obs.TraceRecorder, shared with a tier stack so
+        # fetch events land in the same stream as plan and wave spans
+        self.obs = obs
+        if obs is not None and hasattr(self.block_cache, "obs"):
+            self.block_cache.obs = obs
         if hasattr(self.block_cache, "effective_io_time"):
             if ledger is not None:
                 self.block_cache.ledger = ledger
@@ -235,6 +237,8 @@ class NeedleTailEngine:
         if self.ledger is not None:
             for level in fitted:  # refit models subsume the old corrections
                 self.ledger.reset_correction(level)
+        if self.obs is not None and fitted:
+            self.obs.event("calibration.refit", levels=sorted(fitted))
         return fitted
 
     # ------------------------------------------------------------------ plans
@@ -341,6 +345,9 @@ class NeedleTailEngine:
         # §7.2 Discussion: plan with both, cost both, take the cheaper
         ct, c2 = self.plan_cost(bt), self.plan_cost(b2)
         blocks, used, cost = (bt, "threshold", ct) if ct <= c2 else (b2, "two_prong", c2)
+        if self.obs is not None:
+            self.obs.event("plan.arbitration", choice=used, n_blocks=int(blocks.size),
+                           cost_threshold=float(ct), cost_two_prong=float(c2))
         self._record_arbitration(blocks, cost)
         return blocks, used
 
@@ -365,7 +372,10 @@ class NeedleTailEngine:
         algo: str = "auto",
     ) -> QueryResult:
         """One LIMIT-k query: plan, read, mask, refill (the reference's
-        sequential loop)."""
+        sequential loop).  With ``obs`` each round is an ``anyk.round`` span
+        around the plan and the read, its predicted I/O priced from the
+        plan's host copy."""
+        obs = self.obs
         t0 = time.perf_counter()
         fetched: list[np.ndarray] = []
         rec_blocks: list[np.ndarray] = []
@@ -376,13 +386,19 @@ class NeedleTailEngine:
         exclude = np.asarray([], dtype=np.int64)
         need = k
         while got < k and rounds < self.max_refills:
-            blocks, used_algo = self.plan(predicates, need, op, algo, exclude)
-            blocks = np.setdiff1d(blocks, exclude)
-            if blocks.size == 0:
-                break
-            blocks = np.sort(blocks)  # §4.1 fetch optimization
-            rb, rr, rm = self._records(
-                predicates, op, blocks, self.block_cache.get_many(self.store, blocks))
+            span = NULL_SPAN if obs is None else obs.span("anyk.round", round=rounds,
+                                                          need=int(need))
+            with span as sp:
+                blocks, used_algo = self.plan(predicates, need, op, algo, exclude)
+                blocks = np.setdiff1d(blocks, exclude)
+                if obs is not None:
+                    sp.set(algo=used_algo, n_blocks=int(blocks.size),
+                           predicted_io_s=float(self.cost.io_time(blocks)))
+                if blocks.size == 0:
+                    break
+                blocks = np.sort(blocks)  # §4.1 fetch optimization
+                slabs = self.block_cache.get_many(self.store, blocks)
+            rb, rr, rm = self._records(predicates, op, blocks, slabs)
             rec_blocks.append(rb)
             rec_rows.append(rr)
             meas.append(rm)

@@ -51,8 +51,16 @@ wave: in the device wave each rank combines its λ-shard of the joiners'
 rows (#3) and the round plans the shards
 (:meth:`~repro_torch.core.sharded.DistributedAnyK.device_round_fn`); in the
 host-mirror loop the memo misses go to the planner's wave methods.  Plans
-and results equal the unsharded ones.  Left for later slices of the port:
-tiers and the obs hooks.
+and results equal the unsharded ones.  Reads go through the engine's block
+cache or :class:`~repro_torch.storage.tiers.TierStack`
+(``BatchQueryResult.tier_stats``).
+
+With ``engine.obs`` (a :class:`~repro_torch.obs.TraceRecorder`) a batch is
+a ``batch.run`` span, each host-mirror round a ``plan.round`` span, each
+union read a ``wave.execute`` span, and each device round a
+``device.transfer`` and a ``plan.round`` event; their attributes come from
+host copies the loops already hold (the device wave's from its one packed
+transfer), so tracing adds no synchronisation.
 """
 from __future__ import annotations
 
@@ -353,6 +361,10 @@ class DeviceWave:
         # the round's single device→host transfer: the packed [Qb, λ+3] plan
         packed_np = packed.cpu().numpy()
         ds.transfers += 1
+        obs = engine.obs
+        if obs is not None:
+            obs.event("device.transfer", n=ds.transfers, nbytes=int(packed_np.nbytes),
+                      n_active=len(active))
         th_mask, _, tps, tpe = unpack_plan(packed_np, self.lam)
         # forward_optimal occupants plan on the host DP, from the host mirror
         # of their rows (exclusions applied), as the reference does
@@ -391,7 +403,25 @@ class DeviceWave:
             if blocks.size == 0:
                 st.done = True  # plan exhausted: nothing new to read
             wave_blocks.append(blocks)
+        if obs is not None:
+            union = _union(wave_blocks)
+            obs.event("plan.round", site="device", n_active=len(active),
+                      n_blocks=int(union.size), choices=_choices(active),
+                      predicted_io_s=float(engine.cost.io_time(union)))
         return active, wave_blocks
+
+
+def _union(wave_blocks: list[np.ndarray]) -> np.ndarray:
+    """The round's deduplicated ascending block union."""
+    return np.unique(np.concatenate(wave_blocks)) if wave_blocks else np.asarray([], np.int64)
+
+
+def _choices(active: list[_QueryState]) -> dict[str, int]:
+    """How many of the round's states took each planner."""
+    choices: dict[str, int] = {}
+    for st in active:
+        choices[st.used_algo] = choices.get(st.used_algo, 0) + 1
+    return choices
 
 
 def _predicate_table(states: list[_QueryState]):
@@ -481,8 +511,26 @@ def _execute_wave(
     growth, refill accounting).  Shared by the device and host-mirror loops,
     so they differ only in where plans are computed.  Returns
     ``(progressed, blocks_requested_delta)``."""
+    obs = engine.obs
+    if obs is None:
+        return _execute_wave_body(engine, active, wave_blocks, touched, touched_set)
+    with obs.span("wave.execute", n_active=len(active)) as sp:
+        progressed, requested = _execute_wave_body(engine, active, wave_blocks, touched,
+                                                   touched_set)
+        sp.set(requested=requested, progressed=progressed,
+               satisfied=sum(1 for st in active if st.done))
+    return progressed, requested
+
+
+def _execute_wave_body(
+    engine: "NeedleTailEngine",
+    active: list[_QueryState],
+    wave_blocks: list[np.ndarray],
+    touched: list[int],
+    touched_set: set[int],
+) -> tuple[bool, int]:
     cache = engine.block_cache
-    union = np.unique(np.concatenate(wave_blocks)) if wave_blocks else np.asarray([], np.int64)
+    union = _union(wave_blocks)
     if union.size:
         for b in union:
             if int(b) not in touched_set:
@@ -749,6 +797,21 @@ def plan_round_host(
     diffed against the state's exclusions (``setdiff1d``: ascending fetch
     order).  A state whose diff comes up empty is marked done.  Returns the
     per-state block sets, aligned with ``active``."""
+    obs = engine.obs
+    if obs is None:
+        return _plan_round_host_body(engine, active, algo, planner)
+    with obs.span("plan.round", site="sharded" if planner is not None else "host",
+                  n_active=len(active)) as sp:
+        wave_blocks = _plan_round_host_body(engine, active, algo, planner)
+        union = _union(wave_blocks)
+        sp.set(n_blocks=int(union.size), choices=_choices(active),
+               predicted_io_s=float(engine.cost.io_time(union)))
+    return wave_blocks
+
+
+def _plan_round_host_body(
+    engine: "NeedleTailEngine", active: list[_QueryState], algo: str, planner=None,
+) -> list[np.ndarray]:
     by_algo: dict[str, list[_QueryState]] = {}
     for st in active:
         by_algo.setdefault(st.query.algo or algo, []).append(st)
@@ -836,9 +899,16 @@ def run_batch(
     same data: same blocks planned, same refill rounds, same record order.
     Reads go through the engine-lifetime block cache; the batch's
     ``store_blocks_fetched``, ``cache_hits`` and ``modeled_store_io_s`` are
-    its counters' deltas.
+    its counters' deltas.  With ``engine.obs`` the batch is a ``batch.run``
+    span carrying those counts.
     """
     check_algo(algo)
+    obs = engine.obs
+    sp = None
+    if obs is not None:
+        sp = obs.span("batch.run", n_queries=len(queries),
+                      site="host" if plan_on_host else "device")
+        sp.__enter__()
     t0 = time.perf_counter()
     states = [new_query_state(q) for q in queries]
     cache = engine.block_cache
@@ -867,6 +937,12 @@ def run_batch(
         cache.fetch_log = prev_log
     cpu = time.perf_counter() - t0
     touched_ids = np.asarray(touched, dtype=np.int64)
+    if sp is not None:
+        sp.set(waves=waves, requested=requested_total, unique_blocks=int(touched_ids.size),
+               device_transfers=device_transfers,
+               store_blocks_fetched=int(cache.stats.store_blocks_fetched - store0),
+               cache_hits=int(cache.stats.hits - hits0))
+        sp.__exit__(None, None, None)
     return BatchQueryResult(
         results=[finalize_query_result(engine, st, default_algo=algo, cpu_time_s=cpu)
                  for st in states],

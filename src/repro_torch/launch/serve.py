@@ -11,8 +11,10 @@ Counterpart of ``repro/launch/serve.py``.  The model runs on ``--device``
 ``--seed`` with the reference's distributions.  ``--reduced`` is on by
 default as in the reference, whose ``store_true`` flag with ``default=True``
 can never be turned off; here ``--no-reduced`` serves the full-width
-configuration.  The reference's ``--continuous`` slot loop arrives with the
-serving slice of the port.
+configuration.  ``--continuous`` swaps the wave drain for the continuous
+slot loop (``ServeEngine.run_continuous``): a finished request frees its
+slot at once and a queued prompt that fits the position counter joins
+mid-wave, its cache rows grafted into the live cache.
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ def main(argv=None) -> int:
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--continuous", action="store_true",
+                    help="slot-level continuous batching instead of wave drain")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -51,10 +55,11 @@ def main(argv=None) -> int:
     for _ in range(args.requests):
         plen = int(rng.integers(4, 24))
         eng.submit(rng.integers(0, cfg.vocab, plen), max_new_tokens=args.max_new)
-    done = eng.run_until_drained()
+    done = eng.run_continuous()["lm"] if args.continuous else eng.run_until_drained()
     dt = time.time() - t0
     total_new = sum(len(r.out_tokens) for r in done)
-    print(f"[serve] waves on {eng.device}: {len(done)} requests, {total_new} tokens in "
+    mode = "continuous" if args.continuous else "waves"
+    print(f"[serve] {mode} on {eng.device}: {len(done)} requests, {total_new} tokens in "
           f"{dt:.1f}s ({total_new / dt:.1f} tok/s)")
     for r in done[:4]:
         print(f"  rid={r.rid} prompt_len={len(r.prompt)} out={r.out_tokens[:8]}...")

@@ -1,4 +1,11 @@
-"""LM serving on PyTorch (counterpart of ``repro/serving``)."""
-from repro_torch.serving.engine import Request, ServeEngine
+"""Serving on PyTorch (counterpart of ``repro/serving``): SLO admission, the
+LM waves and the continuous exemplar, aggregate and LM slot loops."""
+from repro_torch.serving.admission import AdmissionController, AdmissionPolicy, AdmissionStats
+from repro_torch.serving.engine import (
+    AggregateRequest, ExemplarRequest, Request, ServeEngine, SlotScheduler,
+)
 
-__all__ = ["Request", "ServeEngine"]
+__all__ = [
+    "AdmissionController", "AdmissionPolicy", "AdmissionStats", "AggregateRequest",
+    "ExemplarRequest", "Request", "ServeEngine", "SlotScheduler",
+]

@@ -259,6 +259,10 @@ class TierPrefetcher:
             want = want[: self.max_blocks]
         ids = np.asarray(want, dtype=np.int64)
         self.stats.issued += int(ids.size)
+        obs = getattr(engine, "obs", None)
+        if obs is not None:
+            obs.event("prefetch.kick", n=int(ids.size), predicted_requests=n_pred,
+                      tier=self.tier)
         _record_priced_decision(engine, "prefetch", ids,
                                 effective_block_cost(engine, ids, missed_only=True))
         self.prefetched.update(int(b) for b in ids)
@@ -325,6 +329,10 @@ class TierPrefetcher:
             self.stats.fetched += got
             moved += got
         self._inflight = still
+        if moved:  # traced here, on the serving thread, never from the side stream
+            obs = getattr(self.engine, "obs", None)
+            if obs is not None:
+                obs.event("prefetch.drain", admitted=moved, tier=self.tier)
         return moved
 
     # ------------------------------------------------------------------ credit

@@ -1,7 +1,8 @@
 """Residency-aware admission: peek tier residency + plan-memo hits.
 
-Counterpart of ``repro/storage/residency.py``; the admission controller
-that calls the probe arrives with the serving slice of the port.
+Counterpart of ``repro/storage/residency.py``; the probe is installed on
+the :class:`~repro_torch.serving.admission.AdmissionController` by
+``ServeEngine(exemplar_residency=True)``.
 
 The SLO admission controller normally launches on occupancy or deadline
 only.  But a wave whose every query (a) has a memoized plan and (b) plans

@@ -323,7 +323,8 @@ class TierStack:
         # ids the store reported dirtied: their next admission books as
         # ``invalidation_rereads`` instead of ``misses`` (one-shot marks)
         self._invalidated: set[int] = set()
-        # not carried by this slice of the port (the serving slice's traces)
+        # optional repro_torch.obs.TraceRecorder: fetch outcomes and
+        # invalidations stream into it; None adds one attribute test
         self.obs = None
         # measured-cost feedback (storage.calibration, core.plan_ledger)
         self.ledger = None
@@ -378,10 +379,11 @@ class TierStack:
     def invalidate(self, block_ids: Iterable[int]) -> int:
         """Evict exactly ``block_ids`` from EVERY tier (the dirtied blocks);
         returns the number of resident copies evicted."""
-        n = 0
+        n = marked = 0
         for b in block_ids:
             b = int(b)
             self._invalidated.add(b)
+            marked += 1
             for tier in self.tiers:
                 if tier.pop(b) is not None:
                     tier.stats.invalidations += 1
@@ -391,6 +393,8 @@ class TierStack:
             self._invalidated.clear()  # to plain misses, never grow unbounded
         self.stats.invalidations += n
         self._sync_gauges()
+        if self.obs is not None:
+            self.obs.event("tier.invalidate", dirtied=marked, evicted=n)
         return n
 
     def _split_rereads(self, miss_set: set[int]) -> set[int]:
@@ -615,8 +619,10 @@ class TierStack:
         a block this call admitted and displaced again."""
         nb = self.block_nbytes(store)
         # predicted price of this miss batch BEFORE fetching (ledger-
-        # corrected like every other quote); the observation closes the loop
-        priced = self.ledger is not None and miss.size
+        # corrected like every other quote); the observation closes the loop.
+        # The trace recorder takes the same predicted/observed pair, so the
+        # batch is priced when either consumer is wired
+        priced = (self.ledger is not None or self.obs is not None) and miss.size
         pred = t_wall = 0.0
         if priced:
             pred = self.backing.io_time(miss) * self._corr(self.backing.name)
@@ -657,7 +663,11 @@ class TierStack:
             else:
                 self._sync()
                 obs = time.perf_counter() - t_wall
-            self.ledger.record("placement", self.backing.name, pred, obs)
+            if self.ledger is not None:
+                self.ledger.record("placement", self.backing.name, pred, obs)
+            if self.obs is not None:
+                self.obs.event("fetch.store", n=int(miss.size), level=self.backing.name,
+                               predicted_io_s=pred, observed_io_s=obs)
         return inscope
 
     def ensure(self, store: "BlockStore", block_ids) -> int:

@@ -50,6 +50,8 @@ def test_importing_every_port_module_leaves_jax_and_repro_out():
             'repro_torch.storage.calibration', 'repro_torch.storage.residency',
             'repro_torch.storage.compact', 'repro_torch.core.plan_ledger',
             'repro_torch.data.append'} <= set(mods)
+    assert {'repro_torch.obs', 'repro_torch.obs.trace', 'repro_torch.obs.metrics',
+            'repro_torch.obs.wave_stats', 'repro_torch.serving'} <= set(mods)
     assert {'repro_torch.core.block_cache', 'repro_torch.kernels.ops',
             'repro_torch.kernels.window_scan', 'repro_torch.kernels.flash_attention',
             'repro_torch.kernels.ssd_chunk', 'repro_torch.configs', 'repro_torch.models.lm',
@@ -123,6 +125,7 @@ def _entry_points():
         "LM": lambda: LM(lm_cfg),
         "init_cache": lambda: init_cache(lm_cfg, 1, 8),
         "ServeEngine": lambda: ServeEngine(lm_cfg, cpu_lm),
+        "ServeEngine(None, None)": lambda: ServeEngine(None, None),
         "lm_params_from_reference": lambda: lm_params_from_reference(lm_tree, lm_cfg),
         "launch.serve.main": lambda: serve.main(["--arch", "zamba2-7b", "--requests", "1"]),
         "resolve_device": lambda: resolve_device(),
@@ -141,7 +144,8 @@ def _entry_points():
 @pytest.mark.parametrize(
     "name", ["resolve_device", "build_density_maps", "build_block_store",
              "store_from_reference", "NeedleTailEngine", "store.to", "init_params", "LM",
-             "init_cache", "ServeEngine", "lm_params_from_reference", "launch.serve.main",
+             "init_cache", "ServeEngine", "ServeEngine(None, None)", "lm_params_from_reference",
+             "launch.serve.main",
              "make_host_mesh", "build_bitmap_index", "make_tier_stack", "TierStack"],
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(name):

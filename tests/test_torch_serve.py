@@ -105,19 +105,45 @@ def test_serve_engine_plain_impl_gives_the_same_tokens_on_cpu(zamba):
 
 
 def test_serve_engine_checks_its_arguments_and_defers_later_pools(zamba):
+    """The arguments of the serving slice are carried and every pool runs:
+    exemplars (``select_exemplars``, the drained and continuous waves),
+    aggregates and the continuous LM loop, all on the CPU when asked."""
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.data.block_store import Table, build_block_store
+    from repro_torch.obs import TraceRecorder
+    from repro_torch.serving import AdmissionPolicy
+
     _, _, tcfg, model = zamba
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        ServeEngine(tcfg, model, device="cpu", exemplar_device=True)
     with pytest.raises(ValueError, match="impl"):
         ServeEngine(tcfg, model, device="cpu", impl="xla")
     with pytest.raises(ValueError, match="unsupported device"):
         ServeEngine(tcfg, model, device="meta")
-    eng = ServeEngine(tcfg, model, device="cpu")
-    for name in ("select_exemplars", "submit_exemplar_request", "pump_exemplar_requests",
-                 "drain_exemplar_requests", "exemplar_tick", "submit_aggregate_request",
-                 "aggregate_tick", "lm_tick", "step", "run_continuous"):
-        with pytest.raises(NotImplementedError, match="serving slice"):
-            getattr(eng, name)()
+    rec = TraceRecorder()
+    pol = AdmissionPolicy(slo_s=1.0, max_wave=2)
+    eng = ServeEngine(tcfg, model, max_slots=2, max_seq=48, device="cpu", exemplar_device=True,
+                      exemplar_policy=pol, aggregate_policy=pol, recalibrate_every=3, obs=rec)
+    assert (eng.exemplar_device, eng.recalibrate_every, eng.obs) == (True, 3, rec)
+    assert eng.exemplar_admission.policy is pol and eng.exemplar_admission.obs is rec
+    rng = np.random.default_rng(0)
+    t = Table(rng.integers(0, 2, (4096, 2)).astype(np.int32),
+              rng.normal(size=(4096, 1)).astype(np.float32), np.asarray([2, 2]))
+    anyk = NeedleTailEngine(build_block_store(t, 64, device="cpu"), device="cpu")
+    assert ServeEngine.select_exemplars(anyk, [(0, 1)], 20).num_records >= 20
+    ex = [eng.submit_exemplar_request([(0, 1)], 30), eng.submit_exemplar_request([(1, 1)], 40)]
+    assert eng.pump_exemplar_requests(anyk) == ex  # a full wave
+    ex2 = eng.submit_exemplar_request([(0, 1), (1, 1)], 50)
+    assert eng.drain_exemplar_requests(anyk) == [ex2]
+    lm = eng.submit(np.arange(5) + 3, max_new_tokens=3)
+    ex3 = eng.submit_exemplar_request([(0, 0)], 25)
+    agg = eng.submit_aggregate_request([(0, 1)], 0, 200, error_slo=0.5)
+    assert eng.lm_tick() == []  # the prefill tick
+    out = eng.run_continuous(anyk)
+    assert out == {"lm": [lm], "exemplar": [ex3], "aggregate": [agg]}
+    assert len(lm.out_tokens) == 3 and eng.lm_tick_stats[0]["joiners"] == 1
+    assert all(r.done for r in (*ex, ex2, ex3, lm, agg))
+    assert eng.step(anyk) == {"lm": [], "exemplar": [], "aggregate": []}
+    assert {e["name"] for e in rec.to_events()} >= {"serve.lm_tick", "serve.exemplar_tick",
+                                                     "serve.aggregate_tick"}
 
 
 def test_step_factories_run_prefill_and_decode(zamba):

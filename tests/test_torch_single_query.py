@@ -183,24 +183,24 @@ def test_single_query_raises_what_this_slice_does_not_carry(bad, exc):
     ("calibrated_cost", "tiered-storage"), ("obs", "observability"),
 ])
 def test_engine_arguments_of_later_slices_raise(arg, slice_name):
-    """``obs`` still raises, naming its slice; the tiered-storage slice's
-    arguments have landed and are carried."""
+    """The arguments of the tiered-storage and observability slices have
+    landed and are carried; an unknown argument still raises."""
     from repro_torch.core.plan_ledger import PlanLedger
+    from repro_torch.obs import TraceRecorder
     from repro_torch.storage import StoreTimingBackend, make_tier_stack
 
     (_, pstore), _ = _fixture("skewed")
     NeedleTailEngine(pstore, device="cpu", **{arg: None if arg != "calibrated_cost" else False})
-    if slice_name == "tiered-storage":
-        value = {"tiers": make_tier_stack(None, None, device="cpu"), "ledger": PlanLedger(),
-                 "calibrated_cost": True}[arg]
-        eng = NeedleTailEngine(pstore, device="cpu", **{arg: value})
-        carried = {"tiers": eng.block_cache, "ledger": eng.ledger,
-                   "calibrated_cost": True}[arg]
-        assert carried is value
-        if arg == "calibrated_cost":
-            assert isinstance(eng.timing_backend, StoreTimingBackend)
-    else:
-        with pytest.raises(NotImplementedError, match=slice_name):
-            NeedleTailEngine(pstore, device="cpu", **{arg: object()})
+    value = {"tiers": make_tier_stack(None, None, device="cpu"), "ledger": PlanLedger(),
+             "calibrated_cost": True, "obs": TraceRecorder()}[arg]
+    eng = NeedleTailEngine(pstore, device="cpu", **{arg: value})
+    carried = {"tiers": eng.block_cache, "ledger": eng.ledger, "calibrated_cost": True,
+               "obs": eng.obs}[arg]
+    assert carried is value
+    if arg == "calibrated_cost":
+        assert isinstance(eng.timing_backend, StoreTimingBackend)
+    if slice_name == "observability":
+        eng.any_k([(0, 1)], 5)
+        assert [e["name"] for e in value.to_events()][-1] == "anyk.round"
     with pytest.raises(TypeError):
         NeedleTailEngine(pstore, device="cpu", no_such_argument=1)
