@@ -191,11 +191,29 @@ LMs freed, each phase's store reads through #7:
    cleared, ``TierPrefetcher.kick`` + ``drain(wait=True)``: the next wave's
    round 0 reads 0 store blocks and equals a flat engine's; the async mode
    (a side stream) admits what the sync mode does, with equal results.
+26. peer — the cooperative peer-memory tier (``repro_torch.storage.peer``):
+   ``make_peer_group(store, 4)`` (four in-process shards, each a 256 MiB
+   tier 0 on the card over unbounded pinned host memory), the engine on
+   shard 0 and the wave's union warmed in thirds on shards 1-3.  The
+   peer-served wave equals the flat wave, reads 0 store blocks, and its
+   ``peer.remote_fetches`` equal its ``peer.hits``; the same calls on the
+   CPU copy give equal counters and directory.  The ``ici`` level fitted
+   (``calibrate_model``) on CUDA-event timings of the peer hop's copies
+   (``PeerTimer``; these give the port's ``ici`` preset).  Shard 1 raising:
+   equal results, one failure and one store read a read of its blocks;
+   shard 1 missing: equal results, its blocks read once.  Two waves of heat,
+   then ``OwnershipRebalancer.rebalance()`` moves the union to shard 0, and
+   the next wave reads none of it over the peer hop.  A world of one over
+   NCCL: ``attach_mesh(mesh, peer_group=...)``, ``fetch_remote`` serves warm
+   ids byte for byte and the mesh wave (#3) equals the flat wave.  Last, an
+   append raced into a peer read through ``mid_fetch_hook`` aborts it, and
+   the next wave equals a flat engine's on the grown store.  Wall times
+   beside the tiered wave's, peak device memory.
 
 Serving and observability (``ServeEngine``, ``serving/admission.py``,
 ``obs/``), each phase beside the path it drives:
 
-26. serve_exemplar — after the sharded phase, inside its NCCL world: the
+27. serve_exemplar — after the sharded phase, inside its NCCL world: the
    wave's 64 queries as exemplar requests (each ``auto``) on 16 slots, a
    fake clock: ``run_continuous`` on the device wave (#2 once per join
    flush, #5 once a tick, asserted), on the host-mirror round
@@ -204,21 +222,21 @@ Serving and observability (``ServeEngine``, ``serving/admission.py``,
    #3 once per join flush); every request equal to the all-``auto`` wave,
    the wave phase's ``auto`` queries and 8 solo ``any_k``.  Then a real
    clock (SLO 50 ms, one arrival a tick): the admission waits' p50 / p99.
-27. serve_aggregate — after the baselines: 8 online aggregates on 4 slots
+28. serve_aggregate — after the baselines: 8 online aggregates on 4 slots
    (six error SLOs set from their solo runs' half-widths, one modeled-I/O
    deadline, one without); each stream equal to its solo run on a fresh
    card engine (``==``) and on the CPU copy (``rtol``); the error SLOs
    answer ``"ci"``, one mid-wave.
-28. obs — both kinds traced by a ``TraceRecorder``, equal to the untraced
+29. obs — both kinds traced by a ``TraceRecorder``, equal to the untraced
    run; the export read by ``tools/trace_report.py`` (a subprocess), which
    must rebuild one path per request.
-29. serve_lm_continuous (after lm_serve) and 30. serve_lm_continuous_swa
+30. serve_lm_continuous (after lm_serve) and 31. serve_lm_continuous_swa
    (after lm_serve_swa) — ``run_continuous`` with joiners prefilled at the
    position counter and grafted into the live cache (gemma3-12b past its
    window, so the rings wrap), kernel against plain, near-ties counted; the
    joiner at ``pos`` equal to its solo wave; #8/#9 once per sublayer a
    prefill.
-31. serve_tiered (last) — the requests in groups of 8 on a 256 MiB tier 0:
+32. serve_tiered (last) — the requests in groups of 8 on a 256 MiB tier 0:
    the residency probe, the asynchronous prefetcher, the cost gate and a
    refit every 8 ticks; equal to the all-``auto`` wave.
 
@@ -301,6 +319,8 @@ PHASE_KERNELS = {
     "append_compact": ("density_combine_batch", "theta_stats_batch", "prefix_sum",
                        "block_gather"),
     "prefetch": ("density_combine_batch", "theta_stats_batch", "prefix_sum", "block_gather"),
+    "peer": ("density_combine_batch", "density_combine_batch_sharded", "theta_stats_batch",
+             "prefix_sum", "block_gather"),
     "serve_exemplar": ("density_combine_batch", "theta_stats_batch", "prefix_sum",
                        "block_gather"),
     "serve_exemplar_host": ("density_combine_batch", "prefix_sum", "block_gather"),
@@ -2753,6 +2773,298 @@ def prefetch_check(store, queries, run, device: str = "cuda",
     return out
 
 
+PEER_SHARDS = 4  # in-process shards of the peer phase, as the reference simulates them
+# reads a timed call of PeerTimer: each run synchronises, so there is no
+# launch queue to fill, and a run spans a few ms of the host's work
+PEER_TIMER_REPS = 16
+
+
+def paired_event_ms(fn_a, fn_b) -> tuple[list, list]:
+    """CUDA-event times (ms) of ``fn_a`` and ``fn_b`` in turns over
+    TIMING_RUNS runs each (3 warm-ups of each first), the card synchronised
+    before each: the card waits while the host works, so the events bracket
+    the host's copies as well as the copies to the card, and a drift in the
+    host's speed falls on both alike."""
+    import torch
+
+    def once(fn) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    for _ in range(3):
+        fn_a(), fn_b()
+    runs = [(once(fn_a), once(fn_b)) for _ in range(TIMING_RUNS)]
+    return [a for a, _ in runs], [b for _, b in runs]
+
+
+class PeerTimer:
+    """Timing adapter of the peer hop: the copies a peer-served read makes,
+    per block the rows of a peer's pinned host slot copied out
+    (``Tier.rows``, what ``PeerGroup.fetch_block`` copies), then the call's
+    rows stacked into one pinned staging buffer (``tiers.stage``) and copied
+    to the card, one ``non_blocking`` copy per tensor; ``PEER_TIMER_REPS``
+    reads a run.  The host's speed drifts between calls by more than a
+    block's cost, so each call times its blocks in turns with one block
+    (:func:`paired_event_ms`) and returns the timer's one-block time (its
+    first call's median) plus the median difference, per read."""
+
+    def __init__(self, tier, device):
+        import torch
+
+        self.tier, self.device = tier, torch.device(device)
+        self.max_block_id = int(tier._pool[0].shape[0]) - 1
+        self.one_ms: float | None = None
+        self.calls = 0
+
+    def levels(self):
+        return {"ici"}
+
+    def _reads(self, slots):
+        from repro_torch.storage.tiers import stage
+
+        def reads():
+            for _ in range(PEER_TIMER_REPS):
+                staged = stage([self.tier.rows(int(s)) for s in slots], self.device)
+                for t in staged:
+                    t.to(self.device, non_blocking=True)
+
+        return reads
+
+    def io_seconds(self, level: str, block_ids) -> float:
+        slots = np.clip(np.asarray(list(block_ids), np.int64), 0, self.max_block_id)
+        one, these = paired_event_ms(self._reads(slots[:1]), self._reads(slots))
+        if self.one_ms is None:
+            self.one_ms = float(np.median(one))
+        self.calls += 1
+        diff = float(np.median(np.subtract(these, one)))
+        return (self.one_ms + diff) / 1e3 / PEER_TIMER_REPS
+
+
+@contextlib.contextmanager
+def world_of_one(device: str):
+    """A ``torch.distributed`` world of one in this process (NCCL on a card,
+    gloo on the CPU) and its host mesh; destroyed on leaving."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dev = torch.device(device)
+    init = f"tcp://127.0.0.1:{free_port()}"
+    if dev.type == "cuda":
+        dist.init_process_group("nccl", init_method=init, world_size=1, rank=0,
+                                device_id=torch.device("cuda", torch.cuda.current_device()))
+    else:
+        dist.init_process_group("gloo", init_method=init, world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=60))
+    try:
+        yield make_host_mesh(device_type=dev.type)
+    finally:
+        dist.destroy_process_group()
+
+
+def peer_check(table, store, cpu_store, queries, flat, tiered_walls: dict, run, seed: int,
+               device: str = "cuda", hbm_bytes: int = TIER_HBM_BYTES,
+               append_rows: int = APPEND_ROWS) -> dict:
+    """The cooperative peer tier: ``make_peer_group(store, PEER_SHARDS)``,
+    each shard a ``hbm_bytes`` tier 0 on the card over unbounded pinned host
+    memory, the engine on shard 0, the wave's union warmed in thirds on
+    shards 1-3.  In order:
+
+    * the peer-served wave equals the flat wave ``flat``, reads 0 store
+      blocks, and its ``peer.remote_fetches`` equal its ``peer.hits``; the
+      same calls on the CPU copy give the same stack and group counters and
+      directory;
+    * the ``ici`` level fitted on :class:`PeerTimer` over shard 1's pool;
+    * shard 1 raising: equal results, one failure and one store read per
+      read of one of its blocks; shard 1 missing: equal results, no
+      failure, its blocks read once from the store;
+    * two waves of heat, ``OwnershipRebalancer.rebalance()`` moves every
+      union block to shard 0, and the next wave serves them from shard 0's
+      own tiers (no peer hit, no store read), equal;
+    * a world of one (``world_of_one``): ``attach_mesh(mesh,
+      peer_group=...)`` on a fresh cluster, ``fetch_remote`` serves warm ids
+      byte for byte, and the mesh wave equals the flat wave;
+    * an append of ``append_rows`` rows raced into a peer read of the tail
+      block through ``mid_fetch_hook``: the read aborts, and the next wave
+      equals a flat engine's on the grown store."""
+    import torch
+
+    from repro_torch.core.cost_model import make_cost_model
+    from repro_torch.core.engine import NeedleTailEngine
+    from repro_torch.data.block_store import Table
+    from repro_torch.data.synthetic import make_real_like_table
+    from repro_torch.storage import (
+        OwnershipRebalancer, TierStack, calibrate_model, make_peer_group,
+    )
+
+    nb = TierStack.block_nbytes(store)
+    union = np.sort(flat.unique_blocks_fetched).astype(np.int64)
+    thirds = np.array_split(union, PEER_SHARDS - 1)
+    assignment = {s + 1: part.tolist() for s, part in enumerate(thirds)}
+    held = {int(b): s for s, part in assignment.items() for b in part}
+
+    def cluster(on_store, dev):
+        # device_fill as on the card: two store reads a miss batch on the CPU too
+        group = make_peer_group(on_store, PEER_SHARDS, hbm_bytes=hbm_bytes, device_fill=True,
+                                device=dev)
+        group.warm(on_store, assignment)
+        return group, NeedleTailEngine(on_store, tiers=group.stacks[0], device=dev)
+
+    def wave(eng, dev):
+        sync(dev)
+        t0 = time.perf_counter()
+        b = eng.any_k_batch(queries, device=True)
+        sync(dev)
+        return b, time.perf_counter() - t0
+
+    def state(group) -> dict:
+        return {"stack": tier_state(group.stacks[0]), "group": group.stats.snapshot(),
+                "owner": dict(group.owner)}
+
+    def reads_of(b, shard: int) -> int:
+        return sum(sum(held.get(int(x)) == shard for x in r.blocks_fetched) for r in b.results)
+
+    def sequence():
+        out = {}
+        group, eng = cluster(store, device)
+        stack = group.stacks[0]
+        out["served"] = wave(eng, device)
+        out["served_state"] = state(group)
+        out["ici"] = calibrate_model(PeerTimer(group.stacks[1].tiers[1], device), "ici",
+                                     base=make_cost_model("ici", nb))
+        f0, ff0 = stack.peer_tier.failures, group.stats.failed_fetches
+        group.fail_shard(1, "raise")
+        out["raise"] = (*wave(eng, device), stack.peer_tier.failures - f0,
+                        group.stats.failed_fetches - ff0)
+        group.heal_shard(1)
+        f0, rf0 = stack.peer_tier.failures, group.stats.remote_fetches
+        group.fail_shard(1, "miss")
+        out["miss"] = (*wave(eng, device), stack.peer_tier.failures - f0,
+                       group.stats.remote_fetches - rf0)
+        group.heal_shard(1)
+        stack.clear()  # drop the local copies the miss wave admitted
+        out["heat"] = [wave(eng, device)[1] for _ in range(2)]
+        reb = OwnershipRebalancer(group, hysteresis=1.2, min_heat=0.5)
+        sync(device)
+        t0 = time.perf_counter()
+        out["moved"] = reb.rebalance()
+        sync(device)
+        out["rebalance_s"] = time.perf_counter() - t0
+        out["owners"] = {group.owner_of(b) for b in union}
+        out["rebalanced"] = wave(eng, device)
+        with world_of_one(device) as mesh:
+            mgroup, meng = cluster(store, device)
+            planner = meng.attach_mesh(mesh, peer_group=mgroup)
+            ids = union[:3]
+            got = planner.fetch_remote(ids, requester=0)
+            want = store.fetch(ids)
+            out["mesh_served"] = sum(
+                all(torch.equal(got[int(b)][i].to(want[i].device), want[i][j]) for i in range(3))
+                for j, b in enumerate(ids) if int(b) in got)
+            rf0 = mgroup.stats.remote_fetches
+            out["mesh"] = wave(meng, device)
+            out["mesh_remote"] = mgroup.stats.remote_fetches - rf0
+            del mgroup, meng, planner
+        extra = make_real_like_table("airline", num_records=append_rows, seed=seed + 1)
+        tail = store.num_blocks - 1  # the partial last block: any append dirties it
+        group.migrate(tail, 1)  # its one host copy, if any, to shard 1, then warmed there
+        group.warm(eng.store, {1: [tail]})
+        fired = []
+
+        def hook(b):
+            if not fired:
+                fired.append(b)
+                eng.append(Table(extra.dims, extra.measures, table.cards))
+
+        a0 = group.stats.stale_aborts
+        group.mid_fetch_hook = hook
+        out["race_read"] = group.fetch_block(tail, requester=0)
+        group.mid_fetch_hook = None
+        out["race"] = (fired, group.stats.stale_aborts - a0, group.locate(tail))
+        out["grown"] = wave(eng, device)
+        out["grown_flat"] = NeedleTailEngine(eng.store, device=device).any_k_batch(queries)
+        return out
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out, wall, launches = run("peer", sequence)
+    peak = peak_gb(device)
+    served, served_s = out["served"]
+    compare_waves(flat, served)
+    ts = served.tier_stats
+    if wave_counts(served)[:1] != wave_counts(flat)[:1] or served.store_blocks_fetched != 0 or \
+            not ts["peer.hits"] > 0 or ts["peer.remote_fetches"] != ts["peer.hits"]:
+        raise AssertionError(f"peer-served wave: {served.store_blocks_fetched} store blocks "
+                             f"read, tier stats {ts}")
+    t0 = time.perf_counter()
+    cgroup, ceng = cluster(cpu_store, "cpu")
+    compare_waves(served, ceng.any_k_batch(queries, device=True))
+    cpu_s = time.perf_counter() - t0
+    if state(cgroup) != out["served_state"]:
+        raise AssertionError("the peer-served wave's counters or directory differ from the "
+                             "CPU run's")
+    raised, raised_s, failures, failed = out["raise"]
+    compare_waves(flat, raised)
+    if not 0 < failures == failed == raised.store_blocks_fetched == reads_of(raised, 1):
+        raise AssertionError(f"raising shard 1: {failures} failures, {failed} refused, "
+                             f"{raised.store_blocks_fetched} store blocks, "
+                             f"{reads_of(raised, 1)} reads of its blocks")
+    missed, missed_s, mfail, mremote = out["miss"]
+    compare_waves(flat, missed)
+    if mfail or missed.store_blocks_fetched != len(assignment[1]) or \
+            mremote != missed.tier_stats["peer.hits"]:
+        raise AssertionError(f"missing shard 1: {mfail} failures, {missed.store_blocks_fetched} "
+                             f"store blocks for its {len(assignment[1])}")
+    after, after_s = out["rebalanced"]
+    compare_waves(flat, after)
+    ta = after.tier_stats
+    if out["moved"] != union.size or out["owners"] != {0} or ta["peer.hits"] or \
+            after.store_blocks_fetched or not ta["dram.hits"] + ta["hbm.hits"] > 0:
+        raise AssertionError(f"rebalance moved {out['moved']} of {union.size}, owners "
+                             f"{out['owners']}, then tier stats {ta}")
+    mesh, mesh_s = out["mesh"]
+    compare_waves(flat, mesh)
+    if out["mesh_served"] != 3 or mesh.store_blocks_fetched or \
+            out["mesh_remote"] != mesh.tier_stats["peer.hits"]:
+        raise AssertionError(f"mesh: fetch_remote served {out['mesh_served']} of 3, the wave "
+                             f"read {mesh.store_blocks_fetched} store blocks")
+    fired, aborts, holder = out["race"]
+    if out["race_read"] is not None or not fired or aborts < 1 or holder is not None:
+        raise AssertionError(f"append race: read served {out['race_read'] is not None}, "
+                             f"aborts {aborts}, tail still on shard {holder}")
+    grown, grown_s = out["grown"]
+    compare_waves(out["grown_flat"], grown)
+    ici = out["ici"]
+    return {"wall": wall, "launches": launches, "union_blocks": int(union.size),
+            "warmed": [len(p) for p in thirds], "block_bytes": nb,
+            "walls": {"tiered_cold": tiered_walls["cold"], "tiered_warm": tiered_walls["warm"],
+                      "peer_served": served_s, "raise": raised_s, "miss": missed_s,
+                      "per_peer_read": served_s / ts["peer.hits"],
+                      "heat_waves": out["heat"], "rebalance": out["rebalance_s"],
+                      "per_migration": out["rebalance_s"] / out["moved"],
+                      "rebalanced": after_s, "mesh": mesh_s, "grown": grown_s,
+                      "cpu_served": cpu_s},
+            "served": {"store_blocks": served.store_blocks_fetched,
+                       "peer_hits": ts["peer.hits"], "remote_fetches": ts["peer.remote_fetches"],
+                       "remote_bytes": out["served_state"]["group"]["remote_bytes"]},
+            "raise": {"failures": failures, "store_blocks": raised.store_blocks_fetched},
+            "miss": {"failures": mfail, "store_blocks": missed.store_blocks_fetched},
+            "rebalance": {"moved": out["moved"], "peer_hits": ta["peer.hits"],
+                          "dram_hits": ta["dram.hits"], "hbm_hits": ta["hbm.hits"]},
+            "mesh": {"served": out["mesh_served"], "peer_hits": mesh.tier_stats["peer.hits"]},
+            "race": {"stale_aborts": aborts, "grown_blocks": int(grown.unique_blocks_fetched.size)},
+            "ici": {"seq_s": ici.seq_cost, "max_dist": ici.max_dist, "far_s": ici.far_cost,
+                    "kappa_s": ici.first_block_cost, "bytes_per_s": nb / ici.seq_cost,
+                    "latency_s": max(ici.far_cost - ici.seq_cost, 0.0)},
+            "peak_gb": peak}
+
+
 # ---------------------------------------------------------------------------
 # Serving and observability: the SLO admission controller, the continuous
 # exemplar, aggregate and LM slot loops of ServeEngine, and the trace plane.
@@ -3496,22 +3808,13 @@ def main(argv=None) -> int:
         f"{bisect_timing(rows, queries, RPB)}")
 
     # -- 8. sharded: a world of one over NCCL on the card, through attach_mesh
-    import torch.distributed as dist
-
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
-                            rank=0, device_id=torch.device("cuda", torch.cuda.current_device()))
-    try:
+    with world_of_one("cuda") as mesh:
         sh = sharded_check(store, queries, batch, warm, rows, run_phase, profile=args.profile)
         # -- serve_exemplar: the wave's queries as requests through ServeEngine,
         # the mesh variant on this world of one
-        from repro_torch.launch.mesh import make_host_mesh
-
         t0 = time.perf_counter()
-        se = serve_exemplar_check(store, queries, batch, run_phase,
-                                  mesh=make_host_mesh(device_type="cuda"))
+        se = serve_exemplar_check(store, queries, batch, run_phase, mesh=mesh)
         serve_wall = time.perf_counter() - t0
-    finally:
-        dist.destroy_process_group()
     phase_launches["sharded"] = sh.pop("launches")
     log(f"sharded (NCCL, P=1): wave {sh['walls']['cold']} s cold (round seconds "
         f"{sh['round_seconds']}), {sh['walls']['warm']} s warm ({sh['warm_round_seconds']}), "
@@ -3661,12 +3964,25 @@ def main(argv=None) -> int:
     log(f"append_compact: {ac}; each evicted exactly the dirtied tail from every tier, its "
         f"store == build_block_store bit for bit, its wave == a fresh flat engine's; "
         f"{time.perf_counter() - t0:.1f} s in all")
-    del tier_engine, tier_stack, cpu_store
+    del tier_engine, tier_stack
     t0 = time.perf_counter()
     pf = prefetch_check(store, queries, run_phase)
     phase_launches["prefetch"] = pf.pop("launches")
     log(f"prefetch: {pf}; round 0 read 0 store blocks in both modes, async admissions == "
         f"sync; {time.perf_counter() - t0:.1f} s in all")
+    # -- 26. peer: the cooperative peer-memory tier over four in-process shards
+    t0 = time.perf_counter()
+    pe = peer_check(table, store, cpu_store, queries, batch,
+                    {"cold": ti["walls"]["tiered_cold"], "warm": ti["walls"]["tiered_warm"]},
+                    run_phase, args.seed)
+    phase_launches["peer"] = pe.pop("launches")
+    log(f"peer ici fit: {pe.pop('ici')}")
+    log(f"peer: {pe}; every wave == the flat wave, the peer-served one read 0 store blocks "
+        f"and its counters == the CPU run's; a raising and a missing shard fell through to "
+        f"the store; rebalance moved the union to shard 0; the mesh routed through "
+        f"fetch_remote; the raced append aborted the read; {time.perf_counter() - t0:.1f} s "
+        "in all")
+    del cpu_store
     t0 = time.perf_counter()
     st = serve_tiered_check(store, queries, auto_ref, run_phase)
     phase_launches["serve_tiered"] = st.pop("launches")

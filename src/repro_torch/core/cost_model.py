@@ -13,18 +13,22 @@ and the presets:
 * ``dram`` — host memory as the card sees it: a copy from the pinned
   host pool of tier 1 to the card over PCIe, one copy per contiguous run
   of blocks.
+* ``ici`` — the peer hop of :mod:`repro_torch.storage.peer` on one node:
+  another shard's pinned host slot copied out, staged with the call's other
+  peer-served rows and copied to the card.
 
 The ``hbm`` and ``dram`` constants were measured on one NVIDIA H100 80GB
 HBM3 at a 700.00 W power limit by the ``calibration`` phase of
-``chip_smoke.py`` (CUDA-event timing adapters fitted with
-:func:`repro_torch.storage.calibration.calibrate_model`), and keep the
-reference's form: ``seq = block_bytes / BW``, ``far = seq + latency``,
-``first = far``.  The reference's ``ici`` preset is a TPU interconnect
-figure; an H100 interconnect preset arrives with the multi-GPU slice of the
-port, and until then ``make_cost_model("ici")`` raises.
+``chip_smoke.py``, the ``ici`` constants by its ``peer`` phase (CUDA-event
+timing adapters fitted with :func:`repro_torch.storage.calibration.
+calibrate_model`), and keep the reference's form: ``seq = block_bytes /
+BW``, ``far = seq + latency``, ``first = far``.  The reference's ``ici``
+figure is a TPU interconnect's; this one prices no link between cards.
 
 The presets form a strict ladder on ``far_cost`` and on the modeled
-``io_time`` of a scattered fetch, ``hbm < dram < ssd < hdd``: the gradient
+``io_time`` of a scattered fetch, ``hbm < dram < ssd < hdd``, with ``ici``
+above ``dram`` (the reference puts it below ``ssd``; the host copies of the
+hop on one node cost about as much as the paper's SSD seek): the gradient
 the tiered block-storage placement policy (:mod:`repro_torch.storage.
 policy`) arbitrates over.
 """
@@ -162,6 +166,16 @@ HBM_BYTES_PER_S = 603428994363.9644
 HBM_LATENCY_S = 0.0
 DRAM_BYTES_PER_S = 36810457308.40473
 DRAM_LATENCY_S = 9.080000221729278e-06
+# Fitted by chip_smoke.py's peer phase (PeerTimer) on one NVIDIA H100 80GB
+# HBM3, 700.00 W power limit, at blocks of 270,336 B: the in-process peer hop
+# on one node, each block's rows copied out of another shard's pinned host
+# slot, staged with the call's other rows in one pinned buffer and copied to
+# the card; not NVLink and not a network.  The hop is host work, so the fit
+# follows the host's load (three runs: 57-272 µs a block); its latency is 0,
+# since a block costs the same at any distance (the fitted far cost came out
+# below the near one).
+ICI_BYTES_PER_S = 993758226.2242911
+ICI_LATENCY_S = 0.0
 
 
 def _bandwidth_model(name: str, block_bytes: int, bw: float, latency: float,
@@ -184,9 +198,5 @@ def make_cost_model(kind: str, block_bytes: int = 256 * 1024) -> CostModel:
     if kind == "dram":
         return _bandwidth_model("dram", block_bytes, DRAM_BYTES_PER_S, DRAM_LATENCY_S, 8)
     if kind == "ici":
-        raise NotImplementedError(
-            "cost model 'ici' is a TPU interconnect figure; an interconnect preset "
-            "measured on H100s arrives with the multi-GPU slice of the port (ROADMAP "
-            "Queue 1 item 5)"
-        )
+        return _bandwidth_model("ici", block_bytes, ICI_BYTES_PER_S, ICI_LATENCY_S, 2)
     raise ValueError(f"unknown cost model kind {kind!r}")

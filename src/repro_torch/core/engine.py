@@ -430,14 +430,19 @@ class NeedleTailEngine:
         ``any_k_batch`` calls (SPMD).  Builds a :class:`repro_torch.core.
         sharded.DistributedAnyK` on this engine's device sharing its block
         cache; ``kwargs`` (``candidates``, ``two_prong_group``,
-        ``remote_cost``, ...) go to it.  Returns it (also
-        ``self.distributed``)."""
+        ``remote_cost``, ``peer_group``, ...) go to it.  When the block
+        cache has a peer tier and the planner a peer group, remote block
+        reads route through the planner's ``fetch_remote``.  Returns it
+        (also ``self.distributed``)."""
         from repro_torch.core.sharded import DistributedAnyK
 
         self.distributed = DistributedAnyK(
             mesh, axis=axis, records_per_block=self.store.records_per_block,
             block_cache=self.block_cache, device=self.device, **kwargs,
         )
+        peer_tier = getattr(self.block_cache, "peer_tier", None)
+        if peer_tier is not None and self.distributed.peer_group is not None:
+            peer_tier.route_through(self.distributed)
         return self.distributed
 
     def detach_mesh(self) -> None:

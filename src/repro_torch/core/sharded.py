@@ -41,11 +41,11 @@ whose combine is #3 on the rank's slab, one launch a wave whatever its ops
 (:func:`repro_torch.kernels.density_combine.density_combine_wave_sharded`)
 and whose Predicate trees compile on the rank's slab of the index
 (:meth:`~DistributedAnyK.predicate_row`).  ``forward_optimal`` queries plan
-on the host DP in every loop, as in the reference.
-
-Left for later slices: the peer-memory tier (``peer_group``,
-``fetch_remote``), and an interconnect cost preset measured on H100s for
-``remote_cost`` (the reference's default, ``"ici"``, is a TPU figure).
+on the host DP in every loop, as in the reference.  With a peer group
+(``peer_group=``, :mod:`repro_torch.storage.peer`),
+:meth:`~DistributedAnyK.fetch_remote` answers other shards' block requests,
+and ``NeedleTailEngine.attach_mesh`` routes the engine stack's peer tier
+through it.
 """
 from __future__ import annotations
 
@@ -56,15 +56,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.cost_model import make_cost_model
 from repro_torch.core.two_prong import window_search
 from repro_torch.device import resolve_device
 from repro_torch.kernels.density_combine import density_combine_wave_sharded
 from repro_torch.kernels.plan_wave import _first_true, apply_chosen, pack_plan
 from repro_torch.kernels.theta_stats import bisect_carry, bisect_round_batch
 from repro_torch.kernels.window_scan import prefix_sum
-
-_PEER_SLICE = ("the peer-memory tier (storage/peer.py) arrives with the peer-tier "
-               "slice, after tiered storage")
 
 
 # --------------------------------------------------------------------------
@@ -436,12 +434,9 @@ class DistributedAnyK:
         G of the wave TWO-PRONG; the default 1 is exact.
     remote_cost : repro_torch.core.cost_model.CostModel | None
         Prices :meth:`fetch_plan` (``last_fetch_io_s``; residency-aware
-        when the cache is a tier stack).  ``None`` leaves fetches unpriced:
-        the reference's default, the ``"ici"`` preset, is a TPU
-        interconnect figure, and a preset measured on H100s arrives with
-        the multi-GPU slice.
-    peer_group : None
-        The peer-memory tier; raises until the peer-tier slice lands.
+        when the cache is a tier stack); ``None`` is the ``"ici"`` preset.
+    peer_group : repro_torch.storage.peer.PeerGroup | None
+        The cooperative peer-memory tier :meth:`fetch_remote` answers from.
     device : str | torch.device | None
         Where the planners run; defaults to the mesh's device type
         (``"cuda"`` for a bare group).
@@ -451,8 +446,6 @@ class DistributedAnyK:
                  candidates: int = 16, max_refills: int = 4, bisect_above: int = 512,
                  block_cache=None, two_prong_group: int = 1, remote_cost=None,
                  peer_group=None, device=None):
-        if peer_group is not None:
-            raise NotImplementedError(_PEER_SLICE)
         self.mesh = mesh
         self.axis = axis
         self.sg = shard_group(mesh, axis)
@@ -464,8 +457,9 @@ class DistributedAnyK:
         self.use_bisect = self.num_shards > bisect_above
         self.block_cache = block_cache
         self.two_prong_group = two_prong_group
-        self.remote_cost = remote_cost
+        self.remote_cost = remote_cost or make_cost_model("ici")
         self.last_fetch_io_s = 0.0
+        self.peer_group = peer_group
         self._index = (None, None)  # (whole index, this rank's slab of it)
 
     # ------------------------------------------------------------- wave shard
@@ -517,21 +511,34 @@ class DistributedAnyK:
         raise TypeError(f"cannot materialize block ids from {type(plan).__name__}")
 
     def fetch_remote(self, block_ids, requester: int | None = 0) -> dict:
-        raise NotImplementedError(_PEER_SLICE)
+        """Answer block requests from the peer group's resident host tiers.
+
+        Returns ``block_id -> (dims, meas, valid, nbytes)`` for every id some
+        shard other than ``requester`` could serve; an absent id means no
+        peer holds it (or its read was invalidated in flight), and the
+        caller reads the store.  ``{}`` without a peer group.  A peer down in
+        ``"raise"`` mode propagates :class:`repro_torch.storage.peer.
+        PeerUnavailable`, which the requesting ``PeerTier`` catches."""
+        if self.peer_group is None:
+            return {}
+        out: dict[int, tuple] = {}
+        for b in np.asarray(block_ids, dtype=np.int64).ravel():
+            slab = self.peer_group.fetch_block(int(b), requester=requester)
+            if slab is not None:
+                out[int(b)] = slab
+        return out
 
     def fetch_plan(self, store, plan):
         """``(block_ids, dims, measures, valid)`` of a scalar plan, read
         through the shared block cache when one is attached (byte-identical
-        to ``store.fetch``).  With a ``remote_cost`` model,
-        ``last_fetch_io_s`` is its price of the plan's ids, taken before
-        the read; without one it stays 0.0."""
+        to ``store.fetch``).  ``last_fetch_io_s`` is ``remote_cost``'s price
+        of the plan's ids, taken before the read."""
         ids = self.plan_block_ids(plan)
-        if self.remote_cost is not None:
-            # priced BEFORE the read, residency-aware on a tier stack: only
-            # blocks no tier holds cross at the remote price
-            eff = getattr(self.block_cache, "effective_io_time", None)
-            self.last_fetch_io_s = (eff(ids, backing=self.remote_cost) if eff is not None
-                                    else self.remote_cost.io_time(ids))
+        # priced BEFORE the read, residency-aware on a tier stack: only
+        # blocks no tier holds cross at the remote price
+        eff = getattr(self.block_cache, "effective_io_time", None)
+        self.last_fetch_io_s = (eff(ids, backing=self.remote_cost) if eff is not None
+                                else self.remote_cost.io_time(ids))
         if self.block_cache is not None:
             return (ids, *self.block_cache.get_many(store, ids))
         return (ids, *store.fetch(ids))

@@ -451,8 +451,9 @@ class ServeEngine:
                              f"{self.device}")
 
     def _wire_obs(self, engine) -> None:
-        """Share this engine's recorder with the any-k engine and its tier
-        stack; never replace a recorder the engine already has."""
+        """Share this engine's recorder with the any-k engine, its tier
+        stack and the stack's peer group; never replace a recorder one of
+        them already has."""
         obs = self.obs
         if obs is None:
             return
@@ -461,6 +462,9 @@ class ServeEngine:
         bc = getattr(engine, "block_cache", None)
         if bc is not None and getattr(bc, "obs", "absent") is None:
             bc.obs = obs
+        group = getattr(getattr(bc, "peer_tier", None), "group", None)
+        if group is not None and group.obs is None:
+            group.obs = obs
 
     def _note_wave_stats(self) -> None:
         """Mirror ``last_wave_stats`` into the recorder's metrics registry."""

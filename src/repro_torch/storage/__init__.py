@@ -1,5 +1,5 @@
 """Tiered block storage (counterpart of ``repro/storage``): a slot pool on
-the card → pinned host memory → backing store.
+the card → pinned host memory → peer host memory → backing store.
 
 * :class:`~repro_torch.storage.tiers.TierStack` / :class:`~repro_torch.
   storage.tiers.Tier` / :func:`~repro_torch.storage.tiers.make_tier_stack`
@@ -7,6 +7,14 @@ the card → pinned host memory → backing store.
   block_cache`` (``NeedleTailEngine(tiers=...)``).
 * :class:`~repro_torch.storage.policy.CostAwarePolicy` /
   :class:`~repro_torch.storage.policy.RecencyPolicy` — placement arbiters.
+* :class:`~repro_torch.storage.peer.PeerGroup` / :class:`~repro_torch.
+  storage.peer.PeerTier` / :func:`~repro_torch.storage.peer.make_peer_group`
+  / :func:`~repro_torch.storage.peer.make_peer_stack` — the cooperative
+  peer-memory tier: the cluster's host memory as one cache, priced by the
+  ``ici`` preset.
+* :class:`~repro_torch.storage.rebalance.HeatTracker` /
+  :class:`~repro_torch.storage.rebalance.OwnershipRebalancer` — heat ×
+  density block-ownership migration toward the shards that touch each block.
 * :func:`~repro_torch.storage.residency.wave_is_resident` /
   :func:`~repro_torch.storage.residency.make_residency_probe` — the
   stat-free residency peek.
@@ -22,23 +30,30 @@ the card → pinned host memory → backing store.
 * :func:`~repro_torch.storage.compact.compact_tail` /
   :class:`~repro_torch.storage.compact.TailCompactor` — density-restoring
   compaction of the appended tail.
-
-The reference's peer tier and ownership rebalancer arrive with the
-multi-GPU slice of the port.
 """
 from repro_torch.storage.calibration import (
     StoreTimingBackend, SyntheticTimingBackend, calibrate_model, calibrate_stack, measurable,
 )
 from repro_torch.storage.compact import TailCompactor, compact_tail
+from repro_torch.storage.peer import (
+    PeerGroup, PeerGroupStats, PeerTier, PeerUnavailable, make_peer_group, make_peer_stack,
+)
 from repro_torch.storage.policy import CostAwarePolicy, PlacementPolicy, RecencyPolicy
 from repro_torch.storage.prefetch import (
     PrefetchStats, TierPrefetcher, make_missed_cost_probe, predicted_wave_blocks,
 )
+from repro_torch.storage.rebalance import HeatTracker, OwnershipRebalancer
 from repro_torch.storage.residency import make_residency_probe, wave_is_resident
 from repro_torch.storage.tiers import Tier, TierStack, TierStats, make_tier_stack
 
 __all__ = [
     "CostAwarePolicy",
+    "HeatTracker",
+    "OwnershipRebalancer",
+    "PeerGroup",
+    "PeerGroupStats",
+    "PeerTier",
+    "PeerUnavailable",
     "PlacementPolicy",
     "PrefetchStats",
     "RecencyPolicy",
@@ -53,6 +68,8 @@ __all__ = [
     "calibrate_stack",
     "compact_tail",
     "make_missed_cost_probe",
+    "make_peer_group",
+    "make_peer_stack",
     "make_residency_probe",
     "make_tier_stack",
     "measurable",

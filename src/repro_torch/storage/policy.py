@@ -153,7 +153,7 @@ class CostAwarePolicy(PlacementPolicy):
             if tier.has_room(nbytes):
                 return t
         # bottom-most tier that owns local capacity: a zero-capacity view
-        # tier (the reference's peer tier) can never admit anything
+        # tier (the peer tier) can never admit anything
         for t in range(len(stack.tiers) - 1, -1, -1):
             cap = stack.tiers[t].capacity_bytes
             if cap is None or cap > 0:

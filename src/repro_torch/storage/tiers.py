@@ -52,6 +52,13 @@ bound for device tiers and the rest (two store reads, so
 ``store_fetch_calls`` equals the reference's); ``None`` turns it on when
 the stack's device is a card.
 
+A *view* tier (:class:`~repro_torch.storage.peer.PeerTier`) owns no
+slots: ``peek`` answers ``None`` and ``host_view`` copies the block's rows
+out of another shard's pool.  A gather stages every view-served row of the
+call into one host buffer (pinned on a card) that crosses in one
+``non_blocking`` copy per tensor; a view that answers ``None`` mid-gather
+(the peer died or dropped the block) becomes one accounted store re-read.
+
 Invalidation contract: the store reports exactly the dirtied ids and
 :meth:`TierStack.invalidate` evicts them from **every** tier; anything that
 swaps the store wholesale calls :meth:`TierStack.clear`.
@@ -221,6 +228,11 @@ class Tier:
             self._free.extend(range(new - 1, old - 1, -1))
         return self._free.pop()
 
+    def rows(self, slot: int) -> Slabs:
+        """Copies of ``slot``'s rows, on the pool's device (the slot is
+        reused once its block leaves)."""
+        return tuple(p[slot].clone() for p in self._pool)
+
     def host_view(self, block_id: int):
         """Host ``(dims, meas, valid, nbytes)`` of a resident slab, memoized
         for device tiers (ONE download per residency, not one per access)."""
@@ -228,8 +240,8 @@ class Tier:
         if entry is None:
             return None
         slot, nb = entry
-        if not self.device:  # a copy: the slot is reused once the block leaves
-            return (*(p[slot].clone() for p in self._pool), nb)
+        if not self.device:
+            return (*self.rows(slot), nb)
         mirror = self._host_mirror.get(int(block_id))
         if mirror is None:
             mirror = (*(p[slot].cpu() for p in self._pool), nb)
@@ -254,6 +266,18 @@ def _gather(tensors: Slabs, idx: np.ndarray, pinned_out: bool) -> Slabs:
         torch.index_select(t, 0, ids, out=out)
         outs.append(out)
     return tuple(outs)
+
+
+def stage(rows: Sequence[Slabs], dev: torch.device) -> Slabs:
+    """Host rows (one ``(dims, meas, valid)`` a block) stacked into one
+    buffer per tensor, pinned when they go on to a card."""
+    pinned = dev.type == "cuda"
+    out = []
+    for i, first in enumerate(rows[0]):
+        buf = torch.empty((len(rows), *first.shape), dtype=first.dtype, pin_memory=pinned)
+        torch.stack([r[i] for r in rows], out=buf)
+        out.append(buf)
+    return tuple(out)
 
 
 def _move(rows: Slabs, dev: torch.device) -> Slabs:
@@ -334,6 +358,9 @@ class TierStack:
         # call found it; run by _flush at the end of the call
         self._pending: dict[tuple[int, int], tuple] = {}
         self._batches: dict[int, Slabs] = {}
+        # within a call: the staging batch's key and the view tiers' rows it
+        # takes, in the order the call's sources refer to them
+        self._staged: tuple[int, list] | None = None
         self._shapes: tuple | None = None
         self._lam = 0
 
@@ -463,10 +490,28 @@ class TierStack:
                         ((rpb,), torch.bool))
         self._lam = store.num_blocks
 
-    def _batch(self, slabs: Slabs) -> int:
+    def _batch(self, slabs: Slabs | None) -> int:
         key = len(self._batches)
         self._batches[key] = slabs
         return key
+
+    def _stage(self, view: tuple) -> tuple:
+        """A source for rows a view tier copied out (``host_view``): every
+        such row of the call goes into one staging batch."""
+        if self._staged is None:
+            self._staged = (self._batch(None), [])
+        key, rows = self._staged
+        rows.append(view[:3])
+        return ("batch", key, len(rows) - 1)
+
+    def _view_or_reread(self, store: "BlockStore", tier_idx: int, block_id: int) -> tuple:
+        """The source of a block resident in view tier ``tier_idx``: its
+        copied rows, or, when the view answers ``None`` (the peer died or
+        dropped the block), one accounted store re-read."""
+        view = self.tiers[tier_idx].host_view(block_id)
+        if view is not None:
+            return self._stage(view)
+        return ("batch", self._read_store(store, np.asarray([block_id], np.int64)), 0)
 
     def _read_store(self, store: "BlockStore", ids: np.ndarray) -> int:
         """One booked store read; returns its batch key."""
@@ -484,6 +529,10 @@ class TierStack:
     def _rows(self, src: tuple, idx: list[int], dev: torch.device) -> Slabs:
         kind, a = src
         tensors = self._batches[a] if kind == "batch" else self.tiers[a]._pool
+        if self._staged is not None and src == ("batch", self._staged[0]):
+            # the staging batch: each row is taken once, in order (a view
+            # tier's rows are served, never placed)
+            return _move(tensors, dev)
         pinned = tensors[0].device.type == "cpu" and dev.type == "cuda"
         return _move(_gather(tensors, np.asarray(idx, dtype=np.int64), pinned), dev)
 
@@ -491,6 +540,9 @@ class TierStack:
         """Run the call's scheduled slot writes and gather ``out_srcs`` onto
         the stack's device: every source is read before any slot is written."""
         ops, self._pending = self._pending, {}
+        if self._staged is not None:
+            key, rows = self._staged
+            self._batches[key] = stage(rows, self.device)
         groups: dict[tuple, tuple[list, list]] = {}
         for (t, slot), (kind, a, i) in ops.items():
             g = groups.setdefault((t, kind, a), ([], []))
@@ -520,7 +572,7 @@ class TierStack:
             s = torch.as_tensor(slots, dtype=torch.long, device=tier._where)
             for p, r in zip(tier._pool, rows):
                 p.index_copy_(0, s, r)
-        self._batches = {}
+        self._batches, self._staged = {}, None
         return out
 
     # ------------------------------------------------------------- placement
@@ -710,10 +762,13 @@ class TierStack:
             if at is None:
                 miss.append(b)
             elif at > tier:
-                slot, nbytes = self.tiers[at].peek(b)
-                src = self._source(at, slot)
-                self.tiers[at].pop(b)
-                self._place(tier, b, src, nbytes, how="promote")
+                entry = self.tiers[at].peek(b)
+                # a view tier (the peer tier) owns no slot to move: the
+                # block stays remote and still counts as resident
+                if entry is not None:
+                    src = self._source(at, entry[0])
+                    self.tiers[at].pop(b)
+                    self._place(tier, b, src, entry[1], how="promote")
         if miss:
             given = sorted(b for b in miss if slabs and b in slabs)
             have: dict[int, tuple] = {}
@@ -762,7 +817,9 @@ class TierStack:
                     self._promote_if_worthy(b, t)
                 t2 = self._find(b)  # promotion may have moved (or dropped) it
                 if t2 is not None:
-                    srcs.append(self._source(t2, self.tiers[t2].peek(b)[0]))
+                    entry = self.tiers[t2].peek(b)
+                    srcs.append(self._source(t2, entry[0]) if entry is not None
+                                else self._view_or_reread(store, t2, b))
                     continue
             if b in inscope:
                 # admitted this call but already displaced out of the stack
@@ -836,8 +893,10 @@ class TierStack:
             t = self._find(b)
             if t is None:
                 srcs.append(("batch", key, gone_off[b]))
-            else:
-                srcs.append(self._source(t, self.tiers[t].peek(b)[0]))
+                continue
+            entry = self.tiers[t].peek(b)
+            srcs.append(self._source(t, entry[0]) if entry is not None
+                        else self._view_or_reread(store, t, b))
         return self._flush(srcs)
 
     def _record_hit_observations(self, ids: np.ndarray, miss_set: set[int]) -> None:
@@ -868,6 +927,10 @@ class TierStack:
             for k in ("hits", "admissions", "promotions_in", "demotions_in",
                       "demotions_out", "evictions", "invalidations"):
                 out[f"{tier.name}.{k}"] = getattr(s, k)
+            extra = getattr(tier, "extra_counters", None)
+            if extra is not None:  # the peer tier's peer.remote_fetches, ...
+                for k, v in extra().items():
+                    out[f"{tier.name}.{k}"] = int(v)
         return out
 
     def snapshot(self) -> dict:

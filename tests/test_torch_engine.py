@@ -17,7 +17,7 @@ from repro.data import synthetic as jsyn
 from repro.data.block_store import Table as JaxTable
 from repro.data.block_store import build_block_store as jax_build_block_store
 from repro_torch.convert import store_from_reference
-from repro_torch.core.cost_model import make_cost_model
+from repro_torch.core.cost_model import ICI_BYTES_PER_S, make_cost_model
 from repro_torch.core.engine import NeedleTailEngine
 from repro_torch.core.multi_query import BatchQuery, DeviceWave, new_query_state
 from repro_torch.data import synthetic
@@ -288,8 +288,9 @@ def test_cost_presets_price_plans_as_the_reference(kind):
     for _ in range(5):
         ids = rng.integers(0, 500, rng.integers(0, 40))
         assert mine.io_time(ids) == ref.io_time(ids)
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        make_cost_model("ici")
+    ici = make_cost_model("ici")  # the peer hop measured on the card, not the TPU figure
+    assert (ici.name, ici.max_dist) == ("ici", 2)
+    assert ici.seq_cost == 256 * 1024 / ICI_BYTES_PER_S
 
 
 @pytest.mark.parametrize("preds,op", [([(0, 1)], "and"), ([(0, 1), (2, 0)], "and"),

@@ -49,7 +49,8 @@ def test_importing_every_port_module_leaves_jax_and_repro_out():
     assert {'repro_torch.storage.tiers', 'repro_torch.storage.policy',
             'repro_torch.storage.calibration', 'repro_torch.storage.residency',
             'repro_torch.storage.compact', 'repro_torch.core.plan_ledger',
-            'repro_torch.data.append'} <= set(mods)
+            'repro_torch.data.append', 'repro_torch.storage.peer',
+            'repro_torch.storage.rebalance'} <= set(mods)
     assert {'repro_torch.obs', 'repro_torch.obs.trace', 'repro_torch.obs.metrics',
             'repro_torch.obs.wave_stats', 'repro_torch.serving'} <= set(mods)
     assert {'repro_torch.core.block_cache', 'repro_torch.kernels.ops',
@@ -97,7 +98,7 @@ def _entry_points():
     from repro_torch.core.engine import NeedleTailEngine
     from repro_torch.core.cost_model import make_cost_model
     from repro_torch.data.block_store import build_block_store
-    from repro_torch.storage import Tier, TierStack, make_tier_stack
+    from repro_torch.storage import Tier, TierStack, make_peer_group, make_tier_stack
 
     t = _tiny_table()
     cpu_store = build_block_store(t, 16, device="cpu")
@@ -138,6 +139,7 @@ def _entry_points():
         "build_bitmap_index": lambda: build_bitmap_index(t.dims, t.cards),
         "make_tier_stack": lambda: make_tier_stack(None, None),
         "TierStack": lambda: TierStack([Tier("hbm", None, make_cost_model("ssd"), device=True)]),
+        "make_peer_group": lambda: make_peer_group(cpu_store, 2),
     }
 
 
@@ -146,7 +148,8 @@ def _entry_points():
              "store_from_reference", "NeedleTailEngine", "store.to", "init_params", "LM",
              "init_cache", "ServeEngine", "ServeEngine(None, None)", "lm_params_from_reference",
              "launch.serve.main",
-             "make_host_mesh", "build_bitmap_index", "make_tier_stack", "TierStack"],
+             "make_host_mesh", "build_bitmap_index", "make_tier_stack", "TierStack",
+             "make_peer_group"],
 )
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():

@@ -284,14 +284,14 @@ ids, bd, bm, bv = pl.fetch_plan(store, pl.threshold_plan(comb, 64.0))
 ref = store.fetch(ids)
 same = all(torch.equal(a, b) for a, b in zip((bd, bm, bv), ref))
 cached = all(int(b) in eng.block_cache for b in ids)
-unpriced = pl.last_fetch_io_s
+default_priced = pl.last_fetch_io_s == make_cost_model("ici").io_time(ids)
 pl.remote_cost = make_cost_model("hdd")
 pl.fetch_plan(store, pl.threshold_plan(comb, 64.0))
 priced = pl.last_fetch_io_s == make_cost_model("hdd").io_time(ids)
 reads0 = eng.block_cache.stats.store_blocks_fetched
 r = eng.any_k([(0, 1)], 64, algo="threshold")
 new = {int(b) for b in r.blocks_fetched} - {int(b) for b in ids}
-out["fetch"] = np.asarray([ids.size, same, cached, unpriced == 0.0, priced,
+out["fetch"] = np.asarray([ids.size, same, cached, default_priced, priced,
                            eng.block_cache.stats.store_blocks_fetched - reads0 == len(new)])
 out["fetch/ids"] = ids
 np.savez(f"{io}/rank{rank}.npz", **out)
@@ -676,8 +676,8 @@ def test_group_aligned_windows_do_not_poison_the_memo(run, stores):
 def test_fetch_plan_shares_the_engine_cache(run):
     _, _, ranks = run
     for out in ranks:
-        n, same, cached, unpriced, priced, hits_reused = out["fetch"]
-        assert n > 0 and same and cached and unpriced and priced and hits_reused
+        n, same, cached, default_priced, priced, hits_reused = out["fetch"]
+        assert n > 0 and same and cached and default_priced and priced and hits_reused
         np.testing.assert_array_equal(out["fetch/ids"], ranks[0]["fetch/ids"])
 
 

@@ -6,9 +6,9 @@ from the reference's cost presets, carried by ``convert.
 cost_model_from_reference``, so placement decisions are priced alike) and
 compares slabs against ``store.fetch``, every counter of ``stats``,
 ``tier_counters()`` and ``snapshot()``, ``effective_io_time`` (rtol 1e-12)
-and the residency-aware ``auto`` choice.  The peer-hop, admission
-controller, ``ServeEngine`` and ``ici`` pricing cases wait for the port's
-serving and multi-GPU slices.
+and the residency-aware ``auto`` choice.  The peer-hop and ``ici`` pricing
+cases are in ``test_torch_peer_tier.py``; the admission controller and
+``ServeEngine`` cases in the serving tests.
 """
 import datetime
 
@@ -33,7 +33,7 @@ from repro.storage import TierStack as JaxStack
 from repro.storage import make_tier_stack as jax_make_tier_stack
 from repro.storage.residency import wave_is_resident as jax_wave_is_resident
 from repro_torch.convert import cost_model_from_reference as conv
-from repro_torch.core.cost_model import make_cost_model
+from repro_torch.core.cost_model import ICI_BYTES_PER_S, make_cost_model
 from repro_torch.core.engine import NeedleTailEngine
 from repro_torch.core.multi_query import BatchQuery
 from repro_torch.core.plan_ledger import PlanLedger
@@ -170,8 +170,9 @@ def _assert_batch_equal(a, b):
 # ---------------------------------------------------------------------------
 def test_cost_model_preset_consistency():
     """Every port preset is self-consistent and the ladder is strict:
-    hbm < dram < ssd < hdd on far_cost AND on a scattered fetch; ``ici``
-    waits for the multi-GPU slice."""
+    hbm < dram < ssd < hdd on far_cost AND on a scattered fetch; ``ici``,
+    the peer hop on one node, costs more than ``dram`` at the default block
+    size: it makes ``dram``'s copy to the card after its host copies."""
     ladder = ["hbm", "dram", "ssd", "hdd"]
     scattered = np.asarray([0, 97, 311, 1024, 4097])
     costs = []
@@ -192,8 +193,12 @@ def test_cost_model_preset_consistency():
     fars, ios = zip(*costs)
     assert list(fars) == sorted(fars) and len(set(fars)) == len(fars)
     assert list(ios) == sorted(ios) and len(set(ios)) == len(ios)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        make_cost_model("ici")
+    ici = make_cost_model("ici", NB)  # the peer hop measured on the card
+    assert (ici.name, ici.max_dist) == ("ici", 2)
+    assert ici.seq_cost == NB / ICI_BYTES_PER_S
+    assert 0 < ici.seq_cost <= ici.far_cost == ici.first_block_cost
+    ici, dram = make_cost_model("ici"), make_cost_model("dram")
+    assert ici.far_cost > dram.far_cost and ici.io_time(scattered) > dram.io_time(scattered)
     # the reference's presets carried across price exactly as the reference
     for kind in ("hbm", "dram", "ssd", "hdd"):
         j = jax_cost(kind, NB)
