@@ -129,7 +129,34 @@ d_model 3840, 16 heads of 240, 8 kv heads, ~1.26·10¹⁰ parameters, f32):
    the window, so prefill arranges each ``L`` layer's ring of 1024 slots
    (compared slot for slot) and decoding goes on around it.
 
-21. kernels — each kernel at its path's shapes against its plain PyTorch
+Then the remaining LM families, each built on the card, driven kernel
+against plain and freed before the next (wall times, tokens/s, #8
+launches, peak memory logged):
+
+21. lm_moe — qwen3-moe-235b-a22b at its published widths (d_model 4,096, 64
+   heads of 64, 4 kv heads, 128 experts, top 8, expert d_ff 1,536, vocab
+   151,936, capacity factor 1.25), its depth cut from 94 to ``MOE_LAYERS``
+   = 4 layers (f32 at full depth needs ~940 GB; four take ~44 GB): as
+   lm_forward, lm_serve (both traffics) and serve_lm_continuous, #8 once a
+   layer a forward or prefill.  The MoE is the reference's capacity-bounded
+   einsum dispatch in top-1 rounds; its router can part the two paths
+   where two experts' probabilities lie within the paths' ~1e-6 difference,
+   so every call's ranked top-k is recorded (``RouterLog``): each routing
+   flip must sit at a margin below ``MOE_MARGIN_BOUND`` on both paths, and
+   logits, caches and greedy streams are held before each row's or
+   request's first flip; flips are counted.
+22. lm_encdec — whisper-tiny whole (4 encoder and 4 decoder layers, d_model
+   384, ``enc_seq`` 1,500): 4 requests (the launcher's prompt draws beside
+   seeded frames ``[4, 1500, 384]·0.02``) through ``make_prefill_step``
+   (#8 12 times: 4 encoder self-attentions and 4 cross-attentions without
+   the causal mask, 4 causal) and 16 greedy ``make_decode_step`` steps,
+   kernel against plain: logits, caches (cross K/V included), tokens.
+23. lm_vlm — phi-3-vision-4.2b whole (32 layers, d_model 3,072): as
+   lm_forward with seeded ``patch_embeds [1, 256, 3072]·0.02``, then 4
+   requests of 256 patches and 256-768 text tokens through the step
+   functions as lm_encdec (#8 32 times a prefill).
+
+24. kernels — each kernel at its path's shapes against its plain PyTorch
    version on the card (exact for the combines, the gather, the prefix scan
    and the θ-counts, ``rtol=1e-5`` for the θ-sums; the reference's own
    tolerances for #8 and #9), timed with CUDA events (median of 25) beside
@@ -142,7 +169,10 @@ d_model 3840, 16 heads of 240, 8 kv heads, ~1.26·10¹⁰ parameters, f32):
    h2o-danube-3-4b's GQA sliding-window shape, in bf16, at every head dim
    of ``FA_D_SWEEP`` (1 to 512) and at gemma3-12b's long-wave shapes
    (windowed and global, D 240, timed beside its plain version and
-   ``scaled_dot_product_attention``), #9 (the CUDA kernels of a call
+   ``scaled_dot_product_attention``), without the causal mask at every head
+   dim (``FA_NONCAUSAL_SHAPES``: S = T, S < T, S > T, GQA) and at
+   whisper-tiny's encoder and cross shapes (timed beside non-causal SDPA),
+   #9 (the CUDA kernels of a call
    counted and timed by ``torch.profiler`` as ``cuda_kernels_per_call``
    and ``phase_ms``) also per tensor at ``SSD_TF32X3_RTOL``, which the
    plain version with TF32 products must miss, with its final state, under
@@ -163,7 +193,7 @@ d_model 3840, 16 heads of 240, 8 kv heads, ~1.26·10¹⁰ parameters, f32):
 Then tiered block storage (``repro_torch.storage``) on the same table, the
 LMs freed, each phase's store reads through #7:
 
-22. tiered — the wave on ``make_tier_stack(256 MiB, None)`` (~993 blocks
+25. tiered — the wave on ``make_tier_stack(256 MiB, None)`` (~993 blocks
    in tier 0 on the card over unbounded pinned host memory,
    ``CostAwarePolicy``), cold then warm: both equal the flat wave phase's
    (records, blocks, rounds, store reads, cache hits); the warm wave reads
@@ -173,25 +203,25 @@ LMs freed, each phase's store reads through #7:
    results unchanged.  The same calls on the CPU copy give equal
    ``tier_counters()`` and ``snapshot()``; ``get_device`` of the union
    equals ``store.fetch``.  Wall times, per-tier hits, peak device memory.
-23. calibration — the ``hbm`` level fitted (``calibrate_model``) on CUDA-
+26. calibration — the ``hbm`` level fitted (``calibrate_model``) on CUDA-
    event timings of #7 over the tier-0 pool, the ``dram`` level on copies
    from the pinned tier-1 pool to the card, the backing level through
    ``StoreTimingBackend`` on the card; fits, bandwidth and latency printed
    (these give the port's ``hbm`` and ``dram`` presets).  An engine with
    ``calibrated_cost=True`` and a ``PlanLedger``: its wave equals a flat
    engine's on the fitted model; the ledger's q-errors printed.
-24. append_compact — ``engine.append`` of 10⁶ airline rows (seed + 1) on
+27. append_compact — ``engine.append`` of 10⁶ airline rows (seed + 1) on
    the tiered engine, then ``engine.compact`` from the first dirtied block:
    each time exactly the dirtied tail leaves every tier, the store (slabs
    and index) equals ``build_block_store`` of the same table bit for bit,
    and the next wave equals a fresh flat engine's; timed on the card and on
    the CPU copy.
-25. prefetch — the wave's 48 ``auto`` queries (the memo predicts the plan
+28. prefetch — the wave's 48 ``auto`` queries (the memo predicts the plan
    ``auto`` picks): the memo warmed by a host-mirror wave, the tiers
    cleared, ``TierPrefetcher.kick`` + ``drain(wait=True)``: the next wave's
    round 0 reads 0 store blocks and equals a flat engine's; the async mode
    (a side stream) admits what the sync mode does, with equal results.
-26. peer — the cooperative peer-memory tier (``repro_torch.storage.peer``):
+29. peer — the cooperative peer-memory tier (``repro_torch.storage.peer``):
    ``make_peer_group(store, 4)`` (four in-process shards, each a 256 MiB
    tier 0 on the card over unbounded pinned host memory), the engine on
    shard 0 and the wave's union warmed in thirds on shards 1-3.  The
@@ -213,7 +243,7 @@ LMs freed, each phase's store reads through #7:
 Serving and observability (``ServeEngine``, ``serving/admission.py``,
 ``obs/``), each phase beside the path it drives:
 
-27. serve_exemplar — after the sharded phase, inside its NCCL world: the
+30. serve_exemplar — after the sharded phase, inside its NCCL world: the
    wave's 64 queries as exemplar requests (each ``auto``) on 16 slots, a
    fake clock: ``run_continuous`` on the device wave (#2 once per join
    flush, #5 once a tick, asserted), on the host-mirror round
@@ -222,21 +252,21 @@ Serving and observability (``ServeEngine``, ``serving/admission.py``,
    #3 once per join flush); every request equal to the all-``auto`` wave,
    the wave phase's ``auto`` queries and 8 solo ``any_k``.  Then a real
    clock (SLO 50 ms, one arrival a tick): the admission waits' p50 / p99.
-28. serve_aggregate — after the baselines: 8 online aggregates on 4 slots
+31. serve_aggregate — after the baselines: 8 online aggregates on 4 slots
    (six error SLOs set from their solo runs' half-widths, one modeled-I/O
    deadline, one without); each stream equal to its solo run on a fresh
    card engine (``==``) and on the CPU copy (``rtol``); the error SLOs
    answer ``"ci"``, one mid-wave.
-29. obs — both kinds traced by a ``TraceRecorder``, equal to the untraced
+32. obs — both kinds traced by a ``TraceRecorder``, equal to the untraced
    run; the export read by ``tools/trace_report.py`` (a subprocess), which
    must rebuild one path per request.
-30. serve_lm_continuous (after lm_serve) and 31. serve_lm_continuous_swa
+33. serve_lm_continuous (after lm_serve) and 34. serve_lm_continuous_swa
    (after lm_serve_swa) — ``run_continuous`` with joiners prefilled at the
    position counter and grafted into the live cache (gemma3-12b past its
    window, so the rings wrap), kernel against plain, near-ties counted; the
    joiner at ``pos`` equal to its solo wave; #8/#9 once per sublayer a
    prefill.
-32. serve_tiered (last) — the requests in groups of 8 on a 256 MiB tier 0:
+35. serve_tiered (last) — the requests in groups of 8 on a 256 MiB tier 0:
    the residency probe, the asynchronous prefetcher, the cost gate and a
    refit every 8 ticks; equal to the all-``auto`` wave.
 
@@ -332,6 +362,9 @@ PHASE_KERNELS = {
             "block_gather"),
     "serve_lm_continuous": LM_KERNELS,
     "serve_lm_continuous_swa": ("flash_attention",),
+    "lm_moe": ("flash_attention",),
+    "lm_encdec": ("flash_attention",),
+    "lm_vlm": ("flash_attention",),
     "serve_tiered": ("density_combine_batch", "theta_stats_batch", "prefix_sum",
                      "block_gather"),
 }
@@ -376,6 +409,25 @@ SSD_64_CHUNKS = (1, 112, 8192, 64, 64)
 # and windowed, right-aligned (S < T), GQA: (B, Hq, Hkv, S, T, window)
 FA_D_SWEEP = (1, 6, 7, 17, 120, 128, 129, 240, 256, 257, 300, 512)
 FA_SWEEP_SHAPES = ((2, 4, 2, 200, 200, None), (1, 4, 2, 130, 300, 64))
+# ... and without the causal mask (the encoder's and the cross-attention's):
+# S = T, S < T and S > T, each GQA: (B, Hq, Hkv, S, T, window)
+FA_NONCAUSAL_SHAPES = ((2, 4, 2, 200, 200, None), (1, 4, 2, 130, 300, None),
+                       (1, 6, 2, 300, 130, None))
+# the remaining families: qwen3-moe at its published widths, its depth cut
+# from 94 layers to MOE_LAYERS (94 f32 layers would need ~940 GB; four take
+# ~44 GB); whisper-tiny and phi-3-vision whole
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 4
+ENCDEC_ARCH = "whisper-tiny"
+VLM_ARCH = "phi-3-vision-4.2b"
+# a routing flip between the kernel and plain paths (a token whose ranked
+# top-k experts differ) must sit at a router margin below this on both
+# paths: the paths differ by ~1e-6 relative in attention's f32 sums
+MOE_MARGIN_BOUND = 1e-5
+# whisper's requests: the launcher's prompt draws beside seeded frames [B,
+# enc_seq, d_model]·0.02 (the scale of tests/test_models.py); phi-3-vision's:
+# seeded patches [B, num_patches, d_model]·0.02 ahead of 256-768 text tokens
+ENCDEC_TRAFFIC = {"requests": 4, "plen": (4, 24), "max_new": 16, "scale": 0.02}
+VLM_TRAFFIC = {"requests": 4, "plen": (256, 769), "max_new": 16, "scale": 0.02}
 # the launcher's traffic (repro/launch/serve.py defaults) and long prompts
 SERVE_TRAFFIC = {
     "launcher": {"requests": 8, "plen": (4, 24), "max_new": 16, "slots": 4, "max_seq": 128},
@@ -1527,12 +1579,16 @@ def sync(dev) -> None:
 
 def lm_layer_counts(cfg) -> dict:
     """Kernel launches of one forward or prefill of ``cfg``: #8 per
-    attention sublayer (global ``G``, windowed ``L``, shared ``A``), #9 per
-    Mamba sublayer."""
+    attention sublayer (global ``G``, windowed ``L``, shared ``A``), and for
+    an encoder-decoder per encoder layer and per cross-attention (``G``,
+    ``L``); #9 per Mamba sublayer."""
     from repro_torch.configs.base import _full_pattern
 
     pat = _full_pattern(cfg)
-    return {"flash_attention": sum(ch in "GLA" for ch in pat), "ssd_scan": pat.count("M")}
+    attn = sum(ch in "GLA" for ch in pat)
+    if cfg.family == "encdec":
+        attn += cfg.enc_layers + sum(ch in "GL" for ch in pat)
+    return {"flash_attention": attn, "ssd_scan": pat.count("M")}
 
 
 def check_launches(launches: dict, want: dict, what: str) -> None:
@@ -1555,6 +1611,132 @@ def count_calls(module, name: str):
         yield seen
     finally:
         setattr(module, name, fn)
+
+
+class RouterLog:
+    """What a run routed: inside :meth:`record`, each call of
+    ``repro_torch.models.layers.moe`` appends ``("moe", top-k experts [B, S,
+    K] in rank order, gaps [B, S, K] between adjacent ranks p₍ⱼ₎ − p₍ⱼ₊₁₎
+    of the router's probabilities, j = 1..K)``, taken from the router on
+    the call's own input, and each ``ServeEngine._greedy`` appends
+    ``("tokens", [(row, request id, token index), ...])``.  The package has
+    no hook: both are wrapped here, as :func:`count_calls` wraps."""
+
+    def __init__(self):
+        self.events = []
+
+    @contextlib.contextmanager
+    def record(self):
+        from repro_torch.models import layers
+        from repro_torch.serving.engine import ServeEngine
+
+        moe, greedy = layers.moe, ServeEngine._greedy
+
+        def logged_moe(x, p, cfg):
+            k = cfg.moe.top_k
+            vals, idx = layers.router_top_k(layers.router_probs(x, p), k + 1)
+            self.events.append(("moe", idx[..., :k].cpu(), (vals[..., :-1] - vals[..., 1:]).cpu()))
+            return moe(x, p, cfg)
+
+        def logged_greedy(eng, logits, slots, rows):
+            rows = list(rows)
+            self.events.append(("tokens", [(b, slots[b].rid, len(slots[b].out_tokens))
+                                           for b in rows]))
+            return greedy(eng, logits, slots, rows)
+
+        layers.moe, ServeEngine._greedy = logged_moe, logged_greedy
+        try:
+            yield self
+        finally:
+            layers.moe, ServeEngine._greedy = moe, greedy
+
+
+def routing_flips(kern: RouterLog, plain: RouterLog, bound: float = MOE_MARGIN_BOUND) -> dict:
+    """The two paths' routing, call for call.  A flip is a token whose ranked
+    top-k differs (the set, or the round an expert is in: either moves the
+    capacity positions of later tokens in its row); its margin is the gap at
+    the first rank where the lists part, on each path.  Once a row has
+    flipped at position f, its positions from f on differ between the paths
+    in every later layer (the capacity cumsum runs forward in S, attention
+    is causal), and so does every later decode step of its request: flips
+    there are counted as ``downstream``.  Every other flip must lie below
+    ``bound`` on both paths, else the run fails.  The ``tokens`` events
+    part the passes (a prefill, a decode step) and map rows to requests.
+    Returns the counts, the largest margin of a flip that had to lie below
+    ``bound``, the smallest gap of any token, per row its first flipped
+    position (``first_pos``) and per request the index of its first token
+    after a flip in its row (``first_token``)."""
+    import torch
+
+    ka, pa = kern.events, plain.events
+    if [(e[0], tuple(e[1].shape) if e[0] == "moe" else e[1]) for e in ka] != \
+            [(e[0], tuple(e[1].shape) if e[0] == "moe" else e[1]) for e in pa]:
+        raise AssertionError("the kernel and plain runs made different MoE calls or tokens")
+    out = {"moe_calls": sum(e[0] == "moe" for e in ka), "flips": 0, "downstream": 0,
+           "largest_flip_margin": 0.0, "smallest_margin": None, "first_pos": {},
+           "first_token": {}}
+    pending, flagged, row_req, tainted = set(), set(), {}, None
+    for a, b in zip(ka, pa):
+        if a[0] == "tokens":
+            for row, rid, j in a[1]:
+                row_req[row] = rid
+                if row in pending:
+                    flagged.add(rid)
+                    out["first_token"].setdefault(rid, j)
+            pending, tainted = set(), None
+            continue
+        if tainted is None:  # a pass begins: a decode step carries its requests' flips
+            decode = a[1].shape[1] == 1
+            tainted = {row: 0 for row, rid in row_req.items() if decode and rid in flagged}
+        low = float(torch.minimum(a[2].min(), b[2].min()))
+        out["smallest_margin"] = low if out["smallest_margin"] is None else min(
+            out["smallest_margin"], low)
+        diff = a[1] != b[1]
+        flip = diff.any(dim=-1)
+        if not bool(flip.any()):
+            continue
+        rank = diff.to(torch.int8).argmax(dim=-1, keepdim=True)  # the first rank that parts
+        margin = torch.maximum(a[2].gather(-1, rank), b[2].gather(-1, rank))[..., 0]
+        first = {}
+        for row, pos in flip.nonzero().tolist():
+            first[row] = min(first.get(row, pos), pos)
+            if pos >= tainted.get(row, a[1].shape[1]):
+                out["downstream"] += 1
+                continue
+            m = float(margin[row, pos])
+            out["flips"] += 1
+            out["largest_flip_margin"] = max(out["largest_flip_margin"], m)
+            if m >= bound:
+                raise AssertionError(f"a routing flip between the paths at a router margin of {m}"
+                                     f" (row {row}, position {pos}), not below {bound}")
+        for row, pos in first.items():
+            tainted[row] = min(tainted.get(row, pos), pos)
+            out["first_pos"][row] = min(out["first_pos"].get(row, pos), pos)
+            pending.add(row)
+    return out
+
+
+def check_close_rows(a, b, first_pos: dict, atol: float, rtol: float, what: str,
+                     axis: int = 1) -> float:
+    """:func:`check_close` per tensor over each row ``r`` of axis 0, along
+    ``axis`` only the positions before ``first_pos[r]`` (a routing flip's:
+    none of them can see it); the whole tensor when ``first_pos`` is empty."""
+    if not first_pos:
+        return check_close(a, b, atol, rtol, what, "tensor")
+    err = 0.0
+    for r in range(a.shape[0]):
+        n = first_pos.get(r, a.shape[axis])
+        err = max(err, check_close(a[r].narrow(axis - 1, 0, n), b[r].narrow(axis - 1, 0, n),
+                                   atol, rtol, f"{what} (row {r}, before position {n})",
+                                   "tensor"))
+    return err
+
+
+def add_launches(phase_launches: dict, phase: str, launches: dict) -> None:
+    """Sum ``launches`` into ``phase_launches[phase]`` (a phase of several runs)."""
+    into = phase_launches.setdefault(phase, dict.fromkeys(launches, 0))
+    for k, n in launches.items():
+        into[k] = into.get(k, 0) + n
 
 
 def check_close(a, b, atol: float, rtol: float, what: str, scale: str = "element") -> float:
@@ -1590,31 +1772,41 @@ def peak_gb(dev) -> float | None:
     return torch.cuda.max_memory_allocated(dev) / 1e9 if torch.device(dev).type == "cuda" else None
 
 
-def lm_forward_check(model, seq: int, seed: int, run, phase: str = "lm_forward") -> dict:
-    """``model(tokens, impl="kernel")`` on ``[1, seq]`` tokens through ``run``
-    (``run_phase``) as ``phase``, held against ``impl="plain"``; #8 and #9
-    must launch once per attention and Mamba sublayer."""
+def lm_forward_check(model, seq: int, seed: int, run, phase: str = "lm_forward",
+                     extra: dict | None = None) -> dict:
+    """``model(tokens, impl="kernel", **extra)`` on ``[1, seq]`` tokens
+    through ``run`` (``run_phase``) as ``phase``, held against
+    ``impl="plain"``; #8 and #9 must launch once per attention and Mamba
+    sublayer.  A MoE model's logits are held before the first routing flip
+    between the paths (:func:`routing_flips`)."""
     import torch
 
     cfg, dev = model.cfg, model.device
+    extra = extra or {}
     rng = np.random.default_rng(seed)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (1, seq))).to(dev)
     def timed(impl):
         t0 = time.perf_counter()
-        out = model(tokens, impl=impl)
+        out = model(tokens, impl=impl, **extra)
         sync(dev)
         return out, time.perf_counter() - t0
 
+    kern_log, plain_log = RouterLog(), RouterLog()
     with torch.inference_mode():
-        logits, wall, launches = run(phase, lambda: model(tokens, impl="kernel"))
-        plain, plain_wall = timed("plain")
+        with kern_log.record():
+            logits, wall, launches = run(phase, lambda: model(tokens, impl="kernel", **extra))
+        with plain_log.record():
+            plain, plain_wall = timed("plain")
         warm = {impl: timed(impl)[1] for impl in ("kernel", "plain")}  # cuBLAS and modules loaded
     check_launches(launches, lm_layer_counts(cfg), phase)
     if tuple(logits.shape) != (1, seq, cfg.vocab):
         raise AssertionError(f"{phase}: logits of shape {tuple(logits.shape)}")
-    err = check_close(logits, plain, LM_ATOL, LM_RTOL, f"{phase} logits", "tensor")
+    routing = routing_flips(kern_log, plain_log)
+    err = check_close_rows(logits, plain, routing["first_pos"], LM_ATOL, LM_RTOL,
+                           f"{phase} logits")
     return {"wall_s": wall, "plain_wall_s": plain_wall, "warm_wall_s": warm, "max_abs_err": err,
-            "logits_absmax": float(plain.abs().max()), "launches": launches}
+            "logits_absmax": float(plain.abs().max()), "routing": routing,
+            "launches": launches}
 
 
 def serve_prompts(cfg, traffic: dict, seed: int) -> list[np.ndarray]:
@@ -1625,24 +1817,35 @@ def serve_prompts(cfg, traffic: dict, seed: int) -> list[np.ndarray]:
             for _ in range(traffic["requests"])]
 
 
-def run_engine(model, traffic: dict, prompts, impl: str):
+def run_engine(model, traffic: dict, prompts, impl: str, log: RouterLog | None = None):
+    """``prompts`` drained through a ``ServeEngine`` with ``impl``, its
+    routing recorded into ``log`` when given."""
     from repro_torch.serving import ServeEngine
 
     eng = ServeEngine(model.cfg, model, max_slots=traffic["slots"],
                       max_seq=traffic["max_seq"], impl=impl, device=model.device)
     for p in prompts:
         eng.submit(p, max_new_tokens=traffic["max_new"])
-    return eng, eng.run_until_drained()
+    with log.record() if log is not None else contextlib.nullcontext():
+        return eng, eng.run_until_drained()
 
 
-def compare_streams(done, plain, tol: float) -> dict:
+def compare_streams(done, plain, tol: float, first_flip: dict | None = None) -> dict:
     """Greedy tokens of the kernel run against the plain run's.  A request's
     streams may part only where the plain run's top-2 logit gap is within
     ``2·tol`` (a near-tie, counted); after that its contexts differ, so the
-    rest of that request is not compared."""
+    rest of that request is not compared.  ``first_flip`` (request id ->
+    token index, :func:`routing_flips`): a request is compared only before
+    its first token after a routing flip in its row (the rest counted as
+    ``after_flip``)."""
     out = {"tokens_equal": 0, "near_ties": 0, "tokens": sum(len(r.out_tokens) for r in plain)}
+    if first_flip is not None:
+        out["after_flip"] = 0
     for rk, rp in zip(done, plain):
-        for j, (a, b) in enumerate(zip(rk.out_tokens, rp.out_tokens)):
+        stop = (first_flip or {}).get(rp.rid)
+        if stop is not None:
+            out["after_flip"] += len(rp.out_tokens) - stop
+        for j, (a, b) in enumerate(zip(rk.out_tokens[:stop], rp.out_tokens[:stop])):
             if a == b:
                 out["tokens_equal"] += 1
                 continue
@@ -1652,7 +1855,7 @@ def compare_streams(done, plain, tol: float) -> dict:
             out["near_ties"] += 1
             break
         else:
-            if len(rk.out_tokens) != len(rp.out_tokens):
+            if stop is None and len(rk.out_tokens) != len(rp.out_tokens):
                 raise AssertionError(f"request {rp.rid}: streams of different lengths")
     return out
 
@@ -1667,19 +1870,25 @@ def prefill_check(model, traffic: dict, prompts) -> dict:
 
     wave = [Request(i, np.asarray(p, np.int32)) for i, p in enumerate(prompts[:traffic["slots"]])]
     toks = torch.from_numpy(pad_wave(wave, traffic["slots"], 0)).to(model.device)
+    kern_log, plain_log = RouterLog(), RouterLog()
     with torch.inference_mode():
-        lk, ck = prefill(model, toks, impl="kernel", max_seq=traffic["max_seq"])
-        lp, cp = prefill(model, toks, impl="plain", max_seq=traffic["max_seq"])
-        logits_err = check_close(lk, lp, LM_ATOL, LM_RTOL, "prefill last-token logits",
-                                 "tensor")
+        with kern_log.record():
+            lk, ck = prefill(model, toks, impl="kernel", max_seq=traffic["max_seq"])
+        with plain_log.record():
+            lp, cp = prefill(model, toks, impl="plain", max_seq=traffic["max_seq"])
+        routing = routing_flips(kern_log, plain_log)
+        # a row with a routing flip has none of its last-token logits held
+        flipped = {r: 0 for r in routing["first_pos"]}
+        logits_err = check_close_rows(lk[:, None], lp[:, None], flipped, LM_ATOL, LM_RTOL,
+                                      "prefill last-token logits")
         cache_err = {}
         for i, (a, b) in enumerate(zip(ck, cp)):
             for key in a:
-                e = check_close(a[key], b[key], LM_ATOL, LM_RTOL, f"layer {i} cache {key}",
-                                "tensor")
+                e = check_close_rows(a[key], b[key], routing["first_pos"], LM_ATOL, LM_RTOL,
+                                     f"layer {i} cache {key}")
                 cache_err[key] = max(cache_err.get(key, 0.0), e)
     return {"prompt_len": int(toks.shape[1]), "logits_max_abs_err": logits_err,
-            "cache_max_abs_err": cache_err}
+            "cache_max_abs_err": cache_err, "routing": routing}
 
 
 def lm_serve_check(model, traffic: dict, seed: int, run, phase: str = "lm_serve") -> dict:
@@ -1689,16 +1898,18 @@ def lm_serve_check(model, traffic: dict, seed: int, run, phase: str = "lm_serve"
     cfg = model.cfg
     prompts = serve_prompts(cfg, traffic, seed)
     pre = prefill_check(model, traffic, prompts)
+    kern_log, plain_log = RouterLog(), RouterLog()
     (eng, done), wall, launches = run(phase, lambda: run_engine(model, traffic, prompts,
-                                                                 "kernel"))
+                                                                 "kernel", kern_log))
     waves = len(eng.wave_stats)
     check_launches(launches, {k: n * waves for k, n in lm_layer_counts(cfg).items()}, phase)
-    eng_p, plain = run_engine(model, traffic, prompts, "plain")
-    streams = compare_streams(done, plain, LM_ATOL)
+    eng_p, plain = run_engine(model, traffic, prompts, "plain", plain_log)
+    routing = routing_flips(kern_log, plain_log)
+    streams = compare_streams(done, plain, LM_ATOL, routing["first_token"])
     new = sum(w["new_tokens"] for w in eng.wave_stats)
     return {"wall_s": wall, "waves": eng.wave_stats, "plain_waves": eng_p.wave_stats,
             "tokens_per_s": new / wall if wall > 0 else None, "prefill": pre,
-            "streams": streams, "launches": launches}
+            "streams": streams, "routing": routing, "launches": launches}
 
 
 def visible_pairs(s: int, t: int, window: int | None) -> int:
@@ -1709,19 +1920,58 @@ def visible_pairs(s: int, t: int, window: int | None) -> int:
     return int(np.maximum(np.minimum(qpos, t - 1) - lo + 1, 0).sum())
 
 
-def fa_sweep(randn, tol: float) -> dict:
+def fa_sweep(randn, tol: float, causal: bool = True) -> dict:
     """#8 against its plain version at every head dim of ``FA_D_SWEEP``, on
-    each of ``FA_SWEEP_SHAPES``; the largest error per D."""
+    each of ``FA_SWEEP_SHAPES`` (``causal``) or ``FA_NONCAUSAL_SHAPES``
+    (without the causal mask); the largest error per D."""
     from repro_torch.kernels.flash_attention import attention_plain, flash_attention
 
     out = {}
     for d in FA_D_SWEEP:
         out[d] = 0.0
-        for b, hq, hkv, s, t, w in FA_SWEEP_SHAPES:
+        for b, hq, hkv, s, t, w in FA_SWEEP_SHAPES if causal else FA_NONCAUSAL_SHAPES:
             q, k, v = randn(b, hq, s, d), randn(b, hkv, t, d), randn(b, hkv, t, d)
             out[d] = max(out[d], check_close(
-                flash_attention(q, k, v, window=w), attention_plain(q, k, v, window=w),
-                tol, tol, f"flash_attention (D {d}, S {s}, T {t}, window {w})"))
+                flash_attention(q, k, v, causal=causal, window=w),
+                attention_plain(q, k, v, causal=causal, window=w), tol, tol,
+                f"flash_attention (D {d}, S {s}, T {t}, causal {causal}, window {w})"))
+    return out
+
+
+def noncausal_attention(cfg, b: int, prompt_len: int, randn, launches: int) -> dict:
+    """#8 without the causal mask at an encoder-decoder's shapes (``cfg``'s
+    heads and head dim, batch ``b``): the encoder's self-attention (S = T =
+    ``enc_seq``) and the decoder's cross-attention (S = ``prompt_len``, T =
+    ``enc_seq``): error against the plain version, ms of the kernel, the
+    plain version and non-causal ``scaled_dot_product_attention``, and the
+    bound over all S·T pairs."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+
+    hq, hkv, d, t = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.enc_seq
+    out = {"launches_per_prefill": launches}
+    for name, s in (("encoder", t), ("cross", prompt_len)):
+        q, k, v = randn(b, hq, s, d), randn(b, hkv, t, d), randn(b, hkv, t, d)
+        err = check_close(flash_attention(q, k, v, causal=False),
+                          attention_plain(q, k, v, causal=False), FA_TOL, FA_TOL,
+                          f"flash_attention ({cfg.name} {name}, not causal)")
+
+        def lib():
+            return F.scaled_dot_product_attention(q, k, v, enable_gqa=hq != hkv)
+
+        lib_err = float((lib() - attention_plain(q, k, v, causal=False)).abs().max())
+        nbytes, ops = (2 * hq * s + 2 * hkv * t) * b * d * 4, 4.0 * b * hq * d * s * t
+        bms, by = bound_tf32x3_ms(nbytes, ops)
+        out[name] = {
+            "shape": {"B": b, "Hq": hq, "Hkv": hkv, "S": s, "T": t, "D": d}, "max_abs_err": err,
+            "library_max_abs_err": lib_err,
+            "ms": time_ms(lambda: flash_attention(q, k, v, causal=False)),
+            "plain_ms": time_ms(lambda: attention_plain(q, k, v, causal=False)),
+            "library_ms": time_ms(lib), "bound_ms": bms, "bound_by": by,
+            "bound_fma_ms": bound_ms(nbytes, ops)[0],
+        }
+        log(f"kernel flash_attention at {cfg.name} {name} (not causal): {out[name]}")
     return out
 
 
@@ -1778,12 +2028,15 @@ def swa_attention(cfg, b: int, seq: int, randn, launches: int) -> dict:
 
 
 def lm_kernel_rows(cfg, phase_launches: dict, seq: int, seed: int, dev,
-                   swa=None, profile: bool = False) -> list[dict]:
+                   swa=None, profile: bool = False, encdec=None) -> list[dict]:
     """#8 and #9 at the long serving wave's prefill shapes (batch 4, S = T =
     the wave's padded prompt length) against their plain versions, timed;
     #8 also at h2o-danube-3-4b's GQA sliding-window shape, in bf16 and at
     every head dim of ``FA_D_SWEEP``, and, given ``swa = (cfg, seq)``, at
-    that sliding-window model's long-wave shapes (``swa_attention``); #9
+    that sliding-window model's long-wave shapes (``swa_attention``), over
+    every D without the causal mask (``FA_NONCAUSAL_SHAPES``) and, given
+    ``encdec = (cfg, {"prompt_len": ..., "launches_per_prefill": ...})``,
+    at that encoder-decoder's shapes (``noncausal_attention``); #9
     also per tensor at ``SSD_TF32X3_RTOL`` beside the plain version with
     TF32 products (on the card), with its final state (prefill's call,
     timed too), under slow decay at the wave's shape and over 64 chunks
@@ -1822,7 +2075,12 @@ def lm_kernel_rows(cfg, phase_launches: dict, seq: int, seed: int, dev,
         FA_BF16_ATOL, FA_BF16_RTOL, "flash_attention (bf16)")
     del qb, kb, vb
     checks["d_sweep"] = fa_sweep(randn, tol)
+    checks["d_sweep_non_causal"] = fa_sweep(randn, tol, causal=False)
     extra = {}
+    if encdec is not None:
+        ecfg, info = encdec
+        extra[ecfg.name] = noncausal_attention(ecfg, b, info["prompt_len"], randn,
+                                               info["launches_per_prefill"])
     if swa is not None:
         scfg, sseq = swa
         extra[scfg.name] = swa_attention(scfg, b, sseq, randn,
@@ -1974,11 +2232,13 @@ def lm_phases(model, fphase: str, sphase: str, args, phase_launches: dict) -> in
 
     torch.cuda.reset_peak_memory_stats()
     fwd = lm_forward_check(model, LM_FORWARD_SEQ, args.seed, run_phase, fphase)
-    phase_launches[fphase] = fwd.pop("launches")
+    add_launches(phase_launches, fphase, fwd.pop("launches"))
     log(f"{fphase} [1, {LM_FORWARD_SEQ}]: kernel {fwd['wall_s']} s, plain "
         f"{fwd['plain_wall_s']} s (first calls); again {fwd['warm_wall_s']} s; logits max "
         f"|kernel − plain| {fwd['max_abs_err']} "
         f"(|logits| ≤ {fwd['logits_absmax']}), peak {peak_gb('cuda'):.2f} GB")
+    if model.cfg.moe:
+        log(f"{fphase} forward routing: {fwd['routing']}")
     serve_launches = dict.fromkeys(_lib.LAUNCHES, 0)
     long_seq = 0
     for name, traffic in SERVE_TRAFFIC.items():
@@ -1995,12 +2255,14 @@ def lm_phases(model, fphase: str, sphase: str, args, phase_launches: dict) -> in
         log(f"{sphase} {name}: {res['wall_s']} s, {res['tokens_per_s']} tokens/s; prefill "
             f"check {res['prefill']}; streams {res['streams']}; peak "
             f"{peak_gb('cuda'):.2f} GB")
+        if model.cfg.moe:
+            log(f"{sphase} {name} serving routing: {res['routing']}")
         if name == "long":
             long_seq = res["waves"][0]["prompt_len"]
             log(f"{sphase} {model.cfg.name} long prefill [{res['waves'][0]['size']}, "
                 f"{long_seq}]: kernel {res['waves'][0]['prefill_s']} s, plain "
                 f"{res['plain_waves'][0]['prefill_s']} s")
-    phase_launches[sphase] = serve_launches
+    add_launches(phase_launches, sphase, serve_launches)
     log(f"{sphase} launches (both traffics): {serve_launches}")
     if args.profile:  # one warm wave of each traffic, with the kernels
         for name, traffic in SERVE_TRAFFIC.items():
@@ -2008,6 +2270,163 @@ def lm_phases(model, fphase: str, sphase: str, args, phase_launches: dict) -> in
             profile_wave(lambda: run_engine(model, traffic, prompts, "kernel"),
                          f"{sphase} {name} wave")
     return long_seq
+
+
+def steps_batch(cfg, traffic: dict, seed: int, dev) -> dict:
+    """An encoder-decoder's or a VLM's requests as one batch for the step
+    functions: prompts drawn as the launcher draws (:func:`serve_prompts`),
+    left-padded with token 0 to the longest, a VLM's after ``num_patches``
+    slots that its patches fill; the stub frontend's seeded ``enc_frames
+    [B, enc_seq, D]`` or ``patch_embeds [B, num_patches, D]``, times
+    ``traffic["scale"]``."""
+    import torch
+
+    prompts = serve_prompts(cfg, traffic, seed)
+    b = len(prompts)
+    lead = cfg.num_patches if cfg.family == "vlm" else 0
+    plen = lead + max(len(p) for p in prompts)
+    toks = np.zeros((b, plen), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p
+    rng = np.random.default_rng(seed + 2)
+
+    def frontend(n):
+        x = rng.standard_normal((b, n, cfg.d_model)) * traffic["scale"]
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    if cfg.family == "encdec":
+        batch["enc_frames"] = frontend(cfg.enc_seq)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = frontend(cfg.num_patches)
+    return batch
+
+
+def greedy_steps(model, cache, last, steps: int, pos: int):
+    """``steps`` greedy ``make_decode_step`` steps from position ``pos`` after
+    a prefill's last logits: per row an object with ``rid``, ``out_tokens``
+    and ``top2_gap`` (as ``ServeEngine``'s requests), and seconds a step."""
+    import torch
+
+    from repro_torch.launch.steps import make_decode_step
+
+    step = make_decode_step(model.cfg)
+    rows = [SimpleNamespace(rid=i, out_tokens=[], top2_gap=[]) for i in range(last.shape[0])]
+
+    def emit(logits):
+        top = torch.topk(logits, 2, dim=-1).values
+        nxt = torch.argmax(logits, dim=-1)
+        for r, t, g in zip(rows, nxt.tolist(), (top[:, 0] - top[:, 1]).tolist()):
+            r.out_tokens.append(t)
+            r.top2_gap.append(g)
+        return nxt
+
+    nxt = emit(last)
+    t0 = time.perf_counter()
+    for j in range(steps):
+        logits, cache = step(model, cache, nxt, pos + j)
+        nxt = emit(logits)
+    sync(model.device)
+    return rows, (time.perf_counter() - t0) / max(steps, 1)
+
+
+def steps_check(model, traffic: dict, seed: int, run, phase: str) -> dict:
+    """:func:`steps_batch` through ``make_prefill_step`` with the kernels
+    (through ``run`` as ``phase``: #8 once per attention sublayer, encoder
+    layer and cross-attention) and with ``impl="plain"``: last-token logits
+    and every cache tensor, cross K/V included, within ``LM_ATOL``/
+    ``LM_RTOL`` per tensor; then ``traffic["max_new"]`` greedy
+    ``make_decode_step`` steps from each prefill, tokens equal but for
+    counted near-ties.  Each prefill again, warm, timed."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step
+
+    cfg, dev = model.cfg, model.device
+    batch = steps_batch(cfg, traffic, seed, dev)
+    plen, steps = int(batch["tokens"].shape[1]), traffic["max_new"]
+    kern_step, plain_step = (make_prefill_step(cfg, impl, max_seq=plen + steps)
+                             for impl in ("kernel", "plain"))
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn(model, batch)
+        sync(dev)
+        return out, time.perf_counter() - t0
+
+    with torch.inference_mode():
+        (lk, ck), wall, launches = run(phase, lambda: kern_step(model, batch))
+        check_launches(launches, {"flash_attention": lm_layer_counts(cfg)["flash_attention"]},
+                       phase)
+        (lp, cp), plain_wall = timed(plain_step)
+        logits_err = check_close(lk, lp, LM_ATOL, LM_RTOL, f"{phase} prefill last-token logits",
+                                 "tensor")
+        cache_err = {}
+        for i, (a, b) in enumerate(zip(ck, cp)):
+            for key in a:
+                e = check_close(a[key], b[key], LM_ATOL, LM_RTOL, f"{phase} layer {i} cache {key}",
+                                "tensor")
+                cache_err[key] = max(cache_err.get(key, 0.0), e)
+        done, step_s = greedy_steps(model, ck, lk, steps, plen)
+        plain, plain_step_s = greedy_steps(model, cp, lp, steps, plen)
+        del ck, cp
+        warm = {impl: timed(fn)[1] for impl, fn in (("kernel", kern_step), ("plain", plain_step))}
+    new = sum(len(r.out_tokens) for r in done)
+    return {"batch": int(lk.shape[0]), "prompt_len": plen, "prefill_s": wall,
+            "plain_prefill_s": plain_wall, "warm_prefill_s": warm, "decode_s_per_step": step_s,
+            "plain_decode_s_per_step": plain_step_s, "decode_steps": steps,
+            "tokens_per_s": new / (wall + step_s * steps), "logits_max_abs_err": logits_err,
+            "cache_max_abs_err": cache_err, "streams": compare_streams(done, plain, LM_ATOL),
+            "launches": launches}
+
+
+def family_phases(args, phase_launches: dict) -> dict:
+    """The remaining families, each built, driven and freed in turn:
+    ``lm_moe`` (qwen3-moe at its published widths, ``MOE_LAYERS`` layers:
+    the forward, both traffics and the continuous loop with its joiners,
+    routing flips accounted), ``lm_encdec`` (whisper-tiny whole through the
+    step functions) and ``lm_vlm`` (phi-3-vision whole: the forward with its
+    patches, then the step functions).  Returns whisper's prompt length and
+    the launches of one prefill of each."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    out = {}
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    log(f"lm_moe: {MOE_ARCH} cut from {get_config(MOE_ARCH).num_layers} to {MOE_LAYERS} layers "
+        "(the full depth needs ~940 GB in f32)")
+    t0 = time.perf_counter()
+    model = build_lm(cfg, args.seed)
+    lm_phases(model, "lm_moe", "lm_moe", args, phase_launches)
+    lm_continuous_phase(model, "lm_moe", LM_JOIN, args.seed, phase_launches,
+                        SERVE_TRAFFIC["launcher"])
+    log(f"lm_moe: {time.perf_counter() - t0:.1f} s in all, launches {phase_launches['lm_moe']}")
+    del model
+    torch.cuda.empty_cache()
+
+    for phase, arch, traffic in (("lm_encdec", ENCDEC_ARCH, ENCDEC_TRAFFIC),
+                                 ("lm_vlm", VLM_ARCH, VLM_TRAFFIC)):
+        t0 = time.perf_counter()
+        model = build_lm(get_config(arch), args.seed)
+        torch.cuda.reset_peak_memory_stats()
+        if phase == "lm_vlm":
+            patches = steps_batch(model.cfg, {**traffic, "requests": 1}, args.seed,
+                                  model.device)["patch_embeds"]
+            fwd = lm_forward_check(model, LM_FORWARD_SEQ, args.seed, run_phase, phase,
+                                   extra={"patch_embeds": patches})
+            add_launches(phase_launches, phase, fwd.pop("launches"))
+            log(f"{phase} forward [1, {LM_FORWARD_SEQ}] with {model.cfg.num_patches} patches: "
+                f"{ {k: v for k, v in fwd.items() if k != 'routing'} }")
+        res = steps_check(model, traffic, args.seed, run_phase, phase)
+        add_launches(phase_launches, phase, res.pop("launches"))
+        out[phase] = {"prompt_len": res["prompt_len"],
+                      "launches_per_prefill": lm_layer_counts(model.cfg)["flash_attention"]}
+        log(f"{phase} {arch}: {res}; peak {peak_gb('cuda'):.2f} GB; "
+            f"{time.perf_counter() - t0:.1f} s in all")
+        del model
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3489,11 +3908,14 @@ def lm_continuous_check(model, join: dict, seed: int, run, phase: str,
     (:func:`lm_join_run`); each again with ``impl="plain"``, tokens equal
     but for counted near-ties.  #8 and #9 launch once per attention and
     Mamba sublayer a prefill.  The joiner whose prompt length equals
-    ``pos`` gives its solo wave's tokens."""
+    ``pos`` gives its solo wave's tokens.  A MoE model's streams are
+    compared before each request's first routing flip (each run's routing
+    recorded apart, :func:`routing_flips`)."""
     cfg = model.cfg
     prompts = serve_prompts(cfg, traffic, seed) if traffic else []
     rng = np.random.default_rng(seed + 1)
     jp = [rng.integers(0, cfg.vocab, n) for n in join["plens"]]
+    logs = {}
 
     def continuous(impl):
         out = {}
@@ -3504,11 +3926,13 @@ def lm_continuous_check(model, join: dict, seed: int, run, phase: str,
                               impl=impl, device=model.device)
             reqs = [eng.submit(p, max_new_tokens=traffic["max_new"]) for p in prompts]
             t0 = time.perf_counter()
-            eng.run_continuous()
+            with logs.setdefault((impl, "traffic"), RouterLog()).record():
+                eng.run_continuous()
             sync(model.device)
             out["traffic"] = (eng, reqs, time.perf_counter() - t0)
         t0 = time.perf_counter()
-        jeng, jreqs = lm_join_run(model, join, jp, impl)
+        with logs.setdefault((impl, "join"), RouterLog()).record():
+            jeng, jreqs = lm_join_run(model, join, jp, impl)
         sync(model.device)
         out["join"] = (jeng, jreqs, time.perf_counter() - t0)
         return out
@@ -3527,9 +3951,13 @@ def lm_continuous_check(model, join: dict, seed: int, run, phase: str,
         solo_req = solo.run_until_drained()[0]
     res = {"wall_s": wall, "launches": launches, "prefills": prefills}
     for name, (eng, reqs, secs) in kern.items():
+        routing = routing_flips(logs["kernel", name], logs["plain", name])
         res[name] = {"kernel": lm_tick_times(eng, secs),
                      "plain": lm_tick_times(plain[name][0], plain[name][2]),
-                     "streams": compare_streams(reqs, plain[name][1], LM_ATOL)}
+                     "streams": compare_streams(reqs, plain[name][1], LM_ATOL,
+                                                routing["first_token"]),
+                     "routing": {k: v for k, v in routing.items()
+                                 if k not in ("first_pos", "first_token")}}
     res["join"]["joiner_vs_solo"] = compare_streams([kern["join"][1][1]], [solo_req], LM_ATOL)
     res["join"]["joiners_at_ticks"] = [i for i, t in enumerate(kern["join"][0].lm_tick_stats)
                                        if i and t["joiners"]]
@@ -3603,7 +4031,7 @@ def lm_continuous_phase(model, phase: str, join: dict, seed: int, phase_launches
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = lm_continuous_check(model, join, seed, run_phase, phase, traffic)
-    phase_launches[phase] = res.pop("launches")
+    add_launches(phase_launches, phase, res.pop("launches"))
     for name in ("traffic", "join"):
         if name in res:
             log(f"{phase} {model.cfg.name} {name}: {res.pop(name)}")
@@ -3932,14 +4360,18 @@ def main(argv=None) -> int:
     del model
     torch.cuda.empty_cache()
 
+    # -- lm_moe, lm_encdec and lm_vlm: the remaining families, one at a time
+    families = family_phases(args, phase_launches)
+
     entries = kernel_phase(store, queries, batch, phase_launches, rows)
     for e in entries:
         if e["name"] in redesigned:
             e["ptxas"] = redesigned[e["name"]]
     entries += lm_kernel_rows(cfg, phase_launches, long_seq, args.seed, torch.device("cuda"),
-                              swa=(scfg, swa_seq), profile=args.profile)
+                              swa=(scfg, swa_seq), profile=args.profile,
+                              encdec=(get_config(ENCDEC_ARCH), families["lm_encdec"]))
 
-    # -- 22-25. tiered storage on the same table, the LMs freed
+    # -- 25-28. tiered storage on the same table, the LMs freed
     cpu_store = store.to("cpu")
     t0 = time.perf_counter()
     ti = tiered_check(store, cpu_store, queries, batch, {"cold": wall, "warm": warm_wall},
@@ -3970,7 +4402,7 @@ def main(argv=None) -> int:
     phase_launches["prefetch"] = pf.pop("launches")
     log(f"prefetch: {pf}; round 0 read 0 store blocks in both modes, async admissions == "
         f"sync; {time.perf_counter() - t0:.1f} s in all")
-    # -- 26. peer: the cooperative peer-memory tier over four in-process shards
+    # -- 29. peer: the cooperative peer-memory tier over four in-process shards
     t0 = time.perf_counter()
     pe = peer_check(table, store, cpu_store, queries, batch,
                     {"cold": ti["walls"]["tiered_cold"], "warm": ti["walls"]["tiered_warm"]},

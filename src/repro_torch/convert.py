@@ -79,9 +79,13 @@ def lm_params_from_reference(params_np: Mapping, cfg: ArchConfig,
     (``repro.models.init_params``'s dicts and lists, leaves handed over as
     numpy arrays).  ``params["cycles"]`` holds one dict per pattern position
     with leaves stacked ``[n_cycles, ...]``: cycle ``c``'s position ``i``
-    becomes layer ``c·len(pattern) + i``.  ``params["rest"]`` fills the
-    trailing partial cycle, ``params["shared_attn"]`` the shared block.
-    Every parameter of the model must be filled exactly once."""
+    becomes layer ``c·len(pattern) + i`` (a MoE sublayer's ``moe`` subtree
+    with it, ``[n_cycles, E, ...]``).  ``params["rest"]`` fills the
+    trailing partial cycle, ``params["shared_attn"]`` the shared block; an
+    encoder-decoder's ``params["encoder"]`` (stacked ``[enc_layers, ...]``)
+    fills ``model.encoder``, ``params["cross"]`` (stacked ``[num_layers,
+    ...]``) ``model.cross``.  Every parameter of the model must be filled
+    exactly once."""
     model = LM(cfg, device, torch.float32)
     filled: set[int] = set()
 
@@ -99,7 +103,8 @@ def lm_params_from_reference(params_np: Mapping, cfg: ArchConfig,
                 raise ValueError(f"{name} filled twice")
             filled.add(id(param))
 
-    top = {k: v for k, v in params_np.items() if k in ("embed", "final_norm", "lm_head")}
+    top = {k: v for k, v in params_np.items()
+           if k in ("embed", "final_norm", "lm_head", "enc_final_norm")}
     put(model, top)
     period = len(cfg.layer_pattern)
     n_cycles = cfg.num_layers // period
@@ -110,6 +115,10 @@ def lm_params_from_reference(params_np: Mapping, cfg: ArchConfig,
         put(model.layers[n_cycles * period + i], sub)
     if "shared_attn" in params_np:
         put(model.shared_attn, params_np["shared_attn"])
+    for name in ("encoder", "cross"):
+        if name in params_np:
+            for j, layer in enumerate(getattr(model, name)):
+                put(layer, params_np[name], j)
     missing = [n for n, p in model.named_parameters() if id(p) not in filled]
     if missing:
         raise ValueError(f"the reference tree left {missing} unfilled")

@@ -46,6 +46,8 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if cfg.family in ("encdec",):
+        raise SystemExit("serve launcher targets decoder-only archs")
     model = init_params(cfg, args.seed, device=args.device, dtype=torch.float32)
     eng = ServeEngine(cfg, model, max_slots=args.slots, max_seq=args.max_seq,
                       device=args.device)

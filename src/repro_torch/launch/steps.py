@@ -16,13 +16,19 @@ from repro_torch.models.lm import check_supported
 
 def make_prefill_step(cfg: ArchConfig, impl: str = "kernel", max_seq: int | None = None):
     """``prefill_step(model, batch) -> (last logits [B, V], cache)`` over
-    ``batch["tokens"]``; ``impl="kernel"`` runs kernels #8 and #9 on the
-    card."""
+    ``batch["tokens"]``, with ``batch["enc_frames"]`` for an
+    encoder-decoder and ``batch["patch_embeds"]`` for a VLM;
+    ``impl="kernel"`` runs kernels #8 and #9 on the card."""
     check_supported(cfg)
     check_impl(impl)
 
     def prefill_step(model, batch):
-        return D.prefill(model, batch["tokens"], impl=impl, max_seq=max_seq)
+        kw = {}
+        if cfg.family == "encdec":
+            kw["enc_frames"] = batch["enc_frames"]
+        if cfg.family == "vlm":
+            kw["patch_embeds"] = batch["patch_embeds"]
+        return D.prefill(model, batch["tokens"], impl=impl, max_seq=max_seq, **kw)
 
     return prefill_step
 

@@ -9,6 +9,11 @@ dict per layer, in pattern order (the reference stacks whole cycles):
   'A' shared attn : as 'G' (weights shared, caches per occurrence)
   'M' mamba2      : {conv: [B, cw-1, d_inner], ssd: [B, nh, ds, hd] f32}
 
+and, for an encoder-decoder, every layer's dict also holds its cross K/V
+``cross_k``, ``cross_v`` of ``[B, S_enc, Kv, hd]`` (the reference keeps
+them stacked apart, ``{'cross': {k, v} [n_dec, ...]}``); every leaf has the
+batch at axis 0, so the serving engine grafts rows of them as of any other.
+
 :func:`prefill` runs the forward pass while it fills the cache: attention
 through ``impl`` (kernel #8 on the card by default) and each Mamba
 sublayer through ``impl`` (kernel #9).  The reference's prefill runs its
@@ -20,10 +25,19 @@ SSD a second time for its final state (``repro/models/decode.py``); here
 returns it), so a prefill runs the projections once per layer and, on the
 card, no plain ``ssd_chunked``.  The caches hold the same values.
 
+The encoder and the cross-attention run on ``impl`` as well (#8 without the
+causal mask on the card), so does the MoE (plain tensor operations: the
+reference's MoE is an einsum dispatch, not a kernel).
+
 Decoding is plain PyTorch, as the reference's is outside Pallas: one token
 of attention over the cache (``xla_flash_attention`` with the cache's
 positions; a ring slot's absolute position is ``p − ((p − i) mod W)``, so
-RoPE and the window mask stay exact) and one step of the SSD recurrence.
+RoPE and the window mask stay exact), one step of the SSD recurrence, and
+an encoder-decoder's cross-attention over its cached K/V, as the
+reference's ``_cross_decode`` on its default path.  As in the reference,
+``decode_step`` attends cross only in the layers of whole pattern cycles,
+never in a trailing partial cycle, which ``prefill`` and ``forward`` do
+(whisper's pattern ``G`` has no such layer).
 Where JAX returns new arrays, :func:`decode_step` writes the new K/V row and
 the new Mamba state into ``cache`` in place and returns it: a copy of every
 layer's cache per token would cost the card as much time as the step
@@ -37,7 +51,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.lm import LM, attn_window, check_supported
+from repro_torch.models.lm import LM, attn_window, check_supported, cross_call, ffn
 
 Cache = list[dict[str, torch.Tensor]]
 
@@ -67,6 +81,10 @@ def init_cache(
                 "k": torch.zeros((batch, t, kv, hd), dtype=dtype, device=dev),
                 "v": torch.zeros((batch, t, kv, hd), dtype=dtype, device=dev),
             })
+    if cfg.family == "encdec":
+        for layer in cache:
+            for key in ("cross_k", "cross_v"):
+                layer[key] = torch.zeros((batch, cfg.enc_seq, kv, hd), dtype=dtype, device=dev)
     return cache
 
 
@@ -137,14 +155,16 @@ def _mamba_decode(x, p, cache: dict, cfg: ArchConfig) -> torch.Tensor:
     return torch.einsum("be,ed->bd", y * F.silu(z), p.w_out)[:, None, :]
 
 
-def _sub_decode(x, p, cache: dict, pos: int, cfg: ArchConfig, shared) -> torch.Tensor:
+def _sub_decode(x, p, cache: dict, pos: int, cfg: ArchConfig, shared,
+                cross=None) -> torch.Tensor:
     if p.ch == "M":
         return x + _mamba_decode(L.apply_norm(x, p.norm, cfg.norm), p.mamba, cache, cfg)
     ap = shared.attn if p.ch == "A" else p.attn
     x = x + _attn_decode(L.apply_norm(x, p.norm1, cfg.norm), ap, cache, pos, cfg,
                          windowed=(p.ch == "L"))
-    h = L.apply_norm(x, p.norm2, cfg.norm)
-    return x + L.mlp(h, shared.mlp if p.ch == "A" else p.mlp, cfg.act)
+    if cross is not None:
+        x = x + cross(x)
+    return x + ffn(L.apply_norm(x, p.norm2, cfg.norm), p, cfg, shared)
 
 
 def decode_step(
@@ -156,8 +176,13 @@ def decode_step(
     cfg = model.cfg
     pos = int(pos)
     h = model.embed_tokens(tokens)[:, None, :]
-    for layer, c in zip(model.layers, cache):
-        h = _sub_decode(h, layer, c, pos, cfg, model.shared_attn)
+    # the reference's decode attends cross in the scanned cycles only
+    cycled = cfg.num_layers // len(cfg.layer_pattern) * len(cfg.layer_pattern)
+    for i, (layer, c) in enumerate(zip(model.layers, cache)):
+        cross = None
+        if cfg.family == "encdec" and i < cycled:
+            cross = cross_call(model, (c["cross_k"], c["cross_v"]), i, layer.ch, "plain")
+        h = _sub_decode(h, layer, c, pos, cfg, model.shared_attn, cross)
     h = L.apply_norm(h, model.final_norm, cfg.norm)
     logits = torch.einsum("bsd,dv->bsv", h, model.head())[:, 0, : cfg.vocab]
     return logits, cache
@@ -168,12 +193,16 @@ def prefill(
     tokens: torch.Tensor,  # [B, S]
     impl: str = "kernel",
     max_seq: int | None = None,  # cache capacity (>= S; default S)
+    enc_frames=None,  # [B, S_enc, D] (encoder-decoder)
+    patch_embeds=None,  # [B, P, D] (VLM prefix)
 ) -> tuple[torch.Tensor, Cache]:
     """Full-sequence prefill: returns ``(last-token logits [B, vocab],
     filled cache)``.  ``G``/``A`` caches are padded to ``max_seq``; an
     ``L`` cache is a ring of ``W = min(window, max_seq)`` slots: the last
     ``W`` positions, position ``p`` in slot ``p % W``, when the prompt is
-    longer, else the prompt padded to ``W``."""
+    longer, else the prompt padded to ``W``.  An encoder-decoder runs its
+    encoder on ``enc_frames`` and keeps each layer's cross K/V; a VLM's
+    ``patch_embeds`` replace the first token embeddings."""
     L.check_impl(impl)
     cfg = model.cfg
     b, s = tokens.shape
@@ -181,10 +210,11 @@ def prefill(
     if max_seq < s:
         raise ValueError(f"max_seq={max_seq} is shorter than the prompt ({s})")
     shared = model.shared_attn
-    h = model.embed_tokens(tokens)
+    h = model.embed_inputs(tokens, patch_embeds)
+    kv = model.cross_kv(enc_frames, impl)
     positions = torch.arange(s, device=h.device).expand(b, s)
     cache: Cache = []
-    for p in model.layers:
+    for i, p in enumerate(model.layers):
         if p.ch == "M":
             out, state = L.mamba_block(L.apply_norm(h, p.norm, cfg.norm), p.mamba, cfg, impl,
                                        return_state=True)
@@ -196,8 +226,10 @@ def prefill(
         o, (k, v) = L.attention(hh, ap, cfg, causal=True, window=attn_window(p.ch, cfg),
                                 positions=positions, impl=impl, return_kv=True)
         h = h + o
-        hh = L.apply_norm(h, p.norm2, cfg.norm)
-        h = h + L.mlp(hh, shared.mlp if p.ch == "A" else p.mlp, cfg.act)
+        cross = cross_call(model, kv and kv[i], i, p.ch, impl)
+        if cross is not None:
+            h = h + cross(h)
+        h = h + ffn(L.apply_norm(h, p.norm2, cfg.norm), p, cfg, shared)
         t = _ring_len(p.ch, cfg, max_seq)
         if t < s:  # the ring: slot(i) = i % t for i in [s − t, s)
             shift = (s - t) % t
@@ -207,6 +239,9 @@ def prefill(
             k = F.pad(k, (0, 0, 0, 0, 0, t - s))
             v = F.pad(v, (0, 0, 0, 0, 0, t - s))
         cache.append({"k": k, "v": v})
+    if kv is not None:
+        for layer, (ck, cv) in zip(cache, kv):
+            layer["cross_k"], layer["cross_v"] = ck, cv
     h = L.apply_norm(h, model.final_norm, cfg.norm)
     logits = torch.einsum("bd,dv->bv", h[:, -1], model.head())[:, : cfg.vocab]
     return logits, cache

@@ -1,12 +1,11 @@
-"""Model layers: norms, RoPE, GQA attention, SwiGLU/GELU MLP and Mamba2
-(chunked SSD), as functions over parameter modules.
+"""Model layers: norms, RoPE, GQA attention, SwiGLU/GELU MLP, the einsum MoE
+and Mamba2 (chunked SSD), as functions over parameter modules.
 
 Counterpart of ``repro/models/layers.py``, with the reference's layouts
 (``[B, S, H, hd]`` inside attention, ``[B, H, S, ·]`` inside the SSD) and
 parameter names, so the tests compare like with like.  ``MeshRules`` /
 ``cs`` are the reference's sharding constraints: on one device they are
-no-ops and are left out here (the multi-GPU slice brings them); so is the
-MoE layer (its own slice).
+no-ops and are left out here (the multi-GPU slice brings them).
 
 ``impl`` selects the kernels, as the reference's ``impl`` does:
 
@@ -173,7 +172,7 @@ def attention(
 
 
 # ----------------------------------------------------------------------------
-# MLP
+# MLP / MoE
 # ----------------------------------------------------------------------------
 
 
@@ -185,6 +184,53 @@ def mlp(x: torch.Tensor, p, act: str) -> torch.Tensor:
     else:  # plain 2-matrix MLP (GELU archs)
         hidden = activation(torch.einsum("bsd,df->bsf", x, p.w_in), act)
     return torch.einsum("bsf,fd->bsd", hidden, p.w_down)
+
+
+def router_probs(x: torch.Tensor, p) -> torch.Tensor:
+    """The MoE router's softmax ``[B, S, E]`` in f32 (``p.router`` is f32
+    whatever the model's dtype; the reference's einsum promotes ``x``)."""
+    logits = torch.einsum("bsd,de->bse", x.to(p.router.dtype), p.router).to(torch.float32)
+    return torch.softmax(logits, dim=-1)
+
+
+def router_top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(values, indices)`` of the ``k`` largest probabilities, largest
+    first, a tie in the lower expert index first (``jax.lax.top_k``'s order):
+    a stable descending sort, whose tie order is defined, where
+    ``torch.topk``'s is not."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe(x: torch.Tensor, p, cfg) -> torch.Tensor:
+    """Capacity-bounded einsum MoE in ``top_k`` top-1 rounds (the reference's
+    ``layers.moe``).  Groups are sequences: a round's capacity is ``C1 =
+    max(int(S / E · cf), 4)`` tokens an expert in each row, taken in order
+    along S by an integer cumsum (padding tokens take capacity in their row,
+    as in the reference), so a drop is exact.  The dispatch one-hot is
+    ``[B, S, E, C1]``; the combine adds in f32 and casts once at the end."""
+    mc = cfg.moe
+    b, s, d = x.shape
+    e, k_rounds = mc.num_experts, mc.top_k
+    c1 = max(int(s / e * mc.capacity_factor), 4)
+    topv, topi = router_top_k(router_probs(x, p), k_rounds)  # [B, S, K]
+    topv = topv / torch.clamp(torch.sum(topv, dim=-1, keepdim=True), min=1e-9)
+    slots = torch.arange(c1, device=x.device)
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for r in range(k_rounds):
+        onehot_i = F.one_hot(topi[..., r], e)  # [B, S, E] int64
+        pos = torch.cumsum(onehot_i, dim=1) - onehot_i  # position in expert, an integer
+        keep = ((pos < c1) & (onehot_i > 0)).to(x.dtype)
+        # dispatch one-hot [B, S, E, C1]; a position past C1 has no slot, as
+        # jax.nn.one_hot gives zeros where F.one_hot would raise
+        disp = keep[..., None] * (pos[..., None] == slots).to(x.dtype)
+        xe = torch.einsum("bsec,bsd->becd", disp, x)  # [B, E, C1, D]
+        hg = activation(torch.einsum("becd,edf->becf", xe, p.w_gate), cfg.act)
+        hu = torch.einsum("becd,edf->becf", xe, p.w_up)
+        ye = torch.einsum("becf,efd->becd", hg * hu, p.w_down)
+        w = topv[..., r][..., None] * keep  # [B, S, E] f32
+        out = out + torch.einsum("bsec,becd->bsd", w[..., None] * disp, ye.to(torch.float32))
+    return out.to(x.dtype)
 
 
 # ----------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""Decoder-only LMs: dense (``G`` global, ``L`` sliding-window attention),
-Mamba2 (``M``) and the zamba2 hybrid (``M`` with the shared attention block
-``A``).
+"""LMs: dense (``G`` global, ``L`` sliding-window attention), MoE, Mamba2
+(``M``), the zamba2 hybrid (``M`` with the shared attention block ``A``),
+the VLM prefix and the whisper-style encoder-decoder.
 
 Counterpart of ``repro/models/lm.py``.  :class:`LM` holds one module per
 layer in pattern order (the reference stacks whole cycles and scans them;
@@ -12,18 +12,25 @@ Parameter names and layouts are the reference's, so
 ``repro_torch.convert.lm_params_from_reference`` carries a reference
 parameter tree across one to one.
 
-The port supports the ``G``, ``L``, ``A`` and ``M`` patterns of the dense,
-ssm and hybrid families (qwen1.5-4b, yi-9b, gemma3-12b, h2o-danube-3-4b,
-mamba2-130m, zamba2-7b).  An ``L`` layer is a ``G`` layer whose attention
-sees only the last ``cfg.attn_window`` positions (in decoding, through a ring
-cache: ``models/decode.py``).  MoE, encoder-decoder and VLM families raise
-``NotImplementedError`` naming their later slice.
+Every family of ``configs/`` builds: dense, ssm and hybrid (qwen1.5-4b,
+yi-9b, gemma3-12b, h2o-danube-3-4b, mamba2-130m, zamba2-7b); MoE
+(qwen3-moe-235b-a22b, grok-1-314b: a ``G``/``L`` sublayer holds ``moe`` in
+place of ``mlp``); the VLM (phi-3-vision-4.2b: ``patch_embeds [B, P, D]``
+from a stub frontend replace the first P token embeddings); the
+encoder-decoder (whisper-tiny: ``enc_frames [B, enc_seq, D]`` from a stub
+frontend through :func:`encode`, then a cross-attention between each
+decoder sublayer's self-attention and its FFN).  An ``L`` layer is a ``G``
+layer whose attention sees only the last ``cfg.attn_window`` positions (in
+decoding, through a ring cache: ``models/decode.py``).
 
 ``impl`` is as in :mod:`repro_torch.models.layers`: ``"kernel"`` (the
-default) runs attention and the SSD through the hand-written kernels on the
+default) runs attention (the encoder's and the cross-attention too,
+without a causal mask) and the SSD through the hand-written kernels on the
 card, ``"plain"`` through the reference's pure-tensor forms.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch import nn
@@ -34,15 +41,8 @@ from repro_torch.models import layers as L
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not carry."""
-    later = {
-        "moe": "MoE layers arrive with the MoE slice",
-        "encdec": "encoder-decoder models arrive with the enc-dec slice",
-        "vlm": "VLM prefixes arrive with the VLM slice",
-    }
-    if cfg.family in later or cfg.moe is not None:
-        why = later.get(cfg.family, later["moe"])
-        raise NotImplementedError(f"{cfg.name}: {why} of the LM substrate (ROADMAP Queue 1)")
+    """Raise ``NotImplementedError`` for a layer pattern the port has no
+    sublayer for (``G``, ``L``, ``A`` and ``M`` are carried)."""
     bad = set(cfg.layer_pattern) - set("GLAM")
     if bad:
         raise NotImplementedError(f"{cfg.name}: layer pattern chars {sorted(bad)}")
@@ -86,6 +86,21 @@ class MLP(nn.Module):
         self.w_down = _param((f, d), device, dtype)
 
 
+class MoE(nn.Module):
+    """The reference's MoE parameters: ``router [D, E]`` in f32 whatever the
+    model's dtype (as ``a_log``), experts ``w_gate``, ``w_up [E, D, F]``
+    and ``w_down [E, F, D]``."""
+
+    def __init__(self, cfg: ArchConfig, device, dtype):
+        super().__init__()
+        d, mc = cfg.d_model, cfg.moe
+        e, f = mc.num_experts, mc.moe_dff
+        self.router = _param((d, e), device, torch.float32)
+        self.w_gate = _param((e, d, f), device, dtype)
+        self.w_up = _param((e, d, f), device, dtype)
+        self.w_down = _param((e, f, d), device, dtype)
+
+
 class Mamba(nn.Module):
     def __init__(self, cfg: ArchConfig, device, dtype):
         super().__init__()
@@ -106,7 +121,8 @@ class Mamba(nn.Module):
 class Sublayer(nn.Module):
     """One pattern position: ``M`` {norm, mamba}; ``A`` {norm1, norm2} (its
     attention and MLP are the model's ``shared_attn``); ``G`` and ``L``
-    {norm1, norm2, attn, mlp}."""
+    {norm1, norm2, attn, mlp}, or {norm1, norm2, attn, moe} when
+    ``cfg.moe``."""
 
     def __init__(self, ch: str, cfg: ArchConfig, device, dtype):
         super().__init__()
@@ -119,7 +135,21 @@ class Sublayer(nn.Module):
         self.norm2 = Norm(cfg, device, dtype)
         if ch in "GL":
             self.attn = Attention(cfg, device, dtype)
-            self.mlp = MLP(cfg, device, dtype)
+            if cfg.moe:
+                self.moe = MoE(cfg, device, dtype)
+            else:
+                self.mlp = MLP(cfg, device, dtype)
+
+
+class CrossAttention(nn.Module):
+    """A decoder layer's cross-attention over the encoder's output: ``norm``
+    and ``attn`` (its ``wk``/``wv`` project the encoder output once, in
+    :func:`project_cross_kv`)."""
+
+    def __init__(self, cfg: ArchConfig, device, dtype):
+        super().__init__()
+        self.norm = Norm(cfg, device, dtype)
+        self.attn = Attention(cfg, device, dtype)
 
 
 class SharedAttention(nn.Module):
@@ -130,8 +160,11 @@ class SharedAttention(nn.Module):
 
 
 class LM(nn.Module):
-    """A decoder-only LM with uninitialised parameters on ``device``; build
-    one with :func:`init_params` or ``convert.lm_params_from_reference``."""
+    """An LM with uninitialised parameters on ``device``; build one with
+    :func:`init_params` or ``convert.lm_params_from_reference``.  An
+    encoder-decoder also holds ``encoder`` (``enc_layers`` ``G`` sublayers
+    of the config without MoE), ``enc_final_norm`` and ``cross`` (one
+    :class:`CrossAttention` per decoder layer)."""
 
     def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda",
                  dtype: torch.dtype = torch.float32):
@@ -146,6 +179,13 @@ class LM(nn.Module):
         self.final_norm = Norm(cfg, dev, dtype)
         self.lm_head = None if cfg.tie_embeddings else _param((cfg.d_model, cfg.vocab_padded),
                                                                dev, dtype)
+        if cfg.family == "encdec":  # the encoder: G sublayers without MoE, as the reference
+            enc_cfg = dataclasses.replace(cfg, moe=None, layer_pattern="G")
+            self.encoder = nn.ModuleList(Sublayer("G", enc_cfg, dev, dtype)
+                                         for _ in range(cfg.enc_layers))
+            self.enc_final_norm = Norm(cfg, dev, dtype)
+            self.cross = nn.ModuleList(CrossAttention(cfg, dev, dtype)
+                                       for _ in range(cfg.num_layers))
 
     @property
     def device(self) -> torch.device:
@@ -158,25 +198,105 @@ class LM(nn.Module):
         idx = torch.as_tensor(tokens, device=self.device).long()
         return self.embed[idx] * (self.cfg.d_model**0.5)
 
-    def forward(self, tokens: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
-        """``tokens [B, S]`` -> logits ``[B, S, vocab]``."""
+    def embed_inputs(self, tokens: torch.Tensor, patch_embeds=None) -> torch.Tensor:
+        """Token embeddings ``[B, S, D]``; with ``patch_embeds [B, P, D]`` the
+        first P positions are the patches (``cat([patches, h[:, P:]])``, as
+        the reference: a prompt shorter than P comes out P long)."""
         h = self.embed_tokens(tokens)
-        for layer in self.layers:
-            h = block(h, layer, self.cfg, self.shared_attn, impl)
+        if patch_embeds is not None:
+            pe = torch.as_tensor(patch_embeds, device=self.device).to(h.dtype)
+            h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
+        return h
+
+    def cross_kv(self, enc_frames, impl: str) -> list | None:
+        """Per decoder layer, the encoder output's cross ``(k, v)``; ``None``
+        unless an encoder-decoder."""
+        if self.cfg.family != "encdec":
+            return None
+        if enc_frames is None:
+            raise ValueError(f"{self.cfg.name}: an encoder-decoder takes enc_frames [B, S_enc, D]")
+        frames = torch.as_tensor(enc_frames, device=self.device).to(self.embed.dtype)
+        return project_cross_kv(self.cross, encode(self, frames, impl))
+
+    def forward(self, tokens: torch.Tensor, impl: str = "kernel", enc_frames=None,
+                patch_embeds=None) -> torch.Tensor:
+        """``tokens [B, S]`` -> logits ``[B, S, vocab]``; an encoder-decoder
+        takes ``enc_frames``, a VLM may take ``patch_embeds``."""
+        h = self.embed_inputs(tokens, patch_embeds)
+        kv = self.cross_kv(enc_frames, impl)
+        for i, layer in enumerate(self.layers):
+            cross = cross_call(self, kv and kv[i], i, layer.ch, impl)
+            h = block(h, layer, self.cfg, self.shared_attn, impl, cross)
         h = L.apply_norm(h, self.final_norm, self.cfg.norm)
         logits = torch.einsum("bsd,dv->bsv", h, self.head())
         return logits[..., : self.cfg.vocab]
 
 
-def block(x: torch.Tensor, p: Sublayer, cfg: ArchConfig, shared, impl: str) -> torch.Tensor:
-    """One pattern sublayer (the reference's ``lm._block``)."""
+def block(x: torch.Tensor, p: Sublayer, cfg: ArchConfig, shared, impl: str,
+          cross=None) -> torch.Tensor:
+    """One pattern sublayer (the reference's ``lm._block``).  ``cross``
+    (optional) is a residual cross-attention applied between
+    self-attention and the FFN (decoder order)."""
     if p.ch == "M":
         return x + L.mamba_block(L.apply_norm(x, p.norm, cfg.norm), p.mamba, cfg, impl)
     ap = shared.attn if p.ch == "A" else p.attn
     h = L.apply_norm(x, p.norm1, cfg.norm)
     x = x + L.attention(h, ap, cfg, causal=True, window=attn_window(p.ch, cfg), impl=impl)
-    h = L.apply_norm(x, p.norm2, cfg.norm)
-    return x + L.mlp(h, shared.mlp if p.ch == "A" else p.mlp, cfg.act)
+    if cross is not None:
+        x = x + cross(x)
+    return x + ffn(L.apply_norm(x, p.norm2, cfg.norm), p, cfg, shared)
+
+
+def ffn(h: torch.Tensor, p: Sublayer, cfg: ArchConfig, shared) -> torch.Tensor:
+    """A sublayer's feed-forward: the shared block's MLP for ``A``, the MoE
+    when ``cfg.moe``, else its own MLP."""
+    if p.ch == "A":
+        return L.mlp(h, shared.mlp, cfg.act)
+    if cfg.moe:
+        return L.moe(h, p.moe, cfg)
+    return L.mlp(h, p.mlp, cfg.act)
+
+
+def cross_call(model: LM, kv_row, row: int, ch: str, impl: str):
+    """The residual cross-attention of decoder layer ``row`` over its
+    encoder ``kv_row = (k, v)`` (``G`` and ``L`` sublayers only), or
+    ``None``."""
+    if kv_row is None or ch not in "GL":
+        return None
+    cp, cfg = model.cross[row], model.cfg
+
+    def cross(x):
+        return L.attention(L.apply_norm(x, cp.norm, cfg.norm), cp.attn, cfg, causal=False,
+                           window=None, kv=kv_row, impl=impl)
+    return cross
+
+
+def encode(model: LM, frames: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
+    """Whisper-style encoder over stub frame embeddings ``[B, S_enc, D]``
+    (the reference's ``lm.encode``): sinusoidal positions added, then the
+    ``G`` sublayers with bidirectional attention (#8 without the causal
+    mask under ``impl="kernel"``), then ``enc_final_norm``.  As in the
+    reference, the attention also ropes q and k (``attention`` ropes
+    whenever it projects its own K/V)."""
+    cfg = model.cfg
+    s, d = frames.shape[1], frames.shape[2]
+    dev = frames.device
+    half = torch.arange(d // 2, dtype=torch.float32, device=dev) / (d // 2)
+    pos = torch.arange(s, dtype=torch.float32, device=dev)[:, None] / (10_000 ** half)[None, :]
+    pe = torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1).to(frames.dtype)
+    h = frames + pe[None]
+    for p in model.encoder:
+        hh = L.apply_norm(h, p.norm1, cfg.norm)
+        h = h + L.attention(hh, p.attn, cfg, causal=False, window=None, impl=impl)
+        h = h + L.mlp(L.apply_norm(h, p.norm2, cfg.norm), p.mlp, cfg.act)
+    return L.apply_norm(h, model.enc_final_norm, cfg.norm)
+
+
+def project_cross_kv(cross, enc_out: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Per decoder layer, ``(k, v) [B, S_enc, Kv, hd]`` from the encoder
+    output: neither roped nor biased (the reference's ``_project_cross_kv``)."""
+    return [(torch.einsum("bsd,dhq->bshq", enc_out, cp.attn.wk),
+             torch.einsum("bsd,dhq->bshq", enc_out, cp.attn.wv)) for cp in cross]
 
 
 def attn_window(ch: str, cfg: ArchConfig) -> int | None:
@@ -185,9 +305,10 @@ def attn_window(ch: str, cfg: ArchConfig) -> int | None:
     return cfg.attn_window if ch == "L" else None
 
 
-def forward(model: LM, tokens: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
+def forward(model: LM, tokens: torch.Tensor, impl: str = "kernel", enc_frames=None,
+            patch_embeds=None) -> torch.Tensor:
     """Returns logits ``[B, S, vocab]`` (the reference's ``lm.forward``)."""
-    return model(tokens, impl=impl)
+    return model(tokens, impl=impl, enc_frames=enc_frames, patch_embeds=patch_embeds)
 
 
 # ----------------------------------------------------------------------------
@@ -227,6 +348,28 @@ def _init_mlp(p: MLP, g) -> None:
             _dense_(getattr(p, name), g)
 
 
+def _init_moe(p: MoE, cfg: ArchConfig, g) -> None:
+    _dense_(p.router, g)  # fan-in, f32
+    _dense_(p.w_gate, g, scale=cfg.d_model**-0.5)
+    _dense_(p.w_up, g, scale=cfg.d_model**-0.5)
+    _dense_(p.w_down, g, scale=cfg.moe.moe_dff**-0.5)
+
+
+def _init_sublayer(layer: Sublayer, cfg: ArchConfig, g) -> None:
+    if layer.ch == "M":
+        _init_norm(layer.norm)
+        _init_mamba(layer.mamba, cfg, g)
+        return
+    _init_norm(layer.norm1)
+    _init_norm(layer.norm2)
+    if layer.ch in "GL":
+        _init_attn(layer.attn, cfg, g)
+        if hasattr(layer, "moe"):
+            _init_moe(layer.moe, cfg, g)
+        else:
+            _init_mlp(layer.mlp, g)
+
+
 def _init_mamba(p: Mamba, cfg: ArchConfig, g) -> None:
     for name in ("w_z", "w_x", "w_B", "w_C", "w_dt"):
         _dense_(getattr(p, name), g)
@@ -248,7 +391,10 @@ def init_params(
     (``repro/models/lm.py:34-125``): fan-in-scaled normals, ``wo`` at
     ``(h·hd)^-0.5``, the embedding at ``d^-0.5``, ``conv_w`` at 0.5,
     ``w_out`` at ``d_inner^-0.5``, ``dt_bias`` −2, ``a_log`` 0, ``d_skip``
-    0, norms at 1 (bias 0), QKV biases 0.  Every tensor is drawn on
+    0, norms at 1 (bias 0), QKV biases 0; MoE experts ``w_gate`` and
+    ``w_up`` at ``d^-0.5``, ``w_down`` at ``moe_dff^-0.5``, the f32 router
+    at fan-in; the encoder's sublayers and each decoder layer's
+    cross-attention as a ``G`` sublayer's.  Every tensor is drawn on
     ``device`` (a full-width model never passes through host memory) from
     ``generator``, or from a generator on the device seeded with the given
     int.  The draws are not JAX's: the tests carry the reference's
@@ -262,16 +408,15 @@ def init_params(
         _dense_(model.lm_head, g)
     _init_norm(model.final_norm)
     for layer in model.layers:
-        if layer.ch == "M":
-            _init_norm(layer.norm)
-            _init_mamba(layer.mamba, cfg, g)
-            continue
-        _init_norm(layer.norm1)
-        _init_norm(layer.norm2)
-        if layer.ch in "GL":
-            _init_attn(layer.attn, cfg, g)
-            _init_mlp(layer.mlp, g)
+        _init_sublayer(layer, cfg, g)
     if model.shared_attn is not None:
         _init_attn(model.shared_attn.attn, cfg, g)
         _init_mlp(model.shared_attn.mlp, g)
+    if cfg.family == "encdec":
+        for layer in model.encoder:
+            _init_sublayer(layer, cfg, g)
+        _init_norm(model.enc_final_norm)
+        for cp in model.cross:
+            _init_norm(cp.norm)
+            _init_attn(cp.attn, cfg, g)
     return model

@@ -627,6 +627,15 @@ def test_sharded_bisection_and_wave_launch_counts(cuda, tmp_path):
         # zamba2-7b's heads (32 of 112) decoding one query, and a prompt of one
         (4, 32, 32, 1, 1895, True, None, 112, torch.float32),
         (4, 32, 32, 1, 1, True, None, 112, torch.float32),
+        # without the causal mask (an encoder, a cross-attention): S = T,
+        # S < T and S > T, each GQA, at head dims across the designs
+        *[(b, hq, 2, s, t, False, None, d, torch.float32)
+          for b, hq, s, t in ((2, 4, 200, 200), (1, 4, 130, 300), (1, 6, 300, 130))
+          for d in (1, 64, 129, 256, 300)],
+        (1, 4, 2, 130, 300, False, None, 64, torch.bfloat16),
+        # whisper-tiny's encoder (S = T = 1,500) and a cross-attention over it
+        (4, 6, 6, 1500, 1500, False, None, 64, torch.float32),
+        (4, 6, 6, 23, 1500, False, None, 64, torch.float32),
     ],
 )
 def test_flash_attention_kernel_against_plain(cuda, b, hq, hkv, s, t, causal, win, d, dtype):
@@ -785,6 +794,54 @@ def test_reduced_lm_on_the_card_runs_the_kernels(cuda, arch, monkeypatch):
         torch.testing.assert_close(last, logits[:, 198], atol=2e-3, rtol=2e-3)
         lg, _ = decode_step(model, cache, toks[:, 199], 199)
         torch.testing.assert_close(lg, logits[:, 199], atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "whisper-tiny", "phi-3-vision-4.2b"])
+def test_reduced_families_on_the_card_run_the_kernels(cuda, arch):
+    """A reduced MoE, encoder-decoder and VLM: the forward launches #8 once
+    per attention sublayer (an encoder-decoder also once per encoder layer
+    and per cross-attention, without the causal mask) and equals
+    ``impl="plain"``; prefill through the step function equals the plain
+    prefill, cross K/V included, and a decode step follows the forward."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config(arch))
+    model = init_params(cfg, 0, device=cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40))).to(cuda)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["enc_frames"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.enc_seq, cfg.d_model)).astype(np.float32) * 0.02).to(cuda)
+    if cfg.family == "vlm":
+        kw["patch_embeds"] = torch.from_numpy(
+            rng.standard_normal((2, cfg.num_patches, cfg.d_model)).astype(np.float32) * 0.02
+        ).to(cuda)
+    attn = cfg.num_layers + (cfg.enc_layers + cfg.num_layers if cfg.family == "encdec" else 0)
+    with torch.inference_mode():
+        _lib.reset_launches()
+        logits = model(toks, **kw)
+        torch.cuda.synchronize()
+        assert _lib.LAUNCHES["flash_attention"] == attn
+        torch.testing.assert_close(logits, model(toks, impl="plain", **kw), atol=2e-3, rtol=2e-3)
+        batch = {"tokens": toks[:, :39], **kw}
+        last, cache = make_prefill_step(cfg, max_seq=40)(model, batch)
+        last_p, cache_p = make_prefill_step(cfg, "plain", max_seq=40)(model, batch)
+        torch.testing.assert_close(last, last_p, atol=2e-3, rtol=2e-3)
+        for a, b in zip(cache, cache_p):
+            assert set(a) == ({"k", "v", "cross_k", "cross_v"} if kw.get("enc_frames") is not None
+                              else {"k", "v"})
+            for key in a:
+                torch.testing.assert_close(a[key], b[key], atol=2e-3, rtol=2e-3)
+        if not cfg.moe:  # a MoE decode step routes its token alone (no capacity drop)
+            torch.testing.assert_close(last, logits[:, 38], atol=2e-3, rtol=2e-3)
+            lg, _ = make_decode_step(cfg)(model, cache, toks[:, 39], 39)
+            torch.testing.assert_close(lg, logits[:, 39], atol=2e-3, rtol=2e-3)
 
 
 def test_gemma3_one_cycle_at_full_width_on_the_card(cuda):

@@ -3,10 +3,13 @@
 Reduced zamba2-7b (hybrid: Mamba2 + the shared attention block), mamba2-130m
 (ssm), yi-9b (dense GQA), qwen1.5-4b (dense, QKV bias), gemma3-12b (``LLLLLG``
 sliding-window and global layers) and h2o-danube-3-4b (all ``L``), both with
-the window cut to 16, and a narrow gemma3 at its own head dim of 240
-(``gemma3-12b@d240``), are built by the reference's ``init_params`` from one
-key and carried across with ``convert.lm_params_from_reference``, so both
-packages compute the same function.  At S = 24 > 16 the ``L`` layers' ring
+the window cut to 16, a narrow gemma3 at its own head dim of 240
+(``gemma3-12b@d240``), qwen3-moe-235b-a22b and grok-1-314b (MoE, capacity
+factor 1.25: capacity drops happen), whisper-tiny (encoder-decoder, seeded
+frames) and phi-3-vision-4.2b (VLM, seeded patches), are built by the
+reference's ``init_params`` from one key and carried across with
+``convert.lm_params_from_reference``, so both packages compute the same
+function on the same numpy inputs.  At S = 24 > 16 the ``L`` layers' ring
 caches hold the last 16 positions, arranged by prefill and compared slot for
 slot; the decode step writes slot 24 % 16.  ``forward`` logits, ``prefill`` last-token logits and caches and
 one ``decode_step`` are held against the reference's at atol = rtol = 1e-4
@@ -27,7 +30,6 @@ from repro.configs import get_config, list_archs, reduced
 from repro.models import decode_step, forward, init_params, prefill
 from repro_torch import configs as tconfigs
 from repro_torch.convert import lm_params_from_reference
-from repro_torch.models import LM
 from repro_torch.models import decode_step as tdecode
 from repro_torch.models import forward as tforward
 from repro_torch.models import init_cache as tinit_cache
@@ -35,7 +37,8 @@ from repro_torch.models import init_params as tinit_params
 from repro_torch.models import prefill as tprefill
 
 ARCHS = ["zamba2-7b", "mamba2-130m", "yi-9b", "qwen1.5-4b", "gemma3-12b", "h2o-danube-3-4b",
-         "gemma3-12b@d240"]
+         "gemma3-12b@d240", "qwen3-moe-235b-a22b", "grok-1-314b", "whisper-tiny",
+         "phi-3-vision-4.2b"]
 TOL = 1e-4
 B, S = 2, 24
 # gemma3's head dim (3840 / 16 = 240) on a narrow model: 2 heads, 1 kv head,
@@ -54,32 +57,59 @@ def configs(arch: str):
     return cfg, tcfg
 
 
+def frontend_inputs(cfg, rng, b: int) -> dict:
+    """The stub frontends' inputs, numpy from ``rng``: ``enc_frames [B,
+    enc_seq, D]`` for an encoder-decoder, ``patch_embeds [B, num_patches,
+    D]`` for a VLM, both at the 0.02 scale of ``tests/test_models.py``."""
+    kw = {}
+    if cfg.family == "encdec":
+        kw["enc_frames"] = rng.standard_normal((b, cfg.enc_seq, cfg.d_model)) * 0.02
+    if cfg.family == "vlm":
+        kw["patch_embeds"] = rng.standard_normal((b, cfg.num_patches, cfg.d_model)) * 0.02
+    return {k: v.astype(np.float32) for k, v in kw.items()}
+
+
 class Case:
-    """The reference's outputs on one reduced arch, computed once."""
+    """The reference's outputs on one reduced arch, computed once.  ``kw``
+    holds the frontend inputs as numpy (``jkw`` as JAX arrays, ``tkw`` as
+    tensors): the same arrays go to both packages."""
 
     def __init__(self, arch: str):
         self.cfg, self.tcfg = configs(arch)
         self.params = init_params(self.cfg, jax.random.PRNGKey(0))
         self.model = lm_params_from_reference(jax.tree.map(np.asarray, self.params), self.tcfg,
                                               device="cpu")
+        # a MoE decode step routes one token alone, where the forward's S + 1
+        # tokens share each expert's capacity: the own-consistency check runs
+        # at capacity factor 8, as tests/test_models.py:61-69 does
+        self.own_model = self.model
+        if self.cfg.moe:
+            cf8 = dataclasses.replace(self.tcfg, moe=dataclasses.replace(self.tcfg.moe,
+                                                                         capacity_factor=8.0))
+            self.own_model = lm_params_from_reference(jax.tree.map(np.asarray, self.params), cf8,
+                                                      device="cpu")
         rng = np.random.default_rng(0)
         self.toks = rng.integers(0, self.cfg.vocab, (B, S + 1)).astype(np.int32)
-        self.ref_logits = np.asarray(forward(self.params, jnp.asarray(self.toks), self.cfg))
+        self.kw = frontend_inputs(self.cfg, rng, B)
+        self.jkw = {k: jnp.asarray(v) for k, v in self.kw.items()}
+        self.tkw = {k: torch.from_numpy(v) for k, v in self.kw.items()}
+        self.ref_logits = np.asarray(forward(self.params, jnp.asarray(self.toks), self.cfg,
+                                             **self.jkw))
         self.ref_last, self.ref_cache = prefill(self.params, jnp.asarray(self.toks[:, :S]),
-                                                self.cfg, max_seq=S + 1)
+                                                self.cfg, max_seq=S + 1, **self.jkw)
         lg, _ = decode_step(self.params, self.ref_cache, jnp.asarray(self.toks[:, S]),
                             jnp.int32(S), self.cfg)
         self.ref_decode = np.asarray(lg)
 
     def ref_cache_layer(self, i: int) -> dict:
-        """Layer ``i`` of the reference's stacked cache, as numpy."""
-        period = len(self.cfg.layer_pattern)
-        n_cycles = self.cfg.num_layers // period
-        if i < n_cycles * period:
-            sub = self.ref_cache["cycles"][i % period]
-            return {k: np.asarray(v[i // period]) for k, v in sub.items()}
-        sub = self.ref_cache["rest"][i - n_cycles * period]
-        return {k: np.asarray(v[0]) for k, v in sub.items()}
+        """Layer ``i`` of the reference's stacked cache, as numpy, with its
+        row of the cross K/V (``cross_k``, ``cross_v``) for an
+        encoder-decoder."""
+        out = _ref_layer(self.ref_cache, self.cfg, i)
+        if "cross" in self.ref_cache:
+            out.update(cross_k=np.asarray(self.ref_cache["cross"]["k"][i]),
+                       cross_v=np.asarray(self.ref_cache["cross"]["v"][i]))
+        return out
 
 
 _CASES: dict = {}
@@ -111,14 +141,15 @@ def test_config_copies_equal_the_reference(arch):
 
 def test_forward_matches_reference(case):
     with torch.inference_mode():
-        mine = tforward(case.model, torch.from_numpy(case.toks))
+        mine = tforward(case.model, torch.from_numpy(case.toks), **case.tkw)
     assert tuple(mine.shape) == (B, S + 1, case.cfg.vocab)
     _close(mine, case.ref_logits)
 
 
 def test_prefill_logits_and_caches_match_reference(case):
     with torch.inference_mode():
-        last, cache = tprefill(case.model, torch.from_numpy(case.toks[:, :S]), max_seq=S + 1)
+        last, cache = tprefill(case.model, torch.from_numpy(case.toks[:, :S]), max_seq=S + 1,
+                               **case.tkw)
     _close(last, case.ref_last)
     assert len(cache) == case.cfg.num_layers
     for i, layer in enumerate(cache):
@@ -131,7 +162,8 @@ def test_prefill_logits_and_caches_match_reference(case):
 
 def test_decode_step_matches_reference(case):
     with torch.inference_mode():
-        _, cache = tprefill(case.model, torch.from_numpy(case.toks[:, :S]), max_seq=S + 1)
+        _, cache = tprefill(case.model, torch.from_numpy(case.toks[:, :S]), max_seq=S + 1,
+                            **case.tkw)
         lg, cache2 = tdecode(case.model, cache, torch.from_numpy(case.toks[:, S]), S)
     assert cache2 is cache  # updated in place
     _close(lg, case.ref_decode)
@@ -177,26 +209,29 @@ def test_prefill_projects_each_mamba_layer_once(monkeypatch, arch, impl):
 
 
 def test_own_prefill_and_decode_match_own_forward(case):
+    model = case.own_model
     with torch.inference_mode():
-        full = tforward(case.model, torch.from_numpy(case.toks))
-        last, cache = tprefill(case.model, torch.from_numpy(case.toks[:, :S]), max_seq=S + 1)
-        lg, _ = tdecode(case.model, cache, torch.from_numpy(case.toks[:, S]), S)
+        full = tforward(model, torch.from_numpy(case.toks), **case.tkw)
+        last, cache = tprefill(model, torch.from_numpy(case.toks[:, :S]), max_seq=S + 1,
+                               **case.tkw)
+        lg, _ = tdecode(model, cache, torch.from_numpy(case.toks[:, S]), S)
     _close(last, full[:, S - 1], 2e-3)
     _close(lg, full[:, S], 2e-3)
 
 
 def test_plain_impl_matches_kernel_impl_on_cpu(case):
-    toks = torch.from_numpy(case.toks)
+    toks, kw = torch.from_numpy(case.toks), case.tkw
     with torch.inference_mode():
-        _close(tforward(case.model, toks, impl="plain"), tforward(case.model, toks), 1e-5)
-        lk, ck = tprefill(case.model, toks[:, :S], impl="kernel")
-        lp, cp = tprefill(case.model, toks[:, :S], impl="plain")
+        _close(tforward(case.model, toks, impl="plain", **kw), tforward(case.model, toks, **kw),
+               1e-5)
+        lk, ck = tprefill(case.model, toks[:, :S], impl="kernel", **kw)
+        lp, cp = tprefill(case.model, toks[:, :S], impl="plain", **kw)
     _close(lk, lp, 1e-5)
     for a, b in zip(ck, cp):
         for key in a:
             _close(a[key], b[key], 1e-5)
     with pytest.raises(ValueError, match="impl"):
-        tforward(case.model, toks, impl="pallas")
+        tforward(case.model, toks, impl="pallas", **kw)
 
 
 def test_init_params_draws_the_reference_distributions():
@@ -218,28 +253,26 @@ def test_init_params_draws_the_reference_distributions():
 
 
 def test_init_cache_matches_reference_shapes():
+    """Every layer's cache leaf has the reference's shape; an
+    encoder-decoder's ``cross_k`` / ``cross_v`` that of its row of the
+    reference's stacked ``cross``."""
     from repro.models.decode import init_cache
 
-    for arch in ("zamba2-7b", "yi-9b", "gemma3-12b", "h2o-danube-3-4b"):
+    for arch in ("zamba2-7b", "yi-9b", "gemma3-12b", "h2o-danube-3-4b", "qwen3-moe-235b-a22b",
+                 "whisper-tiny", "phi-3-vision-4.2b"):
         ref = init_cache(reduced(get_config(arch)), 2, 16)
         mine = tinit_cache(tconfigs.reduced(tconfigs.get_config(arch)), 2, 16, device="cpu")
         cfg = reduced(get_config(arch))
         period = len(cfg.layer_pattern)
+        assert len(mine) == cfg.num_layers
         for i, layer in enumerate(mine):
             c, pos = divmod(i, period)
-            sub = ref["cycles"][pos] if c < cfg.num_layers // period else ref["rest"][pos]
+            sub = dict(ref["cycles"][pos] if c < cfg.num_layers // period else ref["rest"][pos])
+            if "cross" in ref:
+                sub.update(cross_k=ref["cross"]["k"], cross_v=ref["cross"]["v"])
+            assert set(layer) == set(sub), (arch, i)
             for key, t in layer.items():
                 assert tuple(t.shape) == tuple(sub[key].shape[1:]), (arch, i, key)
-
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "grok-1-314b", "whisper-tiny",
-                                  "phi-3-vision-4.2b"])
-def test_what_this_slice_does_not_carry_raises(arch):
-    cfg = tconfigs.reduced(tconfigs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="slice"):
-        LM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        tinit_params(cfg, 0, device="cpu")
 
 
 def _ref_layer(cache, cfg, i: int) -> dict:
