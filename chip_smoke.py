@@ -270,6 +270,42 @@ Serving and observability (``ServeEngine``, ``serving/admission.py``,
    the residency probe, the asynchronous prefetcher, the cost gate and a
    refit every 8 ticks; equal to the all-``auto`` wave.
 
+Training on the card (``launch/train.py``, ``launch/steps.py``,
+``optim/``, ``checkpoint/``, ``data/pipeline.py``), after the LM families
+and before the kernels phase; the model trains on the plain path (the
+kernels define no gradient), the pipeline's refills run #1, #6 and #7:
+
+36. train_stream — ``make_token_corpus`` of 65,536 sequences of 2,049
+   tokens on the card (vocab 50,280; λ = 2,048 blocks of 32, 0.54 GB of
+   tokens); ``FilteredBatchStream`` batches of 8 under
+   ``domain=code,quality=hi`` (32) and ``lang=zh`` (past its first epoch
+   reset, asserted, and 32 more): every batch's ``record_ids`` equal the
+   same stream's on the CPU copy, every record matches its filter on the
+   host table, the pipeline state equals the CPU's.
+37. train — ``repro_torch.launch.train.main`` on mamba2-130m at its
+   published widths and depth (24 layers, d_model 768, vocab 50,280,
+   d_state 128), ``--batch 8 --seq 2048`` (the Mamba-2 paper's context)
+   under ``domain=code,quality=hi`` on that corpus: 24 steps with a
+   checkpoint every 12; then a second directory crashed after its step-12
+   commit and resumed to 24 (the reference's restart test at full width;
+   a run stopped by ``--steps 12`` would decay its rate on another
+   schedule): the resumed loss equals the uninterrupted one within
+   ``rel=1e-4`` and the pipeline state saved at step 24 is identical.
+   Seconds a step (host clock, synchronised), the refill's share of it,
+   tokens/s and peak memory are logged.
+38. train_learns — ``make_train_step(peak_lr=3e-3, warmup=2,
+   total_steps=60)`` on mamba2-130m at full width, 30 steps on
+   ``tests/test_models.py``'s learnable batch: the last loss below 0.6 ×
+   the first.
+39. train_archs — one train step of each of the ten configurations at
+   ``reduced()`` on the card beside the same step on the CPU from the same
+   parameters (``TRAIN_ARCHS_*``: the loss, grad norm and updated
+   parameters).
+
+lm_moe also serves ``MOE_EQUAL_TRAFFIC``: 4 prompts of one length (2,048
+tokens), so no row is padded and the tokens are compared up to each row's
+first routing flip; the count compared is logged.
+
 The last lines are the ``{"kernels": [...]}`` JSON, the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
@@ -367,6 +403,13 @@ PHASE_KERNELS = {
     "lm_vlm": ("flash_attention",),
     "serve_tiered": ("density_combine_batch", "theta_stats_batch", "prefix_sum",
                      "block_gather"),
+    # training: the pipeline's refills run #1 (the filter's combine with the
+    # consumed blocks excluded), #6 (THRESHOLD's scan) and #7 (the read); the
+    # model trains on the plain path (the kernels define no gradient)
+    "train_stream": ("density_combine", "prefix_sum", "block_gather"),
+    "train": ("density_combine", "prefix_sum", "block_gather"),
+    "train_learns": (),
+    "train_archs": (),
 }
 SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 65_537, 12_208)
 RTOL = 1e-5
@@ -433,6 +476,38 @@ SERVE_TRAFFIC = {
     "launcher": {"requests": 8, "plen": (4, 24), "max_new": 16, "slots": 4, "max_seq": 128},
     "long": {"requests": 4, "plen": (1024, 2049), "max_new": 16, "slots": 4, "max_seq": 2176},
 }
+
+# qwen3-moe's long traffic left-pads its rows, and pad rows share a router
+# state with near-ties; this one gives every prompt one length (no padding)
+# so its tokens are compared up to each row's first routing flip
+MOE_EQUAL_TRAFFIC = {"requests": 4, "plen": (2048, 2049), "max_new": 16, "slots": 4,
+                     "max_seq": 2176}
+
+# training on the card: mamba2-130m at its published widths and depth on a
+# make_token_corpus of 65,536 sequences of 2,049 tokens (2,048, the context
+# the Mamba-2 paper trained at, plus the label shift): λ = 2,048 blocks of 32
+TRAIN_ARCH = "mamba2-130m"
+TRAIN_CORPUS = {"num_seqs": 65_536, "seq_len": 2_049}
+TRAIN_FILTERS = ("domain=code,quality=hi", "lang=zh")
+TRAIN_BATCH = 8
+TRAIN_STREAM_BATCHES = 32  # a stream's batches, and again past the lang=zh epoch reset
+TRAIN_STREAM_CAP = 20_000  # batches lang=zh may draw before it must have reset
+# the launcher: 24 steps at [8, 2048], a checkpoint every 12; the restart run
+# crashes after its step-12 commit and resumes to 24 (tests/test_system.py:24)
+TRAIN_RUN = {"steps": 24, "ckpt_every": 12, "seq": 2048, "filter": TRAIN_FILTERS[0]}
+TRAIN_RESTART_RTOL = 1e-4  # tests/test_system.py:38
+# tests/test_models.py:86-101: 30 steps on a tiled arange(16), [4, 47]
+TRAIN_LEARN = {"peak_lr": 3e-3, "warmup": 2, "total_steps": 60, "steps": 30, "ratio": 0.6}
+# one train step of every configuration at reduced(), card beside CPU, from
+# the same parameters; warmup 0, so the step's rate is peak_lr.  The loss is
+# an f32 sum in another order on each device.  AdamW's first step moves each
+# element by lr·g/(|g| + eps): an f32 rounding of g moves it by far less than
+# 1e-3·lr, except where g lies at its leaf's rounding floor (|g| ≤ 1e-4·max
+# |g| of the leaf), where the move may flip, up to 2·lr (counted)
+TRAIN_ARCHS = {"batch": 2, "seq": 16, "peak_lr": 3e-4}
+TRAIN_ARCHS_LOSS_RTOL = 1e-5
+TRAIN_ARCHS_PARAM_RTOL, TRAIN_ARCHS_PARAM_LR = 1e-6, 1e-3
+TRAIN_ARCHS_FLOOR = 1e-4
 
 
 def log(msg: str) -> None:
@@ -1598,19 +1673,29 @@ def check_launches(launches: dict, want: dict, what: str) -> None:
 
 
 @contextlib.contextmanager
+def patched(obj, name: str, make):
+    """Replace ``obj.name`` by ``make(original)`` inside the block."""
+    fn = getattr(obj, name)
+    setattr(obj, name, make(fn))
+    try:
+        yield
+    finally:
+        setattr(obj, name, fn)
+
+
+@contextlib.contextmanager
 def count_calls(module, name: str):
     """Count the calls of ``module.name`` inside the block (``{"calls": n}``)."""
-    fn, seen = getattr(module, name), {"calls": 0}
+    seen = {"calls": 0}
 
-    def counted(*args, **kwargs):
-        seen["calls"] += 1
-        return fn(*args, **kwargs)
+    def make(fn):
+        def counted(*args, **kwargs):
+            seen["calls"] += 1
+            return fn(*args, **kwargs)
+        return counted
 
-    setattr(module, name, counted)
-    try:
+    with patched(module, name, make):
         yield seen
-    finally:
-        setattr(module, name, fn)
 
 
 class RouterLog:
@@ -2262,8 +2347,19 @@ def lm_phases(model, fphase: str, sphase: str, args, phase_launches: dict) -> in
             log(f"{sphase} {model.cfg.name} long prefill [{res['waves'][0]['size']}, "
                 f"{long_seq}]: kernel {res['waves'][0]['prefill_s']} s, plain "
                 f"{res['plain_waves'][0]['prefill_s']} s")
+    if model.cfg.moe:  # prompts of one length: no row padded, tokens compared to each flip
+        torch.cuda.reset_peak_memory_stats()
+        res = lm_serve_check(model, MOE_EQUAL_TRAFFIC, args.seed, run_phase, sphase)
+        for k, n in res.pop("launches").items():
+            serve_launches[k] += n
+        log(f"{sphase} equal-length [{MOE_EQUAL_TRAFFIC['requests']}, "
+            f"{MOE_EQUAL_TRAFFIC['plen'][0]}]: {res['wall_s']} s, {res['tokens_per_s']} tokens/s; "
+            f"prefill check {res['prefill']}; streams {res['streams']} (tokens compared "
+            f"{res['streams']['tokens_equal'] + res['streams']['near_ties']} of "
+            f"{res['streams']['tokens']}); routing "
+            f"{res['routing']}; peak {peak_gb('cuda'):.2f} GB")
     add_launches(phase_launches, sphase, serve_launches)
-    log(f"{sphase} launches (both traffics): {serve_launches}")
+    log(f"{sphase} launches (all traffics): {serve_launches}")
     if args.profile:  # one warm wave of each traffic, with the kernels
         for name, traffic in SERVE_TRAFFIC.items():
             prompts = serve_prompts(model.cfg, traffic, args.seed)[:traffic["slots"]]
@@ -4040,6 +4136,333 @@ def lm_continuous_phase(model, phase: str, join: dict, seed: int, phase_launches
         "in all")
 
 
+# ---------------------------------------------------------------------------
+# Training on one card: the NeedleTail-filtered pipeline, the launcher with a
+# crash and a restart, the learnable pattern, one step of every family.
+# ---------------------------------------------------------------------------
+
+class TrainCrash(Exception):
+    """Raised into the launcher to stop a run as a crash would."""
+
+
+def timed(fn, sink: list, dev):
+    """``fn`` with each call's host-clock seconds appended to ``sink``, the
+    device synchronised before and after."""
+    def call(*args, **kwargs):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync(dev)
+        sink.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def train_stream_check(store, tokens, cpu_store, cpu_tokens, run, batches: int = TRAIN_STREAM_BATCHES,
+                       cap: int = TRAIN_STREAM_CAP) -> dict:
+    """``FilteredBatchStream`` on the card under each of ``TRAIN_FILTERS``
+    beside the same stream on the CPU copy: ``batches`` batches of
+    ``TRAIN_BATCH``, the last filter on past its first epoch reset (asserted)
+    and ``batches`` more.  Every batch's ``record_ids`` equal the CPU
+    stream's, every record matches its filter on the host table, the first
+    batches' tokens are the CPU's, and the host state (consumed mask, round,
+    rng counter, buffer) equals the CPU stream's at the end."""
+    from repro_torch.data.pipeline import FilteredBatchStream, parse_filter
+
+    dev = store.device
+    dims = cpu_store.dims.reshape(-1, cpu_store.dims.shape[-1]).numpy()
+    out = {}
+
+    def drive():
+        for i, expr in enumerate(TRAIN_FILTERS):
+            preds = parse_filter(expr)
+            card = FilteredBatchStream(store, tokens, preds, TRAIN_BATCH, seed=i)
+            cpu = FilteredBatchStream(cpu_store, cpu_tokens, preds, TRAIN_BATCH, seed=i)
+            last = i == len(TRAIN_FILTERS) - 1
+            n, reset_at, secs = 0, None, []
+            while n < batches or (last and (reset_at is None or n < reset_at + batches)):
+                if n >= cap:
+                    raise AssertionError(f"{expr}: no epoch reset in {cap} batches")
+                sync(dev)
+                t0 = time.perf_counter()
+                a = next(card)
+                sync(dev)
+                secs.append(time.perf_counter() - t0)
+                b = next(cpu)
+                if not np.array_equal(a["record_ids"], b["record_ids"]):
+                    raise AssertionError(f"{expr} batch {n}: record ids differ from the CPU's")
+                for attr, val in preds:
+                    if not np.all(dims[a["record_ids"], attr] == val):
+                        raise AssertionError(f"{expr} batch {n}: a record misses the filter")
+                if n < 4 and not (np.array_equal(a["tokens"].cpu().numpy(), b["tokens"].numpy())
+                                  and np.array_equal(a["labels"].cpu().numpy(),
+                                                     b["labels"].numpy())):
+                    raise AssertionError(f"{expr} batch {n}: tokens differ from the CPU's")
+                if reset_at is None and card.state.round >= 1:
+                    reset_at = n
+                n += 1
+            if last and reset_at is None:
+                raise AssertionError(f"{expr}: no epoch reset")
+            same = (np.array_equal(card.state.consumed, cpu.state.consumed)
+                    and (card.state.round, card.state.rng_counter, card._buffer)
+                    == (cpu.state.round, cpu.state.rng_counter, cpu._buffer))
+            if not same:
+                raise AssertionError(f"{expr}: the pipeline state differs from the CPU's")
+            out[expr] = {"batches": n, "epoch_reset_at": reset_at, "rounds": card.state.round,
+                         "refills": card.state.rng_counter,
+                         "s_per_batch_median": float(np.median(secs)),
+                         "s_all_batches": float(np.sum(secs))}
+        return out
+
+    res, wall, launches = run("train_stream", drive)
+    return {"filters": res, "wall_s": wall, "launches": launches}
+
+
+def train_check(run, device: str = "cuda", arch: str = TRAIN_ARCH, reduced: bool = False,
+                corpus_seqs: int = TRAIN_CORPUS["num_seqs"], batch: int = TRAIN_BATCH,
+                steps: int = TRAIN_RUN["steps"], every: int = TRAIN_RUN["ckpt_every"],
+                seq: int = TRAIN_RUN["seq"], expr: str = TRAIN_RUN["filter"]) -> dict:
+    """``repro_torch.launch.train.main`` for ``steps`` steps with a
+    checkpoint every ``every`` into one directory; then into a second
+    directory a run that crashes after its step-``every`` commit
+    (``TrainCrash`` raised from the stream's next call) and a resumed run to
+    ``steps``.  The resumed loss equals the uninterrupted one within
+    ``TRAIN_RESTART_RTOL``, and the pipeline state both saved at ``steps``
+    is identical.  Timed in the uninterrupted run (host clock, synchronised):
+    each ``next(stream)``, its refills and each train step."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager, latest_step
+    from repro_torch.data.pipeline import FilteredBatchStream
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as T
+
+    dev = torch.device(device)
+    argv = ["--arch", arch, "--steps", str(steps), "--batch", str(batch), "--seq", str(seq),
+            "--filter", expr, "--corpus-seqs", str(corpus_seqs), "--ckpt-every", str(every),
+            "--log-every", str(every), "--seed", "0", "--device", device]
+    argv += ["--reduced"] if reduced else []
+    t = {"next": [], "refill": [], "step": []}
+
+    def timed_factory(make):
+        return lambda *a, **k: timed(make(*a, **k), t["step"], dev)
+
+    def crash_after(n: int):
+        calls = {"n": 0}
+
+        def make(fn):
+            def nxt(stream):
+                calls["n"] += 1
+                if calls["n"] > n:
+                    raise TrainCrash(f"crashed after {n} batches")
+                return fn(stream)
+            return nxt
+        return make
+
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = f"{tmp}/a", f"{tmp}/b"
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        with patched(FilteredBatchStream, "__next__", lambda fn: timed(fn, t["next"], dev)), \
+                patched(FilteredBatchStream, "_refill", lambda fn: timed(fn, t["refill"], dev)), \
+                patched(S, "make_train_step", timed_factory):
+            loss, wall, launches = run("train", lambda: T.main(argv + ["--ckpt-dir", a]))
+        peak = peak_gb(dev)
+        with patched(FilteredBatchStream, "__next__", crash_after(every)):
+            try:
+                T.main(argv + ["--ckpt-dir", b])
+                raise AssertionError("the crash run did not crash")
+            except TrainCrash:
+                pass
+        if latest_step(b) != every:
+            raise AssertionError(f"the crash run committed step {latest_step(b)}, not {every}")
+        resumed, rwall, rlaunches = run("train", lambda: T.main(argv + ["--ckpt-dir", b]))
+        ea, eb = CheckpointManager(a).extra(steps), CheckpointManager(b).extra(steps)
+    rel = abs(resumed - loss) / abs(loss)
+    if not (np.isfinite(loss) and rel <= TRAIN_RESTART_RTOL):
+        raise AssertionError(f"resumed loss {resumed} vs uninterrupted {loss}: rel {rel}")
+    if ea != eb:
+        raise AssertionError("the pipeline state at the last step differs after the restart")
+    step_s = [n + s for n, s in zip(t["next"], t["step"])]
+    steady = step_s[1:] or step_s
+    return {"loss": loss, "resumed_loss": resumed, "rel": rel, "wall_s": wall,
+            "resumed_wall_s": rwall, "first_step_s": step_s[0],
+            "s_per_step": float(np.mean(steady)), "s_per_step_median": float(np.median(steady)),
+            "refill_share": float(np.sum(t["refill"]) / np.sum(step_s)),
+            "refills": len(t["refill"]), "tokens_per_s": batch * seq / float(np.mean(steady)),
+            "peak_gb": peak, "pipeline_round": ea["pipeline"]["round"],
+            "pipeline_rng_counter": ea["pipeline"]["rng_counter"],
+            "launches": launches, "resumed_launches": rlaunches}
+
+
+def train_learns_check(cfg, run, seed: int, device: str = "cuda") -> dict:
+    """``make_train_step(cfg, peak_lr=3e-3, warmup=2, total_steps=60)`` for
+    30 steps on ``tests/test_models.py``'s learnable batch (a tiled
+    ``arange(16)``, ``[4, 47]``): the last loss below 0.6 × the first."""
+    import torch
+
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.models import init_params
+
+    lr = {k: TRAIN_LEARN[k] for k in ("peak_lr", "warmup", "total_steps")}
+
+    def drive():
+        state = make_train_state(init_params(cfg, seed, device=device))
+        step_fn = make_train_step(cfg, **lr)
+        toks = torch.arange(16, dtype=torch.int32, device=device).tile(4, 4)[:, :48]
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        losses = []
+        for _ in range(TRAIN_LEARN["steps"]):
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+        return losses
+
+    losses, wall, launches = run("train_learns", drive)
+    if not losses[-1] < TRAIN_LEARN["ratio"] * losses[0]:
+        raise AssertionError(f"the loss fell from {losses[0]} only to {losses[-1]}")
+    return {"first": losses[0], "last": losses[-1], "every_6th": losses[::6], "wall_s": wall,
+            "s_per_step": wall / len(losses)}
+
+
+def train_profile(cfg, seed: int) -> None:
+    """One train step of ``cfg`` at ``[TRAIN_BATCH, TRAIN_RUN["seq"]]`` on
+    seeded tokens, after two warm steps, under ``torch.profiler``
+    (``--profile``): device time by operator and the device's busy share."""
+    import torch
+
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.models import init_params
+
+    state = make_train_state(init_params(cfg, seed, device="cuda"))
+    step_fn = make_train_step(cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_RUN["seq"] + 1), generator=g,
+                         device="cuda", dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for _ in range(2):
+        state, _ = step_fn(state, batch)
+    profile_wave(lambda: step_fn(state, batch),
+                 f"train step {cfg.name} {list(batch['tokens'].shape)}")
+
+
+def train_archs_check(run, seed: int, device: str = "cuda", ref_device: str = "cpu") -> dict:
+    """One ``make_train_step`` step of every configuration at ``reduced()``
+    on ``device`` beside the same step on ``ref_device`` from the same
+    parameters and batch: loss and grad norm finite, the loss within
+    ``TRAIN_ARCHS_LOSS_RTOL``, every updated parameter within
+    ``TRAIN_ARCHS_PARAM_RTOL·|p| + TRAIN_ARCHS_PARAM_LR·lr``, or ``2·lr``
+    more where its gradient lies at its leaf's rounding floor (counted)."""
+    import copy
+
+    import torch
+
+    from repro_torch.configs import get_config, list_archs, reduced
+    from repro_torch.launch.steps import make_train_state, make_train_step
+    from repro_torch.models import init_params
+
+    b, s, lr = TRAIN_ARCHS["batch"], TRAIN_ARCHS["seq"], TRAIN_ARCHS["peak_lr"]
+
+    def drive():
+        out = {}
+        for arch in list_archs():
+            cfg = reduced(get_config(arch))
+            ref = init_params(cfg, seed, device=ref_device)
+            states = {d: make_train_state(copy.deepcopy(ref).to(d)) for d in (device, ref_device)}
+            rng = np.random.default_rng(seed)
+            arrays = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+                      "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+            if cfg.family == "encdec":
+                arrays["enc_frames"] = (rng.normal(size=(b, cfg.enc_seq, cfg.d_model)) * 0.02
+                                        ).astype(np.float32)
+            if cfg.family == "vlm":
+                arrays["patch_embeds"] = (rng.normal(size=(b, cfg.num_patches, cfg.d_model))
+                                          * 0.02).astype(np.float32)
+            step = make_train_step(cfg, peak_lr=lr, warmup=0, total_steps=10)
+            mets = {}
+            for d, st in states.items():
+                states[d], m = step(st, {k: torch.from_numpy(v).to(d) for k, v in arrays.items()})
+                mets[d] = {k: float(v) for k, v in m.items()}
+            got, want = mets[device], mets[ref_device]
+            if not all(np.isfinite(v) for m in mets.values() for v in m.values()):
+                raise AssertionError(f"{arch}: a non-finite loss or grad norm: {mets}")
+            rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            if rel > TRAIN_ARCHS_LOSS_RTOL or got["lr"] != float(np.float32(lr)):
+                raise AssertionError(f"{arch}: loss {got['loss']} vs {want['loss']} (rel {rel})")
+            worst, worst_floor, floor = 0.0, 0.0, 0
+            pa = dict(states[device].model.named_parameters())
+            for n, p in states[ref_device].model.named_parameters():
+                q, p = pa[n].detach().cpu(), p.detach()
+                m = states[ref_device].opt.m[n].abs()  # (1 − b1)·g after one step
+                at_floor = (m <= TRAIN_ARCHS_FLOOR * m.max()) & (m > 0)
+                tol = (TRAIN_ARCHS_PARAM_RTOL * p.abs() + TRAIN_ARCHS_PARAM_LR * lr
+                       + 2 * lr * at_floor)
+                err = (q - p).abs()
+                if bool((err > tol).any()):
+                    raise AssertionError(f"{arch} {n}: updated parameter off by {float(err.max())}")
+                over = (err - TRAIN_ARCHS_PARAM_RTOL * p.abs()) / lr
+                worst = max(worst, float(torch.where(at_floor, 0.0, over).max()))
+                worst_floor = max(worst_floor, float(torch.where(at_floor, over, 0.0).max()))
+                floor += int(at_floor.sum())
+            out[arch] = {"loss": got["loss"], "loss_rel": rel, "grad_norm": got["grad_norm"],
+                         "grad_norm_rel": abs(got["grad_norm"] - want["grad_norm"])
+                         / want["grad_norm"], "param_err_over_lr": worst, "at_floor": floor,
+                         "at_floor_err_over_lr": worst_floor}
+        return out
+
+    res, wall, launches = run("train_archs", drive)
+    return {"archs": res, "wall_s": wall}
+
+
+def train_phases(args, card: str, phase_launches: dict) -> None:
+    """The training phases on the card, each logged beside the card's name
+    and power limit: train_stream, train, train_learns, train_archs."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_token_corpus
+
+    t0 = time.perf_counter()
+    cstore, ctokens = make_token_corpus(**TRAIN_CORPUS, vocab=get_config(TRAIN_ARCH).vocab,
+                                        seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    log(f"train corpus: {TRAIN_CORPUS['num_seqs']} sequences of {TRAIN_CORPUS['seq_len']} "
+        f"tokens, λ={cstore.num_blocks}, {ctokens.numel() * 4 / 1e9:.2f} GB of tokens on the "
+        f"card in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ts = train_stream_check(cstore, ctokens, cstore.to("cpu"), ctokens.cpu(), run_phase)
+    phase_launches["train_stream"] = ts.pop("launches")
+    for expr, r in ts.pop("filters").items():
+        log(f"train_stream {expr!r}: {r}")
+    log(f"train_stream: {ts}; every batch's record ids == the CPU stream's, every record "
+        f"matches its filter; {time.perf_counter() - t0:.1f} s in all ({card})")
+    del cstore, ctokens
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tr = train_check(run_phase)
+    phase_launches["train"] = tr.pop("launches")
+    add_launches(phase_launches, "train", tr.pop("resumed_launches"))
+    log(f"train {TRAIN_ARCH} full width [{TRAIN_BATCH}, {TRAIN_RUN['seq']}], "
+        f"{TRAIN_RUN['steps']} steps, filter {TRAIN_RUN['filter']!r}: {tr}; resumed == "
+        f"uninterrupted within {TRAIN_RESTART_RTOL}, pipeline state identical; "
+        f"{time.perf_counter() - t0:.1f} s in all ({card})")
+    if args.profile:
+        train_profile(get_config(TRAIN_ARCH), args.seed)
+    t0 = time.perf_counter()
+    tl = train_learns_check(get_config(TRAIN_ARCH), run_phase, args.seed)
+    log(f"train_learns {TRAIN_ARCH} full width: {tl}; {time.perf_counter() - t0:.1f} s in all "
+        f"({card})")
+    t0 = time.perf_counter()
+    ta = train_archs_check(run_phase, args.seed)
+    for arch, r in ta.pop("archs").items():
+        log(f"train_archs {arch}: {r}")
+    log(f"train_archs: {ta}; loss within {TRAIN_ARCHS_LOSS_RTOL} of the CPU step's, every "
+        f"parameter within tolerance; {time.perf_counter() - t0:.1f} s in all ({card})")
+    torch.cuda.empty_cache()
+
+
 def run_phase(name: str, fn):
     """Zero the launch counters, run ``fn``, read them: ``name``'s kernels
     must all have launched.  Returns ``(result, wall seconds, launches)``."""
@@ -4067,8 +4490,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="run the first wave under torch.profiler and trace one more "
-                         "warm wave, one warm sharded wave and one LM serving wave of each "
-                         "traffic; print device and host time by operator, and the kernels "
+                         "warm wave, one warm sharded wave, one LM serving wave of each "
+                         "traffic and one full-width train step; print device and host "
+                         "time by operator, and the kernels "
                          "scaled_dot_product_attention launches in f32")
     # one rank of the sharded_ranks phase (the script starts these itself)
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
@@ -4362,6 +4786,9 @@ def main(argv=None) -> int:
 
     # -- lm_moe, lm_encdec and lm_vlm: the remaining families, one at a time
     families = family_phases(args, phase_launches)
+
+    # -- train_stream, train, train_learns, train_archs: training on the card
+    train_phases(args, card, phase_launches)
 
     entries = kernel_phase(store, queries, batch, phase_launches, rows)
     for e in entries:

@@ -11,10 +11,16 @@ build or load failure raises: there is no fall back to the plain versions.
 
 Every wrapper bumps :data:`LAUNCHES` where, and only where, it launches its
 kernel, so a run can show that its main path went through the kernels.
+Every wrapper is decorated with :func:`no_gradient`: a kernel writes its
+output through a raw pointer, so the output carries no ``grad_fn``, and a
+tensor input that requires grad under grad mode raises on the CPU and on
+the card alike (on the CPU the plain version would differentiate, and a
+step tested there would train wrong on the card).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -82,6 +88,27 @@ _SIGNATURES = {
     "nt_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                     _I64, _I64, _I64, _P),
 }
+
+
+def no_gradient(wrapper):
+    """Decorate a kernel wrapper: under grad mode, raise ``RuntimeError``
+    if a tensor argument (or a tensor in a tuple argument) requires grad,
+    whichever branch the call would take."""
+    name = wrapper.__name__
+
+    @functools.wraps(wrapper)
+    def checked(*args, **kwargs):
+        if torch.is_grad_enabled():
+            for a in (*args, *kwargs.values()):
+                for t in a if isinstance(a, tuple) else (a,):
+                    if isinstance(t, torch.Tensor) and t.requires_grad:
+                        raise RuntimeError(
+                            f"{name}: an input requires grad, and the kernel defines no "
+                            "gradient (as the reference's Pallas kernels define no VJP); "
+                            "differentiate the plain path (impl='plain') or call under "
+                            "torch.no_grad()")
+        return wrapper(*args, **kwargs)
+    return checked
 
 
 def reset_launches() -> None:

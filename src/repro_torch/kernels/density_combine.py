@@ -88,6 +88,7 @@ def exclusion_ids(exclude, lam: int) -> np.ndarray:
     return exclusion_csr([exclude], lam)[2:]
 
 
+@_lib.no_gradient
 def density_combine(
     densities: torch.Tensor,  # [rows, λ] f32
     row_ids: torch.Tensor,  # [γ] int32, each in [0, rows)
@@ -244,6 +245,7 @@ def _combine_wave(name: str, densities: torch.Tensor, row_matrix: torch.Tensor, 
     return out
 
 
+@_lib.no_gradient
 def density_combine_wave(
     densities: torch.Tensor,  # [rows, λ] f32
     row_matrix: torch.Tensor,  # [Q, γ_max] int32, padded with -1
@@ -260,6 +262,7 @@ def density_combine_wave(
     return _combine_wave("density_combine_batch", densities, row_matrix, ops, exclude)
 
 
+@_lib.no_gradient
 def density_combine_batch(
     densities: torch.Tensor,  # [rows, λ] f32
     row_matrix: torch.Tensor,  # [Q, γ_max] int32, padded with -1
@@ -276,6 +279,7 @@ def density_combine_batch(
                          [op] * row_matrix.shape[0], None)
 
 
+@_lib.no_gradient
 def density_combine_wave_sharded(
     densities_local: torch.Tensor,  # [rows, λ_local] f32, this rank's λ-shard
     row_matrix: torch.Tensor,  # [Q, γ_max] int32, padded with -1
@@ -289,6 +293,7 @@ def density_combine_wave_sharded(
     return _combine_wave("density_combine_batch_sharded", densities_local, row_matrix, ops, None)
 
 
+@_lib.no_gradient
 def density_combine_batch_sharded(
     densities_local: torch.Tensor,  # [rows, λ_local] f32, this rank's λ-shard
     row_matrix: torch.Tensor,  # [Q, γ_max] int32, padded with -1

@@ -57,6 +57,7 @@ def attention_plain(
     return torch.einsum("bhst,bhtd->bhsd", p.to(vv.dtype), vv)
 
 
+@_lib.no_gradient
 def flash_attention(
     q: torch.Tensor,  # [B, Hq, S, D] f32 or bf16
     k: torch.Tensor,  # [B, Hkv, T, D]

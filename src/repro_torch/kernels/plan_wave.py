@@ -224,6 +224,7 @@ def block_gather_plain(slab: torch.Tensor, block_ids: torch.Tensor) -> torch.Ten
     return slab[block_ids.long()]
 
 
+@_lib.no_gradient
 def block_gather(slab: torch.Tensor, block_ids: torch.Tensor) -> torch.Tensor:
     """``slab[block_ids]`` for a ``[λ, R, d]`` or ``[λ, R]`` slab of int32,
     float32 or int8 and ``[U]`` int32 ids (repeats allowed, ``U = 0`` gives

@@ -96,6 +96,7 @@ def _check_bc(name: str, t: torch.Tensor, shape: tuple, dev: torch.device) -> No
         raise ValueError(f"ssd_scan: {name} needs contiguous (S, ds) rows")
 
 
+@_lib.no_gradient
 def ssd_scan(
     u: torch.Tensor,  # [B, H, S, dh] f32
     ldecay: torch.Tensor,  # [B, H, S] f32

@@ -53,6 +53,7 @@ def theta_stats_batch_plain(
     return counts, recsum
 
 
+@_lib.no_gradient
 def theta_stats_batch(
     combined: torch.Tensor,  # [Q, λ] f32
     thetas: torch.Tensor,  # [Q, T] f32, any T >= 1
@@ -99,6 +100,7 @@ def theta_wave_plain(
     return theta, theta_count, expected
 
 
+@_lib.no_gradient
 def theta_wave(
     masked: torch.Tensor,  # [Q, λ] f32 exclusion-masked combined rows
     sorted_d: torch.Tensor,  # [Q, λ] f32 the same rows sorted descending
@@ -212,6 +214,7 @@ def bisect_round_batch_plain(
     return BisectCarry(lo, hi, n_sel, exp, st)
 
 
+@_lib.no_gradient
 def bisect_round_batch(
     combined: torch.Tensor,  # [Q, λ] f32 (a rank's slab)
     ks: torch.Tensor,  # [Q] f32 record targets
@@ -259,6 +262,7 @@ def theta_stats_plain(
     return counts[0], recsum[0]
 
 
+@_lib.no_gradient
 def theta_stats(
     combined: torch.Tensor,  # [λ] f32
     thetas: torch.Tensor,  # [T] f32, any T >= 1
@@ -322,6 +326,7 @@ def bisect_steps(
     return lo, hi, trace
 
 
+@_lib.no_gradient
 def theta_bisect(
     combined: torch.Tensor,  # [λ] f32
     k: float,

@@ -27,6 +27,7 @@ prefix_sum_plain = cumsum
 SMEM_MAX_N = SCAN_BASE**4
 
 
+@_lib.no_gradient
 def prefix_sum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum of the last axis of a ``[λ]`` or ``[Q, λ]``
     float32 tensor, bit-identical to ``jnp.cumsum`` on JAX's CPU backend."""

@@ -1,17 +1,98 @@
-"""Step functions: the prefill and decode steps the servers run.
+"""Step functions: the train step the trainer runs, and the prefill and
+decode steps the servers run.
 
-Counterpart of ``repro/launch/steps.py`` (``make_prefill_step``,
-``make_decode_step``).  The reference's factories close over ``cfg`` and
-``rules`` so that ``jax.jit`` sees pure array signatures; here the model
-carries its config and the steps run eagerly.  The train step arrives with
-the training slice of the port (ROADMAP Queue 1).
+Counterpart of ``repro/launch/steps.py`` (``TrainState``,
+``make_train_step``, ``make_prefill_step``, ``make_decode_step``).  The
+reference's factories close over ``cfg`` and ``rules`` so that ``jax.jit``
+sees pure array signatures; here the model carries its config and the
+steps run eagerly.
+
+The train step differentiates :func:`repro_torch.models.lm.loss_fn` with
+autograd on the plain path (``impl="plain"``, the reference's default
+``"xla"``): the reference's Pallas kernels define no gradient, and neither
+do the port's #8 and #9, so ``impl="kernel"`` is refused.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import torch
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import decode as D
+from repro_torch.models import lm as M
 from repro_torch.models.layers import check_impl
 from repro_torch.models.lm import check_supported
+from repro_torch.optim import AdamWState, adamw_init, adamw_update, clip_by_global_norm
+from repro_torch.optim import warmup_cosine
+
+
+class TrainState(NamedTuple):
+    model: M.LM  # holds the parameters, updated in place
+    opt: AdamWState
+    step: torch.Tensor  # [] int32
+
+
+def make_train_state(model: M.LM, state_dtype: torch.dtype = torch.float32) -> TrainState:
+    """Turn on ``requires_grad`` for ``model``'s parameters (an ``LM`` is
+    built with it off, so that serving builds no autograd graph) and pair
+    the model with fresh AdamW moments in ``state_dtype`` at step 0."""
+    for p in model.parameters():
+        p.requires_grad_(True)
+    opt = adamw_init(dict(model.named_parameters()), state_dtype)
+    return TrainState(model, opt, torch.zeros((), dtype=torch.int32, device=model.device))
+
+
+def family_inputs(cfg: ArchConfig, batch: dict) -> dict:
+    """The extra model inputs a family takes from a batch: ``enc_frames``
+    for an encoder-decoder, ``patch_embeds`` for a VLM."""
+    kw = {}
+    if cfg.family == "encdec":
+        kw["enc_frames"] = batch["enc_frames"]
+    if cfg.family == "vlm":
+        kw["patch_embeds"] = batch["patch_embeds"]
+    return kw
+
+
+def make_train_step(
+    cfg: ArchConfig,
+    peak_lr: float = 3e-4,
+    warmup: int = 100,
+    total_steps: int = 10_000,
+    clip: float = 1.0,
+    impl: str = "plain",
+    remat: bool | str = True,
+):
+    """``train_step(state, batch) -> (state, {"loss", "grad_norm", "lr"})``
+    over ``batch["tokens"]`` and ``batch["labels"]``: the loss and its
+    gradients by autograd, the gradients clipped to a global norm of
+    ``clip``, the learning rate ``warmup_cosine(opt.step)`` taken before the
+    update, then AdamW in place on the model's parameters."""
+    check_supported(cfg)
+    check_impl(impl)
+    if impl == "kernel":
+        raise ValueError("make_train_step: the kernels #8 and #9 define no gradient (as the "
+                         "reference's Pallas kernels define no VJP); train with impl='plain'")
+
+    def train_step(state: TrainState, batch: dict):
+        model = state.model
+        params = dict(model.named_parameters())
+        frozen = [n for n, p in params.items() if not p.requires_grad]
+        if frozen:
+            raise ValueError(f"parameters {frozen[:3]} do not require grad; build the state "
+                             "with make_train_state")
+        with torch.enable_grad():
+            lval = M.loss_fn(model, batch["tokens"], batch["labels"], impl=impl, remat=remat,
+                             **family_inputs(cfg, batch))
+            gs = torch.autograd.grad(lval, list(params.values()), allow_unused=True,
+                                     materialize_grads=True)
+        grads, gnorm = clip_by_global_norm(dict(zip(params, gs)), clip)
+        lr = warmup_cosine(state.opt.step, peak_lr, warmup, total_steps)
+        _, opt = adamw_update(params, grads, state.opt, lr)
+        metrics = {"loss": lval.detach(), "grad_norm": gnorm, "lr": lr}
+        return TrainState(model, opt, state.step + 1), metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, impl: str = "kernel", max_seq: int | None = None):
@@ -23,12 +104,8 @@ def make_prefill_step(cfg: ArchConfig, impl: str = "kernel", max_seq: int | None
     check_impl(impl)
 
     def prefill_step(model, batch):
-        kw = {}
-        if cfg.family == "encdec":
-            kw["enc_frames"] = batch["enc_frames"]
-        if cfg.family == "vlm":
-            kw["patch_embeds"] = batch["patch_embeds"]
-        return D.prefill(model, batch["tokens"], impl=impl, max_seq=max_seq, **kw)
+        return D.prefill(model, batch["tokens"], impl=impl, max_seq=max_seq,
+                         **family_inputs(cfg, batch))
 
     return prefill_step
 

@@ -15,7 +15,11 @@ no-ops and are left out here (the multi-GPU slice brings them).
   versions on CPU tensors;
 * ``"plain"`` (the reference's ``"xla"``) runs :func:`xla_flash_attention`
   and :func:`ssd_chunked`, the reference's pure-tensor forms, on any device.
-  Only tests and ``chip_smoke.py`` pass it on the card, to compare.
+  On the card it has three users: the tests and ``chip_smoke.py``, to
+  compare, and the train step (``launch/steps.py``), which differentiates
+  it with autograd.  The reference trains on its ``"xla"`` path too, outside
+  any Pallas kernel, since its kernels define no VJP; so training bypasses
+  no kernel of the reference.
 """
 from __future__ import annotations
 

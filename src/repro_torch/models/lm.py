@@ -27,13 +27,23 @@ decoding, through a ring cache: ``models/decode.py``).
 default) runs attention (the encoder's and the cross-attention too,
 without a causal mask) and the SSD through the hand-written kernels on the
 card, ``"plain"`` through the reference's pure-tensor forms.
+
+:func:`loss_fn` is the training loss.  ``remat`` rematerialises at the
+reference's granularity: one ``torch.utils.checkpoint`` per whole pattern
+cycle (the reference's scanned cycle body; a trailing partial cycle is not
+rematerialised) and one per encoder layer; ``remat="dots"`` keeps the
+outputs of the products without batch dimensions and recomputes the rest
+(the reference's ``dots_with_no_batch_dims_saveable`` policy).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig, _full_pattern
 from repro_torch.device import resolve_device
@@ -208,7 +218,7 @@ class LM(nn.Module):
             h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
         return h
 
-    def cross_kv(self, enc_frames, impl: str) -> list | None:
+    def cross_kv(self, enc_frames, impl: str, remat: bool | str = False) -> list | None:
         """Per decoder layer, the encoder output's cross ``(k, v)``; ``None``
         unless an encoder-decoder."""
         if self.cfg.family != "encdec":
@@ -216,20 +226,56 @@ class LM(nn.Module):
         if enc_frames is None:
             raise ValueError(f"{self.cfg.name}: an encoder-decoder takes enc_frames [B, S_enc, D]")
         frames = torch.as_tensor(enc_frames, device=self.device).to(self.embed.dtype)
-        return project_cross_kv(self.cross, encode(self, frames, impl))
+        return project_cross_kv(self.cross, encode(self, frames, impl, remat))
 
     def forward(self, tokens: torch.Tensor, impl: str = "kernel", enc_frames=None,
-                patch_embeds=None) -> torch.Tensor:
+                patch_embeds=None, remat: bool | str = False) -> torch.Tensor:
         """``tokens [B, S]`` -> logits ``[B, S, vocab]``; an encoder-decoder
-        takes ``enc_frames``, a VLM may take ``patch_embeds``."""
+        takes ``enc_frames``, a VLM may take ``patch_embeds``.  ``remat``
+        (off by default: serving keeps no graph) checkpoints each whole
+        pattern cycle, and each encoder layer, under grad mode."""
         h = self.embed_inputs(tokens, patch_embeds)
-        kv = self.cross_kv(enc_frames, impl)
-        for i, layer in enumerate(self.layers):
-            cross = cross_call(self, kv and kv[i], i, layer.ch, impl)
-            h = block(h, layer, self.cfg, self.shared_attn, impl, cross)
+        kv = self.cross_kv(enc_frames, impl, remat)
+
+        def run(x, lo: int, hi: int):
+            for i in range(lo, hi):
+                layer = self.layers[i]
+                cross = cross_call(self, kv and kv[i], i, layer.ch, impl)
+                x = block(x, layer, self.cfg, self.shared_attn, impl, cross)
+            return x
+
+        period = len(self.cfg.layer_pattern)
+        n_cycles = len(self.layers) // period
+        for c in range(n_cycles):
+            h = rematerialised(run, remat, h, c * period, (c + 1) * period)
+        h = run(h, n_cycles * period, len(self.layers))
         h = L.apply_norm(h, self.final_norm, self.cfg.norm)
         logits = torch.einsum("bsd,dv->bsv", h, self.head())
         return logits[..., : self.cfg.vocab]
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """remat="dots": keep the products without batch dimensions (the
+    projections; einsum lowers them to a ``bmm`` of batch 1), recompute the
+    rest (the attention's batched products included), as the reference's
+    ``dots_with_no_batch_dims_saveable``."""
+    aten = torch.ops.aten
+    keep = op in (aten.mm.default, aten.addmm.default) or (
+        op in (aten.bmm.default, aten.baddbmm.default) and args[-2].shape[0] == 1)
+    return ckpt.CheckpointPolicy.MUST_SAVE if keep else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def rematerialised(fn, remat: bool | str, *args):
+    """``fn(*args)``; under grad mode with ``remat`` a non-reentrant
+    ``torch.utils.checkpoint`` of it (the reference's ``jax.checkpoint``),
+    keeping the outputs of the products without batch dimensions when
+    ``remat == "dots"``."""
+    if not remat or not torch.is_grad_enabled():
+        return fn(*args)
+    if remat == "dots":
+        ctx = functools.partial(ckpt.create_selective_checkpoint_contexts, _dots_policy)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=ctx)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False)
 
 
 def block(x: torch.Tensor, p: Sublayer, cfg: ArchConfig, shared, impl: str,
@@ -271,7 +317,8 @@ def cross_call(model: LM, kv_row, row: int, ch: str, impl: str):
     return cross
 
 
-def encode(model: LM, frames: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
+def encode(model: LM, frames: torch.Tensor, impl: str = "kernel",
+           remat: bool | str = False) -> torch.Tensor:
     """Whisper-style encoder over stub frame embeddings ``[B, S_enc, D]``
     (the reference's ``lm.encode``): sinusoidal positions added, then the
     ``G`` sublayers with bidirectional attention (#8 without the causal
@@ -285,10 +332,14 @@ def encode(model: LM, frames: torch.Tensor, impl: str = "kernel") -> torch.Tenso
     pos = torch.arange(s, dtype=torch.float32, device=dev)[:, None] / (10_000 ** half)[None, :]
     pe = torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1).to(frames.dtype)
     h = frames + pe[None]
+
+    def layer(x, p):
+        hh = L.apply_norm(x, p.norm1, cfg.norm)
+        x = x + L.attention(hh, p.attn, cfg, causal=False, window=None, impl=impl)
+        return x + L.mlp(L.apply_norm(x, p.norm2, cfg.norm), p.mlp, cfg.act)
+
     for p in model.encoder:
-        hh = L.apply_norm(h, p.norm1, cfg.norm)
-        h = h + L.attention(hh, p.attn, cfg, causal=False, window=None, impl=impl)
-        h = h + L.mlp(L.apply_norm(h, p.norm2, cfg.norm), p.mlp, cfg.act)
+        h = rematerialised(layer, remat, h, p)
     return L.apply_norm(h, model.enc_final_norm, cfg.norm)
 
 
@@ -306,9 +357,24 @@ def attn_window(ch: str, cfg: ArchConfig) -> int | None:
 
 
 def forward(model: LM, tokens: torch.Tensor, impl: str = "kernel", enc_frames=None,
-            patch_embeds=None) -> torch.Tensor:
+            patch_embeds=None, remat: bool | str = False) -> torch.Tensor:
     """Returns logits ``[B, S, vocab]`` (the reference's ``lm.forward``)."""
-    return model(tokens, impl=impl, enc_frames=enc_frames, patch_embeds=patch_embeds)
+    return model(tokens, impl=impl, enc_frames=enc_frames, patch_embeds=patch_embeds,
+                 remat=remat)
+
+
+def loss_fn(model: LM, tokens: torch.Tensor, labels: torch.Tensor, impl: str = "plain",
+            remat: bool | str = True, **kw) -> torch.Tensor:
+    """The mean next-token negative log-likelihood (the reference's
+    ``lm.loss_fn``): the f32 ``log_softmax`` of the logits, each label's
+    log-probability picked by ``gather`` (the reference's masked reduction
+    exists for a vocabulary sharded across devices; on one card the pick is
+    the same value), negated and averaged.  ``kw`` takes ``enc_frames`` and
+    ``patch_embeds``."""
+    logits = model(tokens, impl=impl, remat=remat, **kw)
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+    idx = torch.as_tensor(labels, device=logp.device).long()[..., None]
+    return -torch.mean(torch.gather(logp, -1, idx)[..., 0])
 
 
 # ----------------------------------------------------------------------------

@@ -228,3 +228,34 @@ def test_chip_smoke_without_cuda_fails_and_prints_no_result(tmp_path, alone):
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad():
+    """#8, #9 and #1 (and every other wrapper, through one decorator) raise
+    under grad mode when an input requires grad, on the CPU branch as on the
+    card's: a kernel's output carries no gradient.  Without grad mode, or
+    without such an input, they run."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.density_combine import density_combine
+
+    q = torch.randn(1, 2, 8, 4)
+    u, ld = torch.randn(1, 2, 128, 8), -torch.rand(1, 2, 128)
+    bc = torch.randn(1, 2, 128, 8)
+    dens = torch.rand(3, 10)
+    rows = torch.tensor([0, 2], dtype=torch.int32)
+    calls = {
+        "flash_attention": lambda t: ops.flash_attention(t, q, q),
+        "ssd_scan": lambda t: ops.ssd_scan(u, ld, t, bc),
+        "density_combine": lambda t: density_combine(t, rows),
+    }
+    inputs = {"flash_attention": q, "ssd_scan": bc, "density_combine": dens}
+    for name, call in calls.items():
+        leaf = inputs[name].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match=f"{name}: an input requires grad"):
+            call(leaf)
+        with torch.no_grad():
+            out = call(leaf)
+        assert out.grad_fn is None
+        assert call(inputs[name]).grad_fn is None
