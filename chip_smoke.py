@@ -302,6 +302,35 @@ kernels define no gradient), the pipeline's refills run #1, #6 and #7:
    parameters (``TRAIN_ARCHS_*``: the loss, grad norm and updated
    parameters).
 
+40. lm_sharded — the multi-GPU LM in an NCCL world of one (``(1, 1)``
+   ``("data", "model")`` mesh, ``world_of_one``): mamba2-130m at full width
+   and depth, one train step on ``[8, 2048]`` under ``tp_sp`` and under
+   ``fsdp`` (parameters and AdamW moments DTensors placed by the sharding
+   tables): loss within ``SHARD_LOSS_RTOL`` and parameters within
+   ``SHARD_PARAM_LR``·lr of the unsharded step (2·lr more at a leaf's
+   rounding floor, counted); the collectives of a step
+   (count and bytes) counted at dispatch; then zamba2-7b at full width and
+   depth served through ``ServeEngine(rules=...)`` on the launcher's
+   traffic: its tokens equal the unsharded engine's and its #8 and #9
+   launch counts equal the unsharded run's.
+41. lm_sharded_ranks — four gloo ranks of this script on the one card
+   (NCCL refuses two ranks on one card), started as sharded_ranks starts
+   them.  First, one launch checks that gloo carries, on CUDA tensors,
+   each collective DTensor issues (``reduce_scatter_tensor``,
+   ``all_to_all_single``, ``all_gather_into_tensor``, in that order; a crash
+   of the ranks counts as a no, and leaves the ones after it unprobed); a
+   missing one is logged as the phase's gloo limit and the phase stops
+   there (the multi-rank proof then stays with the CPU tests).  Else: mamba2-130m train steps at full width on ``(2, 2)``
+   ``tp_sp`` and ``(4,)`` ``fsdp``, each rank's loss and parameters equal
+   the world of one's unsharded step; zamba2-7b at full width, depth cut to
+   ``SHARD_ZAMBA_LAYERS`` layers, served with heads over ``model`` on
+   ``(2, 2)``: each rank launches #8 and #9 on its half of the heads, and
+   its tokens equal the world of one's.
+42. dryrun — ``python -m repro_torch.launch.dryrun --arch mamba2-130m
+   --shape train_4k --mesh single`` and ``python -m
+   repro_torch.launch.dryrun_engine``, two subprocesses side by side: both
+   artifacts written, their walls logged.
+
 lm_moe also serves ``MOE_EQUAL_TRAFFIC``: 4 prompts of one length (2,048
 tokens), so no row is padded and the tokens are compared up to each row's
 first routing flip; the count compared is logged.
@@ -317,8 +346,10 @@ import argparse
 import contextlib
 import dataclasses
 import datetime
+import faulthandler
 import hashlib
 import json
+import os
 import socket
 import subprocess
 import sys
@@ -410,6 +441,13 @@ PHASE_KERNELS = {
     "train": ("density_combine", "prefix_sum", "block_gather"),
     "train_learns": (),
     "train_archs": (),
+    # the multi-GPU LM: the train steps run the plain path (no gradient
+    # through a kernel); serving under rules runs #8 and #9 on local shards
+    "lm_sharded_train": (),
+    "lm_sharded_plain": LM_KERNELS,
+    "lm_sharded": LM_KERNELS,
+    "lm_sharded_ranks": (),  # counted inside each rank, asserted by the parent
+    "dryrun": (),  # fake tensors: nothing runs on the card
 }
 SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 65_537, 12_208)
 RTOL = 1e-5
@@ -504,6 +542,19 @@ TRAIN_LEARN = {"peak_lr": 3e-3, "warmup": 2, "total_steps": 60, "steps": 30, "ra
 # element by lr·g/(|g| + eps): an f32 rounding of g moves it by far less than
 # 1e-3·lr, except where g lies at its leaf's rounding floor (|g| ≤ 1e-4·max
 # |g| of the leaf), where the move may flip, up to 2·lr (counted)
+# the multi-GPU LM phases: mamba2-130m's train step at [8, 2048] (warmup 0, so
+# the first step moves the parameters).  AdamW's first step is about
+# lr·sign(g): an updated parameter is held within SHARD_PARAM_LR·lr of the
+# unsharded step's, or 2·lr more where its gradient lies at its leaf's
+# rounding floor (TRAIN_ARCHS_FLOOR), whose sign a reduction in another
+# order may flip
+SHARD_TRAIN = {"batch": 8, "seq": 2048, "peak_lr": 3e-4}
+SHARD_LOSS_RTOL = 1e-5
+SHARD_PARAM_LR = 0.1
+SHARD_RANKS = 4  # gloo ranks on the one card
+SHARD_ZAMBA_LAYERS = 12  # the ranks' zamba2-7b depth cut: two whole MMMMMA cycles
+SHARD_RANK_TIMEOUT_S = 360
+DRYRUN_TIMEOUT_S = 300
 TRAIN_ARCHS = {"batch": 2, "seq": 16, "peak_lr": 3e-4}
 TRAIN_ARCHS_LOSS_RTOL = 1e-5
 TRAIN_ARCHS_PARAM_RTOL, TRAIN_ARCHS_PARAM_LR = 1e-6, 1e-3
@@ -1717,7 +1768,9 @@ class RouterLog:
 
         moe, greedy = layers.moe, ServeEngine._greedy
 
-        def logged_moe(x, p, cfg):
+        def logged_moe(x, p, cfg, rules=None):
+            if rules is not None:  # the sharded MoE routes on local rows: not logged
+                return moe(x, p, cfg, rules)
             k = cfg.moe.top_k
             vals, idx = layers.router_top_k(layers.router_probs(x, p), k + 1)
             self.events.append(("moe", idx[..., :k].cpu(), (vals[..., :-1] - vals[..., 1:]).cpu()))
@@ -4463,6 +4516,502 @@ def train_phases(args, card: str, phase_launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def shard_plan(device: str = "cuda", small: bool = False) -> SimpleNamespace:
+    """What the sharded LM phases run: the card's configurations, or
+    ``small`` ones for a rehearsal of the phases on the CPU (reduced
+    configs, a short batch, ``impl="kernel"`` taking the plain branches)."""
+    from repro_torch.configs import get_config, reduced
+
+    if small:
+        zcfg = reduced(get_config(LM_ARCH))
+        return SimpleNamespace(
+            device=device, small=True, train_cfg=reduced(get_config(TRAIN_ARCH)), batch=4,
+            seq=32, serve_cfg=zcfg, cut_cfg=zcfg,
+            traffic={"requests": 4, "plen": (4, 10), "max_new": 4, "slots": 4, "max_seq": 24},
+            dryrun_cell=(TRAIN_ARCH, "decode_32k"))
+    return SimpleNamespace(
+        device=device, small=False, train_cfg=get_config(TRAIN_ARCH),
+        batch=SHARD_TRAIN["batch"], seq=SHARD_TRAIN["seq"], serve_cfg=get_config(LM_ARCH),
+        cut_cfg=dataclasses.replace(get_config(LM_ARCH), num_layers=SHARD_ZAMBA_LAYERS),
+        traffic=SERVE_TRAFFIC["launcher"], dryrun_cell=(TRAIN_ARCH, "train_4k"))
+
+
+def on_card(dev) -> bool:
+    import torch
+
+    return torch.device(dev).type == "cuda"
+
+
+def reset_peak(dev) -> None:
+    import torch
+
+    if on_card(dev):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def shard_train_step(plan, seed: int, mesh=None, layout: str = "tp_sp", count=False):
+    """One train step of ``plan.train_cfg`` (parameters from ``seed``) on a
+    seeded ``[batch, seq]`` draw, sharded on ``mesh`` by ``layout`` when
+    given.  Returns ``(state, metrics, seconds, collectives)``; ``count``
+    runs the step under the dry run's dispatch counter (collective counts
+    and bytes)."""
+    import torch
+
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.dryrun import DeviceCounter
+    from repro_torch.models import init_params
+
+    cfg, dev = plan.train_cfg, plan.device
+    model = init_params(cfg, seed, device=dev)
+    rules = None
+    if mesh is not None:
+        S.distribute_params(model, mesh, S.param_specs(model, mesh, layout))
+        rules = S.make_rules(mesh, layout)
+    state = ST.make_train_state(model)
+    step = ST.make_train_step(cfg, peak_lr=SHARD_TRAIN["peak_lr"], warmup=0, rules=rules)
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    toks = torch.randint(0, cfg.vocab, (plan.batch, plan.seq + 1), generator=g, device=dev)
+    counter = DeviceCounter()
+    sync(dev)
+    t0 = time.perf_counter()
+    with counter if count else contextlib.nullcontext():
+        state, m = step(state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    sync(dev)
+    return state, m, time.perf_counter() - t0, counter.collectives
+
+
+def whole(t):
+    """``t``, gathered when a DTensor."""
+    return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach()
+
+
+def param_errors(state, ref: dict) -> dict:
+    """``state``'s updated parameters against the unsharded step's
+    (``ref``: its parameters and first moments, whole): the worst error over
+    lr of ordinary elements and of the elements whose gradient lies at its
+    leaf's rounding floor, and how many lie there."""
+    import torch
+
+    lr = SHARD_TRAIN["peak_lr"]
+    worst, worst_floor, floor = 0.0, 0.0, 0
+    for n, p in state.model.named_parameters():
+        p = whole(p)
+        m = ref["m"][n].to(p.device).abs()  # (1 − b1)·g after one step
+        at_floor = (m <= TRAIN_ARCHS_FLOOR * m.max()) & (m > 0)
+        over = (p - ref["params"][n].to(p.device)).abs() / lr
+        worst = max(worst, float(torch.where(at_floor, 0.0, over).max()))
+        worst_floor = max(worst_floor, float(torch.where(at_floor, over, 0.0).max()))
+        floor += int(at_floor.sum())
+    return {"param_err_over_lr": worst, "at_floor": floor, "at_floor_err_over_lr": worst_floor}
+
+
+def params_ok(e: dict) -> bool:
+    return (e["param_err_over_lr"] <= SHARD_PARAM_LR
+            and e["at_floor_err_over_lr"] <= 2 + SHARD_PARAM_LR)
+
+
+def requests_json(done) -> list[dict]:
+    return [{"rid": r.rid, "out_tokens": r.out_tokens, "top2_gap": r.top2_gap} for r in done]
+
+
+def sharded_engine(model, cfg, traffic: dict, prompts, dev, rules):
+    """``prompts`` drained through ``ServeEngine(rules=...)`` with the kernels."""
+    from repro_torch.serving import ServeEngine
+
+    eng = ServeEngine(cfg, model, max_slots=traffic["slots"], max_seq=traffic["max_seq"],
+                      impl="kernel", device=dev, rules=rules)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=traffic["max_new"])
+    return eng, eng.run_until_drained()
+
+
+def lm_sharded_check(args, run, tmp: Path, plan) -> dict:
+    """The lm_sharded phase in a world of one (NCCL on the card); writes what
+    the ranks compare with under ``tmp`` (the unsharded step's loss and
+    parameters, the depth-cut zamba2's requests)."""
+    import torch
+
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models import init_params
+
+    dev = plan.device
+    tokens = plan.batch * plan.seq
+    m0, ref, secs = train_reference(plan, args.seed, tmp)
+    out = {"train": {"plain": {"loss": float(m0["loss"]), "s": secs,
+                               "tokens_per_s": tokens / secs, "peak_gb": peak_gb(dev)}}}
+    with world_of_one(dev) as mesh:  # (1, 1) ("data", "model")
+        for layout in ("tp_sp", "fsdp"):
+            reset_peak(dev)
+            (state, m, _, coll), _, _ = run(
+                "lm_sharded_train", lambda: shard_train_step(plan, args.seed, mesh, layout,
+                                                             count=True))
+            errs = param_errors(state, ref)
+            del state
+            # the same step again, the counter off: its time
+            _, _, secs, _ = shard_train_step(plan, args.seed, mesh, layout)
+            loss_err = abs(float(m["loss"]) - float(m0["loss"]))
+            if loss_err > SHARD_LOSS_RTOL * abs(float(m0["loss"])) or not params_ok(errs):
+                raise AssertionError(f"lm_sharded {layout}: loss {float(m['loss'])} vs "
+                                     f"{float(m0['loss'])}, parameters {errs}")
+            out["train"][layout] = {
+                "loss": float(m["loss"]), "loss_err": loss_err, **errs,
+                "s": secs, "tokens_per_s": tokens / secs, "peak_gb": peak_gb(dev),
+                "collectives": coll}
+        del ref
+        # zamba2-7b whole, served unsharded and then under rules
+        zcfg, traffic = plan.serve_cfg, plan.traffic
+        prompts = serve_prompts(zcfg, traffic, args.seed)
+        model = build_lm(zcfg, args.seed) if on_card(dev) else init_params(zcfg, args.seed,
+                                                                            device=dev)
+        (eng0, plain_done), _, plain_launches = run(
+            "lm_sharded_plain", lambda: run_engine(model, traffic, prompts, "kernel"))
+        S.distribute_params(model, mesh, S.param_specs(model, mesh))
+        rules = S.make_rules(mesh)
+        reset_peak(dev)
+        (eng, done), wall, launches = run(
+            "lm_sharded", lambda: sharded_engine(model, zcfg, traffic, prompts, dev, rules))
+        streams = compare_streams(done, plain_done, LM_ATOL)
+        if streams["tokens_equal"] != streams["tokens"]:
+            raise AssertionError(f"lm_sharded: tokens under rules differ: {streams}")
+        for k in LM_KERNELS:
+            if launches[k] != plain_launches[k]:
+                raise AssertionError(f"lm_sharded: {k} launched {launches[k]} times under "
+                                     f"rules, {plain_launches[k]} without")
+        w = eng.wave_stats
+        out["serve"] = {"wall_s": wall, "tokens_per_s": sum(x["new_tokens"] for x in w) / wall,
+                        "prefill_s": [x["prefill_s"] for x in w],
+                        "decode_s_per_step": [x["decode_s"] / max(x["decode_steps"], 1)
+                                              for x in w],
+                        "plain_prefill_s": [x["prefill_s"] for x in eng0.wave_stats],
+                        "plain_decode_s_per_step": [x["decode_s"] / max(x["decode_steps"], 1)
+                                                    for x in eng0.wave_stats],
+                        "streams": streams, "peak_gb": peak_gb(dev),
+                        "launches": {k: launches[k] for k in LM_KERNELS}}
+        out["launches"] = launches
+    del model
+    reset_peak(dev)
+    cut_reference(plan, args.seed, tmp)
+    return out
+
+
+def train_reference(plan, seed: int, tmp: Path):
+    """The unsharded train step the ranks compare with: ``(metrics, its
+    parameters and first moments after it, seconds)``, all of them written
+    under ``tmp``."""
+    import torch
+
+    shard_train_step(plan, seed)  # warm-up: cuBLAS, the allocator
+    reset_peak(plan.device)
+    plain, m0, secs, _ = shard_train_step(plan, seed)
+    ref = {"params": {n: p.detach().cpu() for n, p in plain.model.named_parameters()},
+           "m": {n: t.cpu() for n, t in plain.opt.m.items()}}
+    (tmp / "train_ref.json").write_text(json.dumps(
+        {"loss": float(m0["loss"]), "grad_norm": float(m0["grad_norm"])}))
+    torch.save(ref, tmp / "train_ref.pt")
+    return m0, ref, secs
+
+
+def cut_reference(plan, seed: int, tmp: Path) -> None:
+    """The ranks' zamba2 depth cut served unsharded: the requests they must
+    give, written under ``tmp``."""
+    from repro_torch.models import init_params
+
+    cut = init_params(plan.cut_cfg, seed, device=plan.device)
+    _, done = run_engine(cut, plan.traffic, serve_prompts(plan.cut_cfg, plan.traffic, seed),
+                         "kernel")
+    (tmp / "zamba_ref.json").write_text(json.dumps(requests_json(done)))
+
+
+# the collectives DTensor issues, probed in this order in one launch: a crash
+# ends the launch, so the one known to crash ranks on CUDA tensors goes last
+GLOO_PROBES = ("reduce_scatter_tensor", "all_to_all_single", "all_gather_into_tensor")
+
+
+def gloo_probe(name: str, world: int, rank: int, dev) -> str:
+    """Whether gloo carries collective ``name`` (one DTensor issues) on
+    ``dev``'s tensors: ``"ok"``, or what went wrong, the result checked.  A
+    crash of the process is caught by the parent (:func:`gloo_limits`)."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    group = dist.group.WORLD
+    x = torch.full((world, 3), float(rank), device=dev)
+    ranks = torch.arange(world, dtype=torch.float32, device=dev)
+    cases = {
+        "all_gather_into_tensor": (
+            lambda: funcol.all_gather_tensor(x, 0, group),
+            lambda y: torch.equal(y, ranks.repeat_interleave(world * 3).reshape(-1, 3))),
+        "reduce_scatter_tensor": (
+            lambda: funcol.reduce_scatter_tensor(x, "sum", 0, group),
+            lambda y: torch.equal(y, torch.full((1, 3), float(ranks.sum()), device=dev))),
+        "all_to_all_single": (
+            lambda: funcol.all_to_all_single(x, None, None, group),
+            lambda y: torch.equal(y[:, 0], ranks)),
+    }
+    call, check = cases[name]
+    try:
+        y = call()
+        y = y.wait() if hasattr(y, "wait") else y
+        sync(dev)
+        return "ok" if y.device == x.device and check(y) else f"wrong result {y.tolist()}"
+    except Exception as e:  # the gloo limit is the finding: recorded, not hidden
+        return f"{type(e).__name__}: {str(e)[:200]}"
+
+
+def lm_rank_main(args) -> int:
+    """One rank of lm_sharded_ranks: a gloo probe (``--probe``), or
+    mamba2-130m's sharded train steps and the depth-cut zamba2 served under
+    rules; prints ``RANK {json}``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.distributed import sharding as S
+    from repro_torch.kernels import _lib
+    from repro_torch.models import init_params
+
+    faulthandler.enable()  # a crash prints its stack into the rank's log
+    plan = shard_plan(args.device, args.small)
+    dev = plan.device
+    if on_card(dev):  # gloo: every rank on card 0; nccl: a card a rank
+        torch.cuda.set_device(args.rank % torch.cuda.device_count()
+                              if args.backend == "nccl" else 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = plan.device = f"cuda:{torch.cuda.current_device()}"
+    dist.init_process_group(args.backend, init_method=args.init, world_size=args.world,
+                            rank=args.rank,
+                            timeout=datetime.timedelta(seconds=SHARD_RANK_TIMEOUT_S))
+    tmp = Path(args.io)
+    try:
+        if args.probe:  # one line a collective, flushed before the next may crash
+            for name in GLOO_PROBES:
+                print("PROBE " + json.dumps({name: gloo_probe(name, args.world, args.rank, dev)}),
+                      flush=True)
+            print("RANK " + json.dumps({"rank": args.rank}), flush=True)
+            dist.barrier()
+            return 0
+        ref = json.loads((tmp / "train_ref.json").read_text())
+        ref_params = torch.load(tmp / "train_ref.pt")
+        kind = torch.device(dev).type
+        meshes = {"tp_sp": DeviceMesh(kind, torch.arange(args.world).reshape(2, -1),
+                                      mesh_dim_names=("data", "model")),
+                  "fsdp": DeviceMesh(kind, torch.arange(args.world), mesh_dim_names=("data",))}
+        res = {"rank": args.rank, "train": {}}
+        for layout, mesh in meshes.items():
+            reset_peak(dev)
+            state, m, _, coll = shard_train_step(plan, args.seed, mesh, layout, count=True)
+            errs = param_errors(state, ref_params)
+            del state
+            _, _, secs, _ = shard_train_step(plan, args.seed, mesh, layout)  # its time
+            res["train"][layout] = {
+                "loss": float(m["loss"]), "loss_ref": ref["loss"],
+                "grad_norm": float(m["grad_norm"]), "grad_norm_ref": ref["grad_norm"],
+                **errs, "s": secs,
+                "tokens_per_s": plan.batch * plan.seq / secs, "peak_gb": peak_gb(dev),
+                "collectives": coll}
+        del ref_params
+        model = init_params(plan.cut_cfg, args.seed, device=dev)
+        mesh = meshes["tp_sp"]
+        S.distribute_params(model, mesh, S.param_specs(model, mesh))
+        prompts = serve_prompts(plan.cut_cfg, plan.traffic, args.seed)
+        _lib.reset_launches()
+        t0 = time.perf_counter()
+        eng, done = sharded_engine(model, plan.cut_cfg, plan.traffic, prompts, dev,
+                                   S.make_rules(mesh))
+        sync(dev)
+        res["serve"] = {"wall_s": time.perf_counter() - t0, "waves": eng.wave_stats,
+                        "launches": {k: _lib.LAUNCHES[k] for k in LM_KERNELS},
+                        "requests": requests_json(done)}
+        print("RANK " + json.dumps(res), flush=True)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def launch_lm_ranks(args, plan, tmp: Path, tag: str, extra=(), timeout=SHARD_RANK_TIMEOUT_S
+                    ) -> list[tuple[int, str, dict | None]]:
+    """Start the lm_sharded_ranks ranks (``extra`` arguments, a rendezvous
+    and logs named by ``tag``); each one's ``(exit code, log, result)``.
+    Every rank is killed when the launch ends or outlives ``timeout``."""
+    logs = [open(tmp / f"lm_{tag}_rank{r}.log", "w+") for r in range(SHARD_RANKS)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--rank", str(r), "--world",
+         str(SHARD_RANKS), "--init", f"file://{tmp}/lm_{tag}_rendezvous", "--seed",
+         str(args.seed), "--rank-phase", "lm", "--io", str(tmp), "--device", plan.device,
+         *(["--small"] if plan.small else []), *extra],
+        stdout=logs[r], stderr=subprocess.STDOUT, text=True) for r in range(SHARD_RANKS)]
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    out = []
+    for p, f in zip(procs, logs):
+        f.seek(0)
+        text = f.read()
+        f.close()
+        lines = [ln[5:] for ln in text.splitlines() if ln.startswith("RANK ")]
+        out.append((p.returncode, text, json.loads(lines[-1]) if lines else None))
+    return out
+
+
+def gloo_limits(args, plan, tmp: Path) -> dict:
+    """``GLOO_PROBES`` in one launch of the ranks: ``{name: "ok" | what
+    happened}``.  A collective gloo cannot carry may crash its ranks; the
+    ones after it are then not probed."""
+    got = launch_lm_ranks(args, plan, tmp, "probe", ["--probe"], timeout=120)
+    out = {}
+    for name in GLOO_PROBES:
+        why = []
+        for r, (rc, text, _) in enumerate(got):
+            seen = [json.loads(ln[6:]) for ln in text.splitlines() if ln.startswith("PROBE ")]
+            res = next((p[name] for p in seen if name in p), None)
+            if res is None and len(seen) == GLOO_PROBES.index(name) and rc != 0:
+                tail = " | ".join(text.strip().splitlines()[-2:])
+                why.append(f"rank {r} exited {rc}{' (SIGSEGV)' if rc == -11 else ''}: {tail}")
+            elif res is None:
+                why.append(f"rank {r}: not probed (exit {rc})")
+            elif res != "ok":
+                why.append(f"rank {r}: {res}")
+        out[name] = "; ".join(why)[:400] if why else "ok"
+    return out
+
+
+def lm_sharded_ranks_check(args, tmp: Path, plan) -> dict:
+    """The ranks against the world of one: loss, grad norm and parameters of
+    both layouts, the depth-cut zamba2's tokens, #8 and #9 on every rank."""
+    t0 = time.perf_counter()
+    probe = gloo_limits(args, plan, tmp)
+    if any(v != "ok" for v in probe.values()):
+        log(f"lm_sharded_ranks: GLOO LIMIT on {plan.device} tensors: {probe}; the ranks stop "
+            "after the probe, the multi-rank proof stays with the CPU tests "
+            "(tests/test_torch_distributed.py)")
+        return {"gloo_limit": probe, "wall_s": time.perf_counter() - t0}
+    out = check_lm_ranks(launch_lm_ranks(args, plan, tmp, "main"), tmp, plan)
+    return {"wall_s": time.perf_counter() - t0, "probe": probe, **out}
+
+
+def check_lm_ranks(got, tmp: Path, plan) -> dict:
+    """Each launched rank's results against the world of one's (under
+    ``tmp``): loss, grad norm and parameters of both layouts, the depth-cut
+    zamba2's tokens, #8 and #9 on every rank."""
+    for r, (rc, text, res) in enumerate(got):
+        if rc != 0 or res is None:
+            raise AssertionError(f"lm rank {r} exited {rc}:\n{text[-3000:]}")
+    ranks = [res for _, _, res in got]
+    ref = [SimpleNamespace(**r) for r in json.loads((tmp / "zamba_ref.json").read_text())]
+    for r in ranks:
+        for layout, t in r["train"].items():
+            if abs(t["loss"] - t["loss_ref"]) > SHARD_LOSS_RTOL * abs(t["loss_ref"]) or \
+                    not params_ok(t):
+                raise AssertionError(f"rank {r['rank']} {layout}: {t}")
+        streams = compare_streams([SimpleNamespace(**q) for q in r["serve"]["requests"]], ref,
+                                  LM_ATOL)
+        if streams["tokens_equal"] != streams["tokens"]:
+            raise AssertionError(f"rank {r['rank']}: tokens differ from the world of one's "
+                                 f"{streams}")
+        # #8 and #9 once a layer a prefill, on the rank's half of the heads
+        # (the CPU branch of a wrapper launches nothing)
+        waves = len(r["serve"]["waves"])
+        want = {k: n * waves if on_card(plan.device) else 0
+                for k, n in lm_layer_counts(plan.cut_cfg).items()}
+        if r["serve"]["launches"] != want:
+            raise AssertionError(f"rank {r['rank']}: launches {r['serve']['launches']}, "
+                                 f"want {want}")
+    return {"ranks": [
+        {"rank": r["rank"], "train": r["train"], "serve_s": r["serve"]["wall_s"],
+         "prefill_s": [w["prefill_s"] for w in r["serve"]["waves"]],
+         "decode_s_per_step": [w["decode_s"] / max(w["decode_steps"], 1)
+                               for w in r["serve"]["waves"]],
+         "launches": r["serve"]["launches"]} for r in ranks]}
+
+
+def dryrun_check(tmp: Path, cell: tuple[str, str]) -> dict:
+    """The two dry runs as a user runs them, in two subprocesses side by side
+    (``cell`` the LM one's arch and shape); their artifacts read back."""
+    repo = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(repo / "src")}
+    arch, shape = cell
+    runs = {"dryrun": (["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                        "--mesh", "single"], f"{arch}__{shape}__single.json"),
+            "dryrun_engine": (["-m", "repro_torch.launch.dryrun_engine"],
+                              "needletail-engine__anyk__single.json")}
+    t0 = time.perf_counter()
+    logs = {name: open(tmp / f"{name}.log", "w+") for name in runs}
+    procs = {name: subprocess.Popen([sys.executable, *cmd, "--out", str(tmp)], cwd=repo,
+                                    env=env, stdout=logs[name], stderr=subprocess.STDOUT)
+             for name, (cmd, _) in runs.items()}
+    walls, out = {}, {}
+    try:
+        while len(walls) < len(procs):  # each one's own wall: poll both
+            if time.perf_counter() - t0 > DRYRUN_TIMEOUT_S:
+                raise AssertionError(f"the dry runs outlived {DRYRUN_TIMEOUT_S} s")
+            for name, p in procs.items():
+                if name not in walls and p.poll() is not None:
+                    walls[name] = time.perf_counter() - t0
+            time.sleep(0.1)
+        for name, p in procs.items():
+            logs[name].seek(0)
+            if p.returncode != 0:
+                raise AssertionError(f"{name} exited {p.returncode}:\n{logs[name].read()[-3000:]}")
+            res = json.loads((tmp / runs[name][1]).read_text())
+            if res["status"] != "ok":
+                raise AssertionError(f"{name}: {res['status']}")
+            out[name] = {"wall_s": walls[name], "memory": res["memory"],
+                         "flops_per_device": res["analyzer"]["flops_per_device"],
+                         "collective_bytes_per_device":
+                             res["analyzer"]["collective_bytes_per_device"],
+                         "per_collective": res["analyzer"]["per_collective"],
+                         "num_devices": res["num_devices"]}
+    finally:
+        for name, p in procs.items():
+            p.kill()
+            p.wait()
+            logs[name].close()
+    return out
+
+
+def sharded_lm_phases(args, card: str, phase_launches: dict, plan=None, run=None) -> dict:
+    """lm_sharded, lm_sharded_ranks and dryrun, each logged beside the card;
+    ``plan`` and ``run`` are the card's unless a rehearsal gives its own.
+    Returns the three phases' results."""
+    plan = plan or shard_plan()
+    run = run or run_phase
+    cfg = plan.train_cfg
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        t0 = time.perf_counter()
+        ls = lm_sharded_check(args, run, tmp, plan)
+        phase_launches["lm_sharded"] = ls.pop("launches")
+        for layout, t in ls["train"].items():
+            log(f"lm_sharded train {cfg.name} [{plan.batch}, {plan.seq}] {layout}: {t} ({card})")
+        log(f"lm_sharded serve {plan.serve_cfg.name} (rules on (1, 1), launcher traffic): "
+            f"{ls['serve']} ({card})")
+        log(f"lm_sharded: {time.perf_counter() - t0:.1f} s in all")
+        lr = lm_sharded_ranks_check(args, tmp, plan)
+        for r in lr.get("ranks", []):
+            log(f"lm_sharded_ranks rank {r['rank']}: {r} ({card})")
+        log(f"lm_sharded_ranks: {SHARD_RANKS} gloo ranks on one card, probe "
+            f"{lr.get('probe', lr.get('gloo_limit'))}, {lr['wall_s']:.1f} s in all")
+        dr, wall, _ = run("dryrun", lambda: dryrun_check(tmp, plan.dryrun_cell))
+        for name, r in dr.items():
+            log(f"{name}: {r}")
+        log(f"dryrun: both artifacts written, {wall:.1f} s in all")
+    return {"lm_sharded": ls, "lm_sharded_ranks": lr, "dryrun": dr}
+
+
 def run_phase(name: str, fn):
     """Zero the launch counters, run ``fn``, read them: ``name``'s kernels
     must all have launched.  Returns ``(result, wall seconds, launches)``."""
@@ -4499,13 +5048,21 @@ def main(argv=None) -> int:
     ap.add_argument("--world", type=int, default=SHARDS, help=argparse.SUPPRESS)
     ap.add_argument("--init", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
+    # one rank of the lm_sharded_ranks phase, and its exchange directory
+    ap.add_argument("--rank-phase", default="engine", choices=["engine", "lm"],
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--io", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--probe", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--small", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     started = time.perf_counter()
 
     import torch
 
     if args.rank is not None:
-        return rank_main(args)
+        return lm_rank_main(args) if args.rank_phase == "lm" else rank_main(args)
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4789,6 +5346,9 @@ def main(argv=None) -> int:
 
     # -- train_stream, train, train_learns, train_archs: training on the card
     train_phases(args, card, phase_launches)
+
+    # -- lm_sharded, lm_sharded_ranks, dryrun: the multi-GPU LM and the dry run
+    sharded_lm_phases(args, card, phase_launches)
 
     entries = kernel_phase(store, queries, batch, phase_launches, rows)
     for e in entries:

@@ -16,6 +16,13 @@ POSIX), then the sentinel.  Leaves are named by path: a
 ``opt.step`` and ``step``; a dict or NamedTuple its keys or fields joined
 by dots.  bf16 tensors (AdamW moments in bf16) are stored as their int16
 bits, the manifest keeping the dtype.
+
+A sharded state (DTensor leaves) is saved as whole arrays: every rank calls
+``full_tensor()`` on each leaf in the same order, rank 0 writes and commits,
+and the ranks meet at a barrier, so no rank returns before the step is
+committed.  ``restore(shardings=)`` loads each whole array and places it on
+the mesh the sharding names (``distribute_tensor``, each rank keeping its
+shard): the elastic restart, saved on one mesh and restored on another.
 """
 from __future__ import annotations
 
@@ -55,6 +62,10 @@ def flatten_state(state: Any, prefix: str = "") -> dict[str, Any]:
     return out
 
 
+def _is_dtensor(t) -> bool:
+    return hasattr(t, "full_tensor") and hasattr(t, "placements")
+
+
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     t = torch.as_tensor(leaf).detach().cpu()
     if t.dtype == torch.bfloat16:
@@ -92,11 +103,18 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any, extra: dict | None = None) -> Path:
         final = self.dir / f"step_{step}"
+        leaves = flatten_state(state)
+        sharded = any(_is_dtensor(v) for v in leaves.values())
+        if sharded:  # every rank gathers every leaf, in one order; rank 0 writes
+            leaves = {k: v.full_tensor() if _is_dtensor(v) else v for k, v in leaves.items()}
+            if torch.distributed.get_rank() != 0:
+                torch.distributed.barrier()
+                return final
         tmp = self.dir / f"step_{step}.tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir(parents=True)
         manifest = {}
-        for pstr, leaf in flatten_state(state).items():
+        for pstr, leaf in leaves.items():
             fname = _leaf_name(pstr)
             arr, dtype = _to_numpy(leaf)
             np.save(tmp / fname, arr)
@@ -118,6 +136,8 @@ class CheckpointManager:
         os.rename(tmp, final)
         (final / "_COMMITTED").touch()
         self._cleanup()
+        if sharded:
+            torch.distributed.barrier()
         return final
 
     def _cleanup(self):
@@ -141,10 +161,20 @@ class CheckpointManager:
         holds the weights); every other tensor leaf comes back as a new
         tensor with the dtype and device of its ``state_like`` leaf.  Raises
         ``KeyError`` on a leaf the checkpoint lacks and ``ValueError`` on a
-        shape mismatch, before anything is written."""
-        if shardings is not None:
-            raise NotImplementedError("restore(shardings=...) reshards across devices: it "
-                                      "arrives with the multi-GPU slice of the port")
+        shape mismatch, before anything is written.
+
+        ``shardings`` mirrors ``state_like`` (a dict of parameter names for
+        a module), its leaves ``distributed.sharding.NamedSharding`` or
+        ``None``: a leaf with a sharding comes back as a DTensor on its mesh
+        with its spec (a module's parameter replaced by one), each rank
+        keeping its shard of the whole array; a DTensor leaf without one
+        keeps its own mesh and placements; the rest load as above."""
+        from repro_torch.distributed.sharding import NamedSharding
+
+        place = flatten_state(shardings) if shardings is not None else {}
+        bad = [k for k, v in place.items() if v is not None and not isinstance(v, NamedSharding)]
+        if bad:
+            raise TypeError(f"shardings leaves must be NamedSharding or None: {bad[:3]}")
         step = step if step is not None else latest_step(self.dir)
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint under {self.dir}")
@@ -163,17 +193,38 @@ class CheckpointManager:
                 raise ValueError(f"shape mismatch for {pstr}: {tuple(t.shape)} vs "
                                  f"{tuple(leaf.shape)}")
             loaded[pstr] = t
-        return _fill(state_like, loaded, ""), step
+        return _fill(state_like, loaded, place, ""), step
 
 
-def _fill(like: Any, loaded: dict, prefix: str) -> Any:
+def _placed(t: torch.Tensor, like, sharding):
+    """Whole array ``t`` on ``like``'s dtype and device, as a DTensor of
+    ``sharding``, or of ``like``'s own placements when ``like`` is one."""
+    from repro_torch.distributed.sharding import distribute, spec_of
+
+    t = t.to(dtype=like.dtype, device=like.device)
+    if sharding is not None:
+        return distribute(t, sharding.mesh, sharding.spec)
+    if _is_dtensor(like):
+        return distribute(t, like.device_mesh, spec_of(like.placements, like.device_mesh, t.dim()))
+    return t
+
+
+def _fill(like: Any, loaded: dict, place: dict, prefix: str) -> Any:
     if isinstance(like, nn.Module):
+        from repro_torch.distributed.sharding import set_parameter
+
+        params = dict(like.named_parameters())
         for k, v in like.state_dict(keep_vars=True).items():
-            v.copy_(loaded[prefix + k])
+            sharding = place.get(prefix + k)
+            if k in params and (sharding is not None or _is_dtensor(v)):
+                set_parameter(like, k, _placed(loaded[prefix + k], v, sharding))
+            else:
+                v.copy_(loaded[prefix + k])
         return like
     if isinstance(like, tuple) and hasattr(like, "_fields"):
-        return type(like)(*(_fill(v, loaded, f"{prefix}{k}.")
+        return type(like)(*(_fill(v, loaded, place, f"{prefix}{k}.")
                             for k, v in zip(like._fields, like)))
     if isinstance(like, dict):
-        return {k: _fill(v, loaded, f"{prefix}{k}.") for k, v in like.items()}
-    return loaded[prefix.rstrip(".")].to(dtype=like.dtype, device=like.device)
+        return {k: _fill(v, loaded, place, f"{prefix}{k}.") for k, v in like.items()}
+    key = prefix.rstrip(".")
+    return _placed(loaded[key], like, place.get(key))

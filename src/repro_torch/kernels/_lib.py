@@ -90,14 +90,29 @@ _SIGNATURES = {
 }
 
 
+def _is_dtensor(t) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 def no_gradient(wrapper):
-    """Decorate a kernel wrapper: under grad mode, raise ``RuntimeError``
-    if a tensor argument (or a tensor in a tuple argument) requires grad,
-    whichever branch the call would take."""
+    """Decorate a kernel wrapper: raise ``TypeError`` if a tensor argument
+    (or a tensor in a tuple argument) is a DTensor (a kernel takes each
+    rank's local tensors: a CPU DTensor must never reach the plain branch
+    unnoticed), and, under grad mode, ``RuntimeError`` if one requires
+    grad, whichever branch the call would take."""
     name = wrapper.__name__
 
     @functools.wraps(wrapper)
     def checked(*args, **kwargs):
+        for a in (*args, *kwargs.values()):
+            for t in a if isinstance(a, tuple) else (a,):
+                if _is_dtensor(t):
+                    raise TypeError(f"{name}: a DTensor argument; call the kernel on each "
+                                    "rank's local tensors (DTensor.to_local())")
         if torch.is_grad_enabled():
             for a in (*args, *kwargs.values()):
                 for t in a if isinstance(a, tuple) else (a,):

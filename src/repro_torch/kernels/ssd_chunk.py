@@ -69,10 +69,12 @@ def ssd_chunked(
     ca = torch.cumsum(ldc, dim=-1)  # [B, H, nc, Q]
     L = decay_matrix(ca)
     scores = torch.einsum("bhnts,bhnqs->bhntq", cc, bc) * L
-    y_intra = torch.einsum("bhntq,bhnqd->bhntd", scores, uc)
+    # a bf16 operand meets an f32 one: promoted to f32, as jnp.einsum does
+    # (a no-op on f32 operands)
+    y_intra = torch.einsum("bhntq,bhnqd->bhntd", scores, uc.to(scores.dtype))
     # carried state across chunks
     wb = torch.exp(ca[..., -1:] - ca)[..., None] * bc  # [B,H,nc,Q,ds]
-    h_chunk = torch.einsum("bhnqs,bhnqd->bhnsd", wb, uc)  # state injected per chunk
+    h_chunk = torch.einsum("bhnqs,bhnqd->bhnsd", wb, uc.to(wb.dtype))  # state injected per chunk
     decay = torch.exp(ca[..., -1])  # [B,H,nc]
     hprev = torch.zeros((b, h, ds_, dh), dtype=torch.float32, device=u.device)
     hprevs = []  # hprevs[n] = state before chunk n
@@ -80,7 +82,8 @@ def ssd_chunked(
         hprevs.append(hprev)
         hprev = decay[:, :, n, None, None] * hprev + h_chunk[:, :, n]
     hprevs = torch.stack(hprevs, dim=2)  # [B,H,nc,ds,dh]
-    y_inter = torch.exp(ca)[..., None] * torch.einsum("bhnts,bhnsd->bhntd", cc, hprevs)
+    y_inter = torch.exp(ca)[..., None] * torch.einsum("bhnts,bhnsd->bhntd",
+                                                      cc.to(hprevs.dtype), hprevs)
     y = (y_intra + y_inter).reshape(b, h, s, dh)
     if return_state:
         return y.to(u.dtype), hprev

@@ -15,12 +15,34 @@ import torch.distributed as dist
 from repro_torch.device import resolve_device
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 256- and 512-chip TPU meshes have no counterpart yet."""
-    raise NotImplementedError(
-        "production meshes arrive with the multi-GPU LM slice (MeshRules, "
-        "distributed/sharding.py)"
-    )
+PRODUCTION_MESHES = {  # multi_pod -> (shape, axis names), the reference's
+    False: ((16, 16), ("data", "model")),
+    True: ((2, 16, 16), ("pod", "data", "model")),
+}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """The reference's production mesh over an initialised world of exactly
+    its size: ``(16, 16)`` ``("data", "model")`` over 256 ranks, or
+    ``(2, 16, 16)`` ``("pod", "data", "model")`` over 512.  Rank ``r`` sits at
+    the row-major coordinate of ``r``, so ``model`` is the fastest axis (on
+    8-card nodes a ``model`` group of 16 spans two nodes).  Any other world
+    raises.  ``device_type`` is ``"cuda"`` unless the caller names ``"cpu"``
+    (the dry run's fake world)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape, names = PRODUCTION_MESHES[bool(multi_pod)]
+    n = 1
+    for d in shape:
+        n *= d
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(f"make_production_mesh needs an initialised world of {n} ranks")
+    if dist.get_world_size() != n:
+        raise ValueError(f"the production mesh {shape} takes a world of {n} ranks, "
+                         f"not {dist.get_world_size()}")
+    if device_type != "cpu":
+        device_type = resolve_device(device_type).type
+    return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=names)
 
 
 def make_host_mesh(model: int = 1, device_type: str = "cuda"):

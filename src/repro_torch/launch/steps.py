@@ -11,6 +11,17 @@ The train step differentiates :func:`repro_torch.models.lm.loss_fn` with
 autograd on the plain path (``impl="plain"``, the reference's default
 ``"xla"``): the reference's Pallas kernels define no gradient, and neither
 do the port's #8 and #9, so ``impl="kernel"`` is refused.
+
+``rules`` (a :class:`~repro_torch.models.layers.MeshRules`; keyword-only
+here, where the reference takes it second) runs each step over a mesh.  A
+sharded train state holds the model's parameters as DTensors placed by
+``distributed.sharding.train_state_specs``
+(``distributed.sharding.distribute_params`` before
+:func:`make_train_state`), and the AdamW moments as DTensors of the same
+placements (ZeRO); ``step`` is replicated.  Every gradient is brought to its
+parameter's placements, the clip takes the norm over the whole DTensors,
+and the update runs on each rank's shards.  Batches are the whole batch on
+every rank.
 """
 from __future__ import annotations
 
@@ -62,6 +73,8 @@ def make_train_step(
     clip: float = 1.0,
     impl: str = "plain",
     remat: bool | str = True,
+    *,
+    rules=None,
 ):
     """``train_step(state, batch) -> (state, {"loss", "grad_norm", "lr"})``
     over ``batch["tokens"]`` and ``batch["labels"]``: the loss and its
@@ -83,9 +96,11 @@ def make_train_step(
                              "with make_train_state")
         with torch.enable_grad():
             lval = M.loss_fn(model, batch["tokens"], batch["labels"], impl=impl, remat=remat,
-                             **family_inputs(cfg, batch))
+                             rules=rules, **family_inputs(cfg, batch))
             gs = torch.autograd.grad(lval, list(params.values()), allow_unused=True,
                                      materialize_grads=True)
+        if rules is not None:
+            gs = [g.redistribute(p.device_mesh, p.placements) for g, p in zip(gs, params.values())]
         grads, gnorm = clip_by_global_norm(dict(zip(params, gs)), clip)
         lr = warmup_cosine(state.opt.step, peak_lr, warmup, total_steps)
         _, opt = adamw_update(params, grads, state.opt, lr)
@@ -95,26 +110,28 @@ def make_train_step(
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig, impl: str = "kernel", max_seq: int | None = None):
+def make_prefill_step(cfg: ArchConfig, impl: str = "kernel", max_seq: int | None = None, *,
+                      rules=None):
     """``prefill_step(model, batch) -> (last logits [B, V], cache)`` over
     ``batch["tokens"]``, with ``batch["enc_frames"]`` for an
     encoder-decoder and ``batch["patch_embeds"]`` for a VLM;
-    ``impl="kernel"`` runs kernels #8 and #9 on the card."""
+    ``impl="kernel"`` runs kernels #8 and #9 on the card (under ``rules``
+    on each rank's shards)."""
     check_supported(cfg)
     check_impl(impl)
 
     def prefill_step(model, batch):
-        return D.prefill(model, batch["tokens"], impl=impl, max_seq=max_seq,
+        return D.prefill(model, batch["tokens"], impl=impl, max_seq=max_seq, rules=rules,
                          **family_inputs(cfg, batch))
 
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(cfg: ArchConfig, *, rules=None):
     """``decode_step(model, cache, tokens, pos) -> (logits [B, V], cache)``."""
     check_supported(cfg)
 
     def decode_step(model, cache, tokens, pos):
-        return D.decode_step(model, cache, tokens, pos)
+        return D.decode_step(model, cache, tokens, pos, rules=rules)
 
     return decode_step

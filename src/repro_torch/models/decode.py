@@ -42,14 +42,23 @@ Where JAX returns new arrays, :func:`decode_step` writes the new K/V row and
 the new Mamba state into ``cache`` in place and returns it: a copy of every
 layer's cache per token would cost the card as much time as the step
 itself.
+
+``rules`` (a :class:`~repro_torch.models.layers.MeshRules`) runs both over a
+mesh: :func:`prefill` returns its cache as DTensors placed by
+``distributed.sharding.cache_specs`` and its logits as a DTensor;
+:func:`decode_step` takes such a cache.  Each rank attends with its batch
+rows and heads against its local cache shard, written in place where the
+cache's placement is the attention's own layout (else the cache is
+redistributed to that layout for the step and back).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import cache_specs, spec_of
 from repro_torch.models import layers as L
 from repro_torch.models.lm import LM, attn_window, check_supported, cross_call, ffn
 
@@ -88,6 +97,17 @@ def init_cache(
     return cache
 
 
+def _ring(k: torch.Tensor, t: int, s: int) -> torch.Tensor:
+    """A prompt's ``k`` or ``v`` ``[B, S, Kv, hd]`` as a cache of ``t``
+    slots: a ring (slot ``i % t`` for ``i`` in ``[s − t, s)``) when the
+    prompt is longer, else padded to full capacity."""
+    if t < s:
+        return torch.roll(k[:, s - t:], (s - t) % t, dims=1)
+    if t > s:
+        return F.pad(k, (0, 0, 0, 0, 0, t - s))
+    return k
+
+
 def _ring_len(ch: str, cfg: ArchConfig, max_seq: int) -> int:
     """Cache slots of an attention layer: ``min(window, max_seq)`` for an
     ``L`` layer with a window, ``max_seq`` otherwise."""
@@ -99,23 +119,35 @@ def _ring_len(ch: str, cfg: ArchConfig, max_seq: int) -> int:
 # ----------------------------------------------------------------------------
 
 
-def _attn_decode(x, p, cache: dict, pos: int, cfg: ArchConfig, windowed: bool) -> torch.Tensor:
+def _attn_decode(x, p, cache: dict, pos: int, cfg: ArchConfig, windowed: bool,
+                 rules=None) -> torch.Tensor:
     """x [B, 1, D]; writes the new K/V at ``pos`` (``windowed``: at ring
     slot ``pos % W``) into ``cache`` in place."""
-    b = x.shape[0]
+    if rules is not None:
+        return _attn_decode_sharded(x, p, cache, pos, cfg, windowed, rules)
     q = torch.einsum("bsd,dhq->bshq", x, p.wq)
     k = torch.einsum("bsd,dhq->bshq", x, p.wk)
     v = torch.einsum("bsd,dhq->bshq", x, p.wv)
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    posb = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    o = _attend_cache(q, k, v, cache, pos, cfg, windowed)
+    return torch.einsum("bshq,hqd->bsd", o, p.wo)
+
+
+def _attend_cache(q, k, v, cache: dict, pos: int, cfg: ArchConfig, windowed: bool,
+                  expand=None) -> torch.Tensor:
+    """Rope ``q``, ``k`` ``[B, 1, ·, hd]`` at ``pos``, write ``k``, ``v`` into
+    ``cache`` (local tensors) and attend over it.  ``expand`` maps the
+    cache's kv heads to the query heads' (a sharded step's GQA split)."""
+    b = q.shape[0]
+    posb = torch.full((b, 1), pos, dtype=torch.long, device=q.device)
     q = L.rope(q, posb, cfg.rope_theta)
     k = L.rope(k, posb, cfg.rope_theta)
     t = cache["k"].shape[1]
     slot = pos % t if windowed else pos
     cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-    idx = torch.arange(t, device=x.device)
+    idx = torch.arange(t, device=q.device)
     if windowed:
         # the absolute position in each ring slot; remainder, not fmod: the
         # dividend is negative for slots past pos, and jnp.mod floors
@@ -123,18 +155,72 @@ def _attn_decode(x, p, cache: dict, pos: int, cfg: ArchConfig, windowed: bool) -
         k_pos = torch.where(k_pos >= 0, k_pos, -(10**9))
     else:
         k_pos = torch.where(idx <= pos, idx, -(10**9))
-    o = L.xla_flash_attention(
-        q, cache["k"], cache["v"], causal=True, window=t if windowed else None,
+    ck, cv = cache["k"], cache["v"]
+    if expand is not None:
+        ck, cv = expand(ck), expand(cv)
+    return L.xla_flash_attention(
+        q, ck, cv, causal=True, window=t if windowed else None,
         k_positions=k_pos.expand(b, t), q_positions=posb,
     )
-    return torch.einsum("bshq,hqd->bsd", o, p.wo)
 
 
-def _mamba_decode(x, p, cache: dict, cfg: ArchConfig) -> torch.Tensor:
+def _local_cache(rules, cache: dict, specs: dict) -> dict:
+    """The local tensors of ``cache``'s DTensors in the step's layouts
+    ``specs`` (the cache's own shards, written in place, where its placement
+    is that layout)."""
+    return {key: rules.local(cache[key], spec) for key, spec in specs.items()}
+
+
+def _store_cache(rules, cache: dict, local: dict, specs: dict) -> None:
+    """Put the step's local tensors back into ``cache`` as DTensors with the
+    placements the cache had."""
+    for key, spec in specs.items():
+        old = cache[key]
+        cache[key] = rules.wrap(local[key], old.shape, spec).redistribute(
+            old.device_mesh, old.placements)
+
+
+def _attn_decode_sharded(x, p, cache: dict, pos: int, cfg: ArchConfig, windowed: bool,
+                         rules) -> torch.Tensor:
+    b = x.shape[0]
+    bdp, tph, tpk = L.head_layout(rules, b, cfg.num_heads, cfg.num_kv_heads)
+    xl = rules.local(x, (bdp, None, None))
+    lp = rules.local_params(p, {"wq": (None, tph, None), "wk": (None, tpk, None),
+                                "wv": (None, tpk, None), "wo": (tph, None, None),
+                                "bq": (tph, None), "bk": (tpk, None), "bv": (tpk, None)})
+    q = torch.einsum("bsd,dhq->bshq", xl, lp.wq)
+    k = torch.einsum("bsd,dhq->bshq", xl, lp.wk)
+    v = torch.einsum("bsd,dhq->bshq", xl, lp.wv)
+    if cfg.qkv_bias:
+        q, k, v = q + lp.bq, k + lp.bk, v + lp.bv
+    specs = {"k": (bdp, None, tpk, None), "v": (bdp, None, tpk, None)}
+    local = _local_cache(rules, cache, specs)
+    expand = None
+    if tph is not None and tpk is None:
+        def expand(t):
+            return L.rank_kv_heads(rules, t, cfg.num_heads, tph)
+    o = _attend_cache(q, k, v, local, pos, cfg, windowed, expand)
+    _store_cache(rules, cache, local, specs)
+    out = torch.einsum("bshq,hqd->bsd", o, lp.wo)
+    return rules.hidden(rules.wrap(out, x.shape, (bdp, None, None), partial=tph))
+
+
+def _mamba_decode(x, p, cache: dict, cfg: ArchConfig, rules=None) -> torch.Tensor:
     """x [B, 1, D]; replaces ``cache``'s conv and ssd states in place."""
+    if rules is not None:
+        b = x.shape[0]
+        bdp, tpd = rules.batch_axes(b), rules.split_axis(cfg.n_ssm_heads)
+        specs = {"conv": (bdp, None, tpd), "ssd": (bdp, tpd, None, None)}
+        local = _local_cache(rules, cache, specs)
+        out = _mamba_decode(rules.local(x, (bdp, None, None)),
+                            L.mamba_local_params(p, rules, tpd, ()), local, cfg)
+        _store_cache(rules, cache, local, specs)
+        return rules.hidden(rules.wrap(out, x.shape, (bdp, None, None), partial=tpd))
     sc = cfg.ssm
     b = x.shape[0]
-    di, nh, hd = cfg.d_inner, cfg.n_ssm_heads, sc.head_dim
+    hd = sc.head_dim
+    nh = p.a_log.shape[0]
+    di = nh * hd
     x0 = x[:, 0]
     z = torch.einsum("bd,de->be", x0, p.w_z)
     xin = torch.einsum("bd,de->be", x0, p.w_x)  # [B, di]
@@ -156,36 +242,38 @@ def _mamba_decode(x, p, cache: dict, cfg: ArchConfig) -> torch.Tensor:
 
 
 def _sub_decode(x, p, cache: dict, pos: int, cfg: ArchConfig, shared,
-                cross=None) -> torch.Tensor:
+                cross=None, rules=None) -> torch.Tensor:
     if p.ch == "M":
-        return x + _mamba_decode(L.apply_norm(x, p.norm, cfg.norm), p.mamba, cache, cfg)
+        return x + _mamba_decode(L.apply_norm(x, p.norm, cfg.norm), p.mamba, cache, cfg, rules)
     ap = shared.attn if p.ch == "A" else p.attn
     x = x + _attn_decode(L.apply_norm(x, p.norm1, cfg.norm), ap, cache, pos, cfg,
-                         windowed=(p.ch == "L"))
+                         windowed=(p.ch == "L"), rules=rules)
     if cross is not None:
         x = x + cross(x)
-    return x + ffn(L.apply_norm(x, p.norm2, cfg.norm), p, cfg, shared)
+    return x + ffn(L.apply_norm(x, p.norm2, cfg.norm), p, cfg, shared, rules)
 
 
 def decode_step(
-    model: LM, cache: Cache, tokens: torch.Tensor, pos: int,
+    model: LM, cache: Cache, tokens: torch.Tensor, pos: int, rules=None,
 ) -> tuple[torch.Tensor, Cache]:
     """One decode step for the whole batch: ``tokens [B]`` at position
     ``pos``.  Returns ``(logits [B, vocab], cache)``, ``cache`` updated in
-    place."""
+    place (under ``rules`` its leaves are replaced by DTensors of the same
+    placements)."""
     cfg = model.cfg
     pos = int(pos)
-    h = model.embed_tokens(tokens)[:, None, :]
+    tokens = torch.as_tensor(tokens, device=model.device)[:, None]
+    h = model.embed_inputs(tokens, rules=rules)
     # the reference's decode attends cross in the scanned cycles only
     cycled = cfg.num_layers // len(cfg.layer_pattern) * len(cfg.layer_pattern)
     for i, (layer, c) in enumerate(zip(model.layers, cache)):
         cross = None
         if cfg.family == "encdec" and i < cycled:
-            cross = cross_call(model, (c["cross_k"], c["cross_v"]), i, layer.ch, "plain")
-        h = _sub_decode(h, layer, c, pos, cfg, model.shared_attn, cross)
+            cross = cross_call(model, (c["cross_k"], c["cross_v"]), i, layer.ch, "plain", rules)
+        h = _sub_decode(h, layer, c, pos, cfg, model.shared_attn, cross, rules)
     h = L.apply_norm(h, model.final_norm, cfg.norm)
-    logits = torch.einsum("bsd,dv->bsv", h, model.head())[:, 0, : cfg.vocab]
-    return logits, cache
+    logits = model.logits(h, rules)
+    return logits[:, 0], cache
 
 
 def prefill(
@@ -195,6 +283,7 @@ def prefill(
     max_seq: int | None = None,  # cache capacity (>= S; default S)
     enc_frames=None,  # [B, S_enc, D] (encoder-decoder)
     patch_embeds=None,  # [B, P, D] (VLM prefix)
+    rules=None,
 ) -> tuple[torch.Tensor, Cache]:
     """Full-sequence prefill: returns ``(last-token logits [B, vocab],
     filled cache)``.  ``G``/``A`` caches are padded to ``max_seq``; an
@@ -210,39 +299,51 @@ def prefill(
     if max_seq < s:
         raise ValueError(f"max_seq={max_seq} is shorter than the prompt ({s})")
     shared = model.shared_attn
-    h = model.embed_inputs(tokens, patch_embeds)
-    kv = model.cross_kv(enc_frames, impl)
-    positions = torch.arange(s, device=h.device).expand(b, s)
+    h = model.embed_inputs(tokens, patch_embeds, rules)
+    kv = model.cross_kv(enc_frames, impl, rules=rules)
+    positions = torch.arange(s, device=model.device).expand(b, s)
     cache: Cache = []
     for i, p in enumerate(model.layers):
         if p.ch == "M":
             out, state = L.mamba_block(L.apply_norm(h, p.norm, cfg.norm), p.mamba, cfg, impl,
-                                       return_state=True)
+                                       return_state=True, rules=rules)
             cache.append(state)
             h = h + out
             continue
         ap = shared.attn if p.ch == "A" else p.attn
         hh = L.apply_norm(h, p.norm1, cfg.norm)
         o, (k, v) = L.attention(hh, ap, cfg, causal=True, window=attn_window(p.ch, cfg),
-                                positions=positions, impl=impl, return_kv=True)
+                                positions=positions, impl=impl, return_kv=True, rules=rules)
         h = h + o
-        cross = cross_call(model, kv and kv[i], i, p.ch, impl)
+        cross = cross_call(model, kv and kv[i], i, p.ch, impl, rules)
         if cross is not None:
             h = h + cross(h)
-        h = h + ffn(L.apply_norm(h, p.norm2, cfg.norm), p, cfg, shared)
+        h = h + ffn(L.apply_norm(h, p.norm2, cfg.norm), p, cfg, shared, rules)
         t = _ring_len(p.ch, cfg, max_seq)
-        if t < s:  # the ring: slot(i) = i % t for i in [s − t, s)
-            shift = (s - t) % t
-            k = torch.roll(k[:, s - t:], shift, dims=1)
-            v = torch.roll(v[:, s - t:], shift, dims=1)
-        elif t > s:  # pad to full capacity
-            k = F.pad(k, (0, 0, 0, 0, 0, t - s))
-            v = F.pad(v, (0, 0, 0, 0, 0, t - s))
+        if rules is None:
+            k, v = _ring(k, t, s), _ring(v, t, s)
+        else:  # the sequence dim is whole in each rank's k and v
+            k, v = (rules.wrap(_ring(x.to_local(), t, s), (b, t, *x.shape[2:]),
+                               spec_of(x.placements, rules.mesh, 4)) for x in (k, v))
         cache.append({"k": k, "v": v})
     if kv is not None:
         for layer, (ck, cv) in zip(cache, kv):
             layer["cross_k"], layer["cross_v"] = ck, cv
     h = L.apply_norm(h, model.final_norm, cfg.norm)
-    logits = torch.einsum("bd,dv->bv", h[:, -1], model.head())[:, : cfg.vocab]
-    return logits, cache
+    if rules is None:
+        logits = torch.einsum("bd,dv->bv", h[:, -1], model.head())[:, : cfg.vocab]
+        return logits, cache
+    bdp = rules.batch_axes(b)
+    last = rules.local(h, (bdp, None, None))[:, -1:]
+    logits = model.logits(rules.wrap(last, (b, 1, h.shape[2]), (bdp, None, None)), rules)
+    return logits[:, 0], place_cache(cache, cfg, max_seq, rules)
+
+
+def place_cache(cache: Cache, cfg: ArchConfig, max_seq: int, rules) -> Cache:
+    """Every leaf of ``cache`` (DTensors) redistributed to its
+    ``cache_specs`` placement for a batch of ``B`` rows and ``max_seq``
+    positions."""
+    b = cache[0][next(iter(cache[0]))].shape[0]
+    specs = cache_specs(cache, cfg, ShapeConfig("decode", max_seq, b, "decode"), rules.mesh)
+    return [{k: rules.cs(layer[k], *spec[k]) for k in layer} for layer, spec in zip(cache, specs)]
 

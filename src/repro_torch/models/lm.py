@@ -28,6 +28,15 @@ default) runs attention (the encoder's and the cross-attention too,
 without a causal mask) and the SSD through the hand-written kernels on the
 card, ``"plain"`` through the reference's pure-tensor forms.
 
+``rules`` (a :class:`~repro_torch.models.layers.MeshRules`) runs the model
+over a ``DeviceMesh`` whose parameters are DTensors
+(``distributed.sharding.distribute_params``): tokens are the whole batch on
+every rank, each rank embeds its batch rows against its vocabulary rows (a
+masked lookup, the rows summed over ``model``), the residual stream is a
+DTensor in the ``hidden`` layout, and the logits come out as a DTensor
+``[B, S, vocab]`` with the batch over the data axes.  ``rules=None`` is the
+one-device path, unchanged.
+
 :func:`loss_fn` is the training loss.  ``remat`` rematerialises at the
 reference's granularity: one ``torch.utils.checkpoint`` per whole pattern
 cycle (the reference's scanned cycle body; a trailing partial cycle is not
@@ -204,21 +213,48 @@ class LM(nn.Module):
     def head(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
-    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+    def embed_tokens(self, tokens: torch.Tensor, rules=None) -> torch.Tensor:
         idx = torch.as_tensor(tokens, device=self.device).long()
+        if rules is not None:
+            return self._embed_sharded(idx, rules)
         return self.embed[idx] * (self.cfg.d_model**0.5)
 
-    def embed_inputs(self, tokens: torch.Tensor, patch_embeds=None) -> torch.Tensor:
+    def _embed_sharded(self, idx: torch.Tensor, rules) -> torch.Tensor:
+        """The rank's batch rows looked up in its vocabulary rows (zero for a
+        token another rank holds), a partial sum over ``model``: a DTensor
+        ``[B, ..., D]`` with the batch over the data axes."""
+        bdp = rules.batch_axes(idx.shape[0])
+        tpv = rules.split_axis(self.cfg.vocab_padded)
+        tail = (None,) * (idx.dim() - 1)
+        ids = rules.rows(idx, (bdp, *tail))
+        emb = rules.local(self.embed, (tpv, None), rules.split(bdp))
+        if tpv is not None:
+            ids = ids - rules.coord(tpv) * emb.shape[0]
+            held = (ids >= 0) & (ids < emb.shape[0])
+            rows = emb[ids.clamp(0, emb.shape[0] - 1)] * held[..., None].to(emb.dtype)
+        else:
+            rows = emb[ids]
+        rows = rows * (self.cfg.d_model**0.5)
+        return rules.wrap(rows, (*idx.shape, self.cfg.d_model), (bdp, *tail, None), partial=tpv)
+
+    def embed_inputs(self, tokens: torch.Tensor, patch_embeds=None, rules=None) -> torch.Tensor:
         """Token embeddings ``[B, S, D]``; with ``patch_embeds [B, P, D]`` the
         first P positions are the patches (``cat([patches, h[:, P:]])``, as
-        the reference: a prompt shorter than P comes out P long)."""
-        h = self.embed_tokens(tokens)
+        the reference: a prompt shorter than P comes out P long).  Under
+        ``rules`` a DTensor in the ``hidden`` layout."""
+        h = self.embed_tokens(tokens, rules)
         if patch_embeds is not None:
-            pe = torch.as_tensor(patch_embeds, device=self.device).to(h.dtype)
-            h = torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
-        return h
+            pe = torch.as_tensor(patch_embeds, device=self.device).to(self.embed.dtype)
+            if rules is None:
+                return torch.cat([pe, h[:, pe.shape[1]:]], dim=1)
+            bdp = rules.batch_axes(h.shape[0])
+            hl = rules.local(h, (bdp, None, None), rules.split(bdp))
+            hl = torch.cat([rules.rows(pe, (bdp, None, None)), hl[:, pe.shape[1]:]], dim=1)
+            h = rules.wrap(hl, (h.shape[0], hl.shape[1], h.shape[2]), (bdp, None, None))
+        return L.cs(rules, h, "hidden")
 
-    def cross_kv(self, enc_frames, impl: str, remat: bool | str = False) -> list | None:
+    def cross_kv(self, enc_frames, impl: str, remat: bool | str = False,
+                 rules=None) -> list | None:
         """Per decoder layer, the encoder output's cross ``(k, v)``; ``None``
         unless an encoder-decoder."""
         if self.cfg.family != "encdec":
@@ -226,22 +262,22 @@ class LM(nn.Module):
         if enc_frames is None:
             raise ValueError(f"{self.cfg.name}: an encoder-decoder takes enc_frames [B, S_enc, D]")
         frames = torch.as_tensor(enc_frames, device=self.device).to(self.embed.dtype)
-        return project_cross_kv(self.cross, encode(self, frames, impl, remat))
+        return project_cross_kv(self.cross, encode(self, frames, impl, remat, rules), rules)
 
     def forward(self, tokens: torch.Tensor, impl: str = "kernel", enc_frames=None,
-                patch_embeds=None, remat: bool | str = False) -> torch.Tensor:
+                patch_embeds=None, remat: bool | str = False, rules=None) -> torch.Tensor:
         """``tokens [B, S]`` -> logits ``[B, S, vocab]``; an encoder-decoder
         takes ``enc_frames``, a VLM may take ``patch_embeds``.  ``remat``
         (off by default: serving keeps no graph) checkpoints each whole
         pattern cycle, and each encoder layer, under grad mode."""
-        h = self.embed_inputs(tokens, patch_embeds)
-        kv = self.cross_kv(enc_frames, impl, remat)
+        h = self.embed_inputs(tokens, patch_embeds, rules)
+        kv = self.cross_kv(enc_frames, impl, remat, rules)
 
         def run(x, lo: int, hi: int):
             for i in range(lo, hi):
                 layer = self.layers[i]
-                cross = cross_call(self, kv and kv[i], i, layer.ch, impl)
-                x = block(x, layer, self.cfg, self.shared_attn, impl, cross)
+                cross = cross_call(self, kv and kv[i], i, layer.ch, impl, rules)
+                x = block(x, layer, self.cfg, self.shared_attn, impl, cross, rules)
             return x
 
         period = len(self.cfg.layer_pattern)
@@ -250,8 +286,28 @@ class LM(nn.Module):
             h = rematerialised(run, remat, h, c * period, (c + 1) * period)
         h = run(h, n_cycles * period, len(self.layers))
         h = L.apply_norm(h, self.final_norm, self.cfg.norm)
-        logits = torch.einsum("bsd,dv->bsv", h, self.head())
-        return logits[..., : self.cfg.vocab]
+        return self.logits(h, rules)
+
+    def logits(self, h: torch.Tensor, rules=None) -> torch.Tensor:
+        """``h [B, S, D]`` (normed) -> logits ``[B, S, vocab]``.  Under
+        ``rules`` each rank multiplies its batch rows by its vocabulary
+        columns of the head, and the columns are gathered: a DTensor with
+        the batch over the data axes."""
+        if rules is None:
+            return torch.einsum("bsd,dv->bsv", h, self.head())[..., : self.cfg.vocab]
+        b, s, _ = h.shape
+        bdp = rules.batch_axes(b)
+        tpv = rules.split_axis(self.cfg.vocab_padded)
+        split = rules.split(bdp, tpv)
+        hl = rules.local(h, (bdp, None, None), split)
+        if self.cfg.tie_embeddings:
+            head = rules.local(self.embed, (tpv, None), split).T
+        else:
+            head = rules.local(self.lm_head, (None, tpv), split)
+        out = rules.wrap(torch.einsum("bsd,dv->bsv", hl, head), (b, s, self.cfg.vocab_padded),
+                         (bdp, None, tpv))
+        out = rules.local(out, (bdp, None, None), rules.split(bdp))[..., : self.cfg.vocab]
+        return rules.wrap(out, (b, s, self.cfg.vocab), (bdp, None, None))
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -279,31 +335,33 @@ def rematerialised(fn, remat: bool | str, *args):
 
 
 def block(x: torch.Tensor, p: Sublayer, cfg: ArchConfig, shared, impl: str,
-          cross=None) -> torch.Tensor:
+          cross=None, rules=None) -> torch.Tensor:
     """One pattern sublayer (the reference's ``lm._block``).  ``cross``
     (optional) is a residual cross-attention applied between
     self-attention and the FFN (decoder order)."""
     if p.ch == "M":
-        return x + L.mamba_block(L.apply_norm(x, p.norm, cfg.norm), p.mamba, cfg, impl)
+        return x + L.mamba_block(L.apply_norm(x, p.norm, cfg.norm), p.mamba, cfg, impl,
+                                 rules=rules)
     ap = shared.attn if p.ch == "A" else p.attn
     h = L.apply_norm(x, p.norm1, cfg.norm)
-    x = x + L.attention(h, ap, cfg, causal=True, window=attn_window(p.ch, cfg), impl=impl)
+    x = x + L.attention(h, ap, cfg, causal=True, window=attn_window(p.ch, cfg), impl=impl,
+                        rules=rules)
     if cross is not None:
         x = x + cross(x)
-    return x + ffn(L.apply_norm(x, p.norm2, cfg.norm), p, cfg, shared)
+    return x + ffn(L.apply_norm(x, p.norm2, cfg.norm), p, cfg, shared, rules)
 
 
-def ffn(h: torch.Tensor, p: Sublayer, cfg: ArchConfig, shared) -> torch.Tensor:
+def ffn(h: torch.Tensor, p: Sublayer, cfg: ArchConfig, shared, rules=None) -> torch.Tensor:
     """A sublayer's feed-forward: the shared block's MLP for ``A``, the MoE
     when ``cfg.moe``, else its own MLP."""
     if p.ch == "A":
-        return L.mlp(h, shared.mlp, cfg.act)
+        return L.mlp(h, shared.mlp, cfg.act, rules)
     if cfg.moe:
-        return L.moe(h, p.moe, cfg)
-    return L.mlp(h, p.mlp, cfg.act)
+        return L.moe(h, p.moe, cfg, rules)
+    return L.mlp(h, p.mlp, cfg.act, rules)
 
 
-def cross_call(model: LM, kv_row, row: int, ch: str, impl: str):
+def cross_call(model: LM, kv_row, row: int, ch: str, impl: str, rules=None):
     """The residual cross-attention of decoder layer ``row`` over its
     encoder ``kv_row = (k, v)`` (``G`` and ``L`` sublayers only), or
     ``None``."""
@@ -313,12 +371,12 @@ def cross_call(model: LM, kv_row, row: int, ch: str, impl: str):
 
     def cross(x):
         return L.attention(L.apply_norm(x, cp.norm, cfg.norm), cp.attn, cfg, causal=False,
-                           window=None, kv=kv_row, impl=impl)
+                           window=None, kv=kv_row, impl=impl, rules=rules)
     return cross
 
 
 def encode(model: LM, frames: torch.Tensor, impl: str = "kernel",
-           remat: bool | str = False) -> torch.Tensor:
+           remat: bool | str = False, rules=None) -> torch.Tensor:
     """Whisper-style encoder over stub frame embeddings ``[B, S_enc, D]``
     (the reference's ``lm.encode``): sinusoidal positions added, then the
     ``G`` sublayers with bidirectional attention (#8 without the causal
@@ -331,23 +389,43 @@ def encode(model: LM, frames: torch.Tensor, impl: str = "kernel",
     half = torch.arange(d // 2, dtype=torch.float32, device=dev) / (d // 2)
     pos = torch.arange(s, dtype=torch.float32, device=dev)[:, None] / (10_000 ** half)[None, :]
     pe = torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1).to(frames.dtype)
-    h = frames + pe[None]
+    if rules is None:
+        h = frames + pe[None]
+    else:
+        bdp = rules.batch_axes(frames.shape[0])
+        h = rules.hidden(rules.wrap(rules.rows(frames, (bdp, None, None)) + pe[None],
+                                    frames.shape, (bdp, None, None)))
 
     def layer(x, p):
         hh = L.apply_norm(x, p.norm1, cfg.norm)
-        x = x + L.attention(hh, p.attn, cfg, causal=False, window=None, impl=impl)
-        return x + L.mlp(L.apply_norm(x, p.norm2, cfg.norm), p.mlp, cfg.act)
+        x = x + L.attention(hh, p.attn, cfg, causal=False, window=None, impl=impl, rules=rules)
+        return x + L.mlp(L.apply_norm(x, p.norm2, cfg.norm), p.mlp, cfg.act, rules)
 
     for p in model.encoder:
         h = rematerialised(layer, remat, h, p)
     return L.apply_norm(h, model.enc_final_norm, cfg.norm)
 
 
-def project_cross_kv(cross, enc_out: torch.Tensor) -> list[tuple[torch.Tensor, torch.Tensor]]:
+def project_cross_kv(cross, enc_out: torch.Tensor,
+                     rules=None) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """Per decoder layer, ``(k, v) [B, S_enc, Kv, hd]`` from the encoder
-    output: neither roped nor biased (the reference's ``_project_cross_kv``)."""
-    return [(torch.einsum("bsd,dhq->bshq", enc_out, cp.attn.wk),
-             torch.einsum("bsd,dhq->bshq", enc_out, cp.attn.wv)) for cp in cross]
+    output: neither roped nor biased (the reference's ``_project_cross_kv``).
+    Under ``rules`` DTensors in the attention's kv-head layout."""
+    if rules is None:
+        return [(torch.einsum("bsd,dhq->bshq", enc_out, cp.attn.wk),
+                 torch.einsum("bsd,dhq->bshq", enc_out, cp.attn.wv)) for cp in cross]
+    if not cross:
+        return []
+    b, s, _ = enc_out.shape
+    _, h, hd = cross[0].attn.wq.shape
+    kv = cross[0].attn.wk.shape[1]
+    bdp, _, tpk = L.head_layout(rules, b, h, kv)
+    split = rules.split(bdp, tpk)
+    el = rules.local(enc_out, (bdp, None, None), split)
+    return [tuple(rules.wrap(torch.einsum("bsd,dhq->bshq", el,
+                                          rules.local(w, (None, tpk, None), split)),
+                             (b, s, kv, hd), (bdp, None, tpk, None))
+                  for w in (cp.attn.wk, cp.attn.wv)) for cp in cross]
 
 
 def attn_window(ch: str, cfg: ArchConfig) -> int | None:
@@ -357,24 +435,32 @@ def attn_window(ch: str, cfg: ArchConfig) -> int | None:
 
 
 def forward(model: LM, tokens: torch.Tensor, impl: str = "kernel", enc_frames=None,
-            patch_embeds=None, remat: bool | str = False) -> torch.Tensor:
+            patch_embeds=None, remat: bool | str = False, rules=None) -> torch.Tensor:
     """Returns logits ``[B, S, vocab]`` (the reference's ``lm.forward``)."""
     return model(tokens, impl=impl, enc_frames=enc_frames, patch_embeds=patch_embeds,
-                 remat=remat)
+                 remat=remat, rules=rules)
 
 
 def loss_fn(model: LM, tokens: torch.Tensor, labels: torch.Tensor, impl: str = "plain",
-            remat: bool | str = True, **kw) -> torch.Tensor:
+            remat: bool | str = True, rules=None, **kw) -> torch.Tensor:
     """The mean next-token negative log-likelihood (the reference's
     ``lm.loss_fn``): the f32 ``log_softmax`` of the logits, each label's
-    log-probability picked by ``gather`` (the reference's masked reduction
-    exists for a vocabulary sharded across devices; on one card the pick is
-    the same value), negated and averaged.  ``kw`` takes ``enc_frames`` and
-    ``patch_embeds``."""
-    logits = model(tokens, impl=impl, remat=remat, **kw)
+    log-probability picked by ``gather``, negated and averaged.  ``kw``
+    takes ``enc_frames`` and ``patch_embeds``.  Under ``rules`` each rank
+    takes its batch rows of the logits, whole over the vocabulary (the
+    reference keeps the vocabulary sharded and picks by a masked
+    reduction; the port gathers the rows' logits instead), and the mean runs
+    over the whole batch: the loss is the same plain scalar on every rank."""
+    logits = model(tokens, impl=impl, remat=remat, rules=rules, **kw)
+    idx = torch.as_tensor(labels, device=model.device).long()
+    if rules is not None:
+        bdp = rules.batch_axes(idx.shape[0])
+        lg = rules.local(logits, (bdp, None, None))
+        ll = torch.gather(F.log_softmax(lg.to(torch.float32), dim=-1), -1,
+                          rules.rows(idx, (bdp, None))[..., None])[..., 0]
+        return -rules.wrap(ll, idx.shape, (bdp, None)).mean().full_tensor()
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
-    idx = torch.as_tensor(labels, device=logp.device).long()[..., None]
-    return -torch.mean(torch.gather(logp, -1, idx)[..., 0])
+    return -torch.mean(torch.gather(logp, -1, idx[..., None])[..., 0])
 
 
 # ----------------------------------------------------------------------------

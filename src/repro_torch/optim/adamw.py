@@ -25,9 +25,16 @@ def adamw_init(params: dict[str, torch.Tensor], state_dtype=torch.float32) -> Ad
     """Zero moments in ``state_dtype`` beside each parameter; step 0."""
     first = next(iter(params.values()), None)
     dev = first.device if first is not None else torch.device("cpu")
-    m = {n: torch.zeros(p.shape, dtype=state_dtype, device=p.device) for n, p in params.items()}
+    # zeros_like: a DTensor parameter gets DTensor moments of its placements (ZeRO)
+    m = {n: torch.zeros_like(p, dtype=state_dtype, requires_grad=False)
+         for n, p in params.items()}
     v = {n: t.clone() for n, t in m.items()}
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev), m=m, v=v)
+
+
+def _square_sum(g: torch.Tensor) -> torch.Tensor:
+    s = torch.sum(torch.square(g.to(torch.float32)))
+    return s.full_tensor() if hasattr(s, "full_tensor") else s
 
 
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -42,8 +49,9 @@ def clip_by_global_norm(
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
     """``(grads · min(1, max_norm / max(gn, 1e-9)), gn)``, ``gn`` the f32
     square root of the sum of the leaves' f32 squares; each leaf cast back
-    to its dtype."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in grads.values()))
+    to its dtype.  A DTensor leaf's sum of squares is taken over the whole
+    tensor (``full_tensor``), so every rank scales by the same ``gn``."""
+    gn = torch.sqrt(sum(_square_sum(g) for g in grads.values()))
     scale = torch.clamp(_scalar(max_norm, gn) / torch.clamp(gn, min=1e-9), max=1.0)
     return {n: (g.to(torch.float32) * scale).to(g.dtype) for n, g in grads.items()}, gn
 

@@ -153,10 +153,28 @@ def _merge_lm_cache_rows(cache: D.Cache, joined: D.Cache, row_mask: np.ndarray) 
     rows = None
     for live, new in zip(cache, joined):
         for key, a in live.items():
+            b = new[key]
+            if hasattr(a, "to_local"):  # DTensors of one placement: each rank's own rows
+                a, b, local_rows = a.to_local(), b.to_local(), _local_rows(live[key], rows_np)
+                if local_rows.size:
+                    r = torch.from_numpy(local_rows).to(a.device)
+                    a.index_copy_(0, r, b.index_select(0, r).to(a.dtype))
+                continue
             if rows is None:
                 rows = torch.from_numpy(rows_np).to(a.device)
-            a.index_copy_(0, rows, new[key].index_select(0, rows).to(a.dtype))
+            a.index_copy_(0, rows, b.index_select(0, rows).to(a.dtype))
     return cache
+
+
+def _local_rows(dt, rows: np.ndarray) -> np.ndarray:
+    """The batch rows ``rows`` that this rank holds of DTensor ``dt``, as
+    indices into its local tensor."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(dt.shape, dt.device_mesh,
+                                                          dt.placements)
+    lo = offset[0]
+    return rows[(rows >= lo) & (rows < lo + shape[0])] - lo
 
 
 class SlotScheduler:
@@ -270,8 +288,13 @@ class ServeEngine:
     ``cfg=None, model=None`` serves exemplars and aggregates only.  The
     engine runs on ``device`` (``"cuda"`` by default; ``"cpu"`` only when
     asked); the any-k engines handed to its exemplar and aggregate methods
-    must live there too.  ``impl`` picks the LM prefill path.  The rest
-    follows the reference: ``exemplar_policy`` / ``aggregate_policy`` (the
+    must live there too.  ``impl`` picks the LM prefill path.  ``rules``
+    (a :class:`~repro_torch.models.layers.MeshRules`) serves the LM over a
+    mesh, as the reference's ``rules`` does: the model's parameters are
+    DTensors (``distributed.sharding.distribute_params``), every rank runs
+    the same engine with the same requests, prefill and decode run under
+    ``rules`` (the cache placed by ``cache_specs``), and each rank samples
+    from the whole logits.  The rest follows the reference: ``exemplar_policy`` / ``aggregate_policy`` (the
     admission policies, ``max_wave = max_slots`` by default) on ``clock``;
     ``exemplar_mesh`` attached to the any-k engine on its first wave;
     ``exemplar_device`` (the device-resident wave), ``exemplar_residency``
@@ -290,6 +313,7 @@ class ServeEngine:
         pad_id: int = 0,
         impl: str = "kernel",
         device: str | torch.device = "cuda",
+        rules=None,
         exemplar_policy: AdmissionPolicy | None = None,
         clock=time.monotonic,
         exemplar_mesh=None,
@@ -316,6 +340,7 @@ class ServeEngine:
         self.eos_id = eos_id
         self.pad_id = pad_id
         self.impl = impl
+        self.rules = rules
         self.exemplar_mesh = exemplar_mesh
         self.exemplar_device = bool(exemplar_device)
         # the residency probe peeks the host-mirror plan memo: device waves
@@ -368,6 +393,8 @@ class ServeEngine:
     def _greedy(self, logits: torch.Tensor, slots: list, rows) -> np.ndarray:
         """Argmax tokens of ``rows``, appended to ``slots[b]``; records each
         row's top-2 logit gap.  One device→host copy per call."""
+        if self.rules is not None:
+            logits = logits.full_tensor()
         top = torch.topk(logits, 2, dim=-1).values
         packed = torch.stack([torch.argmax(logits, dim=-1).to(top.dtype),
                               top[:, 0] - top[:, 1]], dim=1).cpu().numpy()
@@ -379,14 +406,14 @@ class ServeEngine:
 
     def _prefill(self, toks: np.ndarray):
         return D.prefill(self.model, torch.from_numpy(toks).to(self.device), impl=self.impl,
-                         max_seq=self.max_seq)
+                         max_seq=self.max_seq, rules=self.rules)
 
     def _decode(self, cache, slots: list, active, pos: int):
         cur = np.full(self.max_slots, self.pad_id, np.int64)
         for b in active:
             cur[b] = slots[b].out_tokens[-1]
         logits, cache = D.decode_step(self.model, cache, torch.from_numpy(cur).to(self.device),
-                                      pos)
+                                      pos, rules=self.rules)
         return self._greedy(logits, slots, sorted(active)), cache
 
     def _finished(self, r: Request, tok: int) -> bool:

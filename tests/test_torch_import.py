@@ -59,6 +59,20 @@ def test_importing_every_port_module_leaves_jax_and_repro_out():
             'repro_torch.models.decode', 'repro_torch.serving.engine',
             'repro_torch.launch.serve', 'repro_torch.launch.steps',
             'repro_torch.core.sharded', 'repro_torch.launch.mesh'} <= set(mods)
+    assert {'repro_torch.distributed', 'repro_torch.distributed.sharding',
+            'repro_torch.launch.specs', 'repro_torch.launch.dryrun',
+            'repro_torch.launch.dryrun_engine', 'repro_torch.configs.needletail_synth',
+            'repro_torch.launch.train', 'repro_torch.optim',
+            'repro_torch.checkpoint.manager', 'repro_torch.data.pipeline'} <= set(mods)
+
+
+def test_port_has_every_reference_module_but_three():
+    """The diff of the two packages' module lists leaves only ``compat``,
+    ``kernels/ref`` and ``launch/hlo_analysis`` on the reference's side."""
+    ref = {p.relative_to(REPO / "src" / "repro") for p in (REPO / "src" / "repro").rglob("*.py")}
+    port = {p.relative_to(PORT) for p in PORT.rglob("*.py")}
+    assert {str(p) for p in ref - port} == {"compat.py", "kernels/ref.py",
+                                            "launch/hlo_analysis.py"}
 
 
 @pytest.mark.parametrize(
@@ -228,6 +242,45 @@ def test_chip_smoke_without_cuda_fails_and_prints_no_result(tmp_path, alone):
     )
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_kernel_wrappers_refuse_dtensors(tmp_path):
+    """A DTensor reaching a kernel wrapper raises ``TypeError`` (a CPU
+    DTensor would otherwise take the plain branch unnoticed): #8, #9 and #1
+    through the one decorator; their local tensors run."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.density_combine import density_combine
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = DeviceMesh("cpu", torch.arange(1), mesh_dim_names=("data",))
+
+        def dt(t):
+            return distribute_tensor(t, mesh, [Replicate()])
+
+        q = torch.randn(1, 2, 8, 4)
+        u, ld = torch.randn(1, 2, 128, 8), -torch.rand(1, 2, 128)
+        bc = torch.randn(1, 2, 128, 8)
+        dens, rows = torch.rand(3, 10), torch.tensor([0, 2], dtype=torch.int32)
+        calls = {
+            "flash_attention": (lambda t: ops.flash_attention(t, q, q), q),
+            "ssd_scan": (lambda t: ops.ssd_scan(u, ld, t, bc), bc),
+            "density_combine": (lambda t: density_combine(t, rows), dens),
+        }
+        for name, (call, x) in calls.items():
+            with pytest.raises(TypeError, match=f"{name}: a DTensor argument"):
+                call(dt(x))
+            assert torch.equal(call(dt(x).to_local()), call(x))
+    finally:
+        dist.destroy_process_group()
 
 
 def test_kernel_wrappers_refuse_inputs_that_require_grad():

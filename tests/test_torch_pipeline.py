@@ -9,7 +9,7 @@ filter, a single predicate and the empty filter, and its state equals the
 reference's after every batch.  The checkpoint tests mirror
 ``tests/test_substrate.py:23-110`` on the port, then add what the port's
 state adds: a ``TrainState`` with bf16 moments round trip, the model filled
-in place, and ``restore(shardings=)`` refused until the multi-GPU slice.
+in place, and ``restore(shardings=)`` without a mesh (``None`` leaves).
 """
 import json
 
@@ -182,10 +182,16 @@ def test_checkpoint_shape_mismatch_and_missing_leaf_raise(tmp_path):
 
 
 def test_restore_with_shardings_raises_until_the_multi_gpu_slice(tmp_path):
+    """The multi-GPU slice has landed: ``restore(shardings=)`` no longer
+    raises ``NotImplementedError``.  A ``None`` sharding restores the leaf
+    unplaced; a leaf that is not a ``NamedSharding`` is refused.  (Placing
+    on a mesh is tested with a world in ``test_torch_distributed.py``.)"""
     mgr = CheckpointManager(tmp_path)
-    mgr.save(1, {"x": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        mgr.restore({"x": torch.zeros(2)}, shardings={"x": None})
+    mgr.save(1, {"x": torch.arange(2.0)})
+    out, step = mgr.restore({"x": torch.zeros(2)}, shardings={"x": None})
+    assert step == 1 and torch.equal(out["x"], torch.arange(2.0))
+    with pytest.raises(TypeError, match="NamedSharding"):
+        mgr.restore({"x": torch.zeros(2)}, shardings={"x": ("data",)})
 
 
 def test_train_state_round_trip_bf16_moments_fills_the_model(tmp_path):
