@@ -1,0 +1,2 @@
+"""Device idle share of the profiled stretch, in the sample mix."""
+from bench.readers import device_idle_pct as read  # noqa: F401

@@ -1,0 +1,2 @@
+"""Host ms a device plan round takes, in the sample mix."""
+from bench.readers import plan_ms as read  # noqa: F401
