@@ -60,7 +60,14 @@ a ``batch.run`` span, each host-mirror round a ``plan.round`` span, each
 union read a ``wave.execute`` span, and each device round a
 ``device.transfer`` and a ``plan.round`` event; their attributes come from
 host copies the loops already hold (the device wave's from its one packed
-transfer), so tracing adds no synchronisation.
+transfer), so tracing adds no synchronisation.  The port's host steps are
+spans of their own (:data:`~repro_torch.obs.trace.HOST_STEP_SPANS`): a
+device round is a ``plan.device_round`` of ``plan.join``, ``plan.device``
+and ``plan.choose``; a union read is ``wave.read``, ``wave.records`` (a
+``records.select`` and a ``records.copy`` a chunk, then ``records.split``)
+and ``wave.bookkeep``.  ``wave.records`` carries the ``records`` it
+extracted and the ``d2h_bytes`` their copies to the host produced, counted
+only while tracing.
 """
 from __future__ import annotations
 
@@ -80,6 +87,7 @@ from repro_torch.kernels.density_combine import exclusion_ids
 from repro_torch.kernels.plan_wave import (
     apply_chosen, join_wave_slots, pack_plan, plan_wave_from_combined, unpack_plan,
 )
+from repro_torch.obs.trace import span_or_null
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.core.engine import NeedleTailEngine, QueryResult
@@ -317,32 +325,37 @@ class DeviceWave:
         """The queued joiners' rows in one :func:`_wave_rows` (one ⊕-combine
         for the pair lists, #2, or #3 on this rank's λ-shard with a sharded
         planner; Predicate trees compiled beside it), then one scatter seats
-        them all."""
+        them all.  Traced as ``plan.join``."""
         if not self._joining:
             return
-        joining, self._joining = self._joining, []
-        dev = self.engine.device
-        rows = _wave_rows(self.engine, [self.slots[slot].query for slot in joining],
-                          planner=self.planner)
-        excl_rows = np.zeros((len(joining), self.lam), dtype=bool)
-        for j, slot in enumerate(joining):
-            ex = self.slots[slot].exclude
-            if ex.size:
-                excl_rows[j, ex] = True
-        ds = self.state
-        ds.combined0, ds.excl, ds.th_mask, ds.tp_win = join_wave_slots(
-            ds.combined0, ds.excl, ds.th_mask, ds.tp_win,
-            torch.as_tensor(joining, device=dev), rows,
-            torch.from_numpy(excl_rows).to(dev),
-        )
+        with span_or_null(self.engine.obs, "plan.join"):
+            joining, self._joining = self._joining, []
+            dev = self.engine.device
+            rows = _wave_rows(self.engine, [self.slots[slot].query for slot in joining],
+                              planner=self.planner)
+            excl_rows = np.zeros((len(joining), self.lam), dtype=bool)
+            for j, slot in enumerate(joining):
+                ex = self.slots[slot].exclude
+                if ex.size:
+                    excl_rows[j, ex] = True
+            ds = self.state
+            ds.combined0, ds.excl, ds.th_mask, ds.tp_win = join_wave_slots(
+                ds.combined0, ds.excl, ds.th_mask, ds.tp_win,
+                torch.as_tensor(joining, device=dev), rows,
+                torch.from_numpy(excl_rows).to(dev),
+            )
 
     def plan_round(self) -> tuple[list[_QueryState], list[np.ndarray]]:
         """One device planning round over the current occupants.
 
         Returns ``(active_states, wave_blocks)`` in slot order, ready for
         :func:`_execute_wave`; both are empty (and nothing is shipped) when
-        no slot is occupied.
+        no slot is occupied.  Traced as a ``plan.device_round`` span.
         """
+        with span_or_null(self.engine.obs, "plan.device_round"):
+            return self._plan_round()
+
+    def _plan_round(self) -> tuple[list[_QueryState], list[np.ndarray]]:
         self._flush_joins()
         active_slots = self.busy_slots()
         active = [self.slots[s] for s in active_slots]
@@ -351,20 +364,36 @@ class DeviceWave:
         engine = self.engine
         dev = engine.device
         ds = self.state
-        needs_np = np.ones((self.qb,), np.float32)
-        for s, st in zip(active_slots, active):
-            needs_np[s] = float(st.need)
-        packed, ds.excl, ds.th_mask, ds.tp_win = self.round_fn(
-            ds.combined0, ds.excl, ds.th_mask, ds.tp_win,
-            torch.from_numpy(self.chosen).to(dev), torch.from_numpy(needs_np).to(dev),
-        )
-        # the round's single device→host transfer: the packed [Qb, λ+3] plan
-        packed_np = packed.cpu().numpy()
-        ds.transfers += 1
         obs = engine.obs
-        if obs is not None:
-            obs.event("device.transfer", n=ds.transfers, nbytes=int(packed_np.nbytes),
-                      n_active=len(active))
+        with span_or_null(obs, "plan.device"):
+            needs_np = np.ones((self.qb,), np.float32)
+            for s, st in zip(active_slots, active):
+                needs_np[s] = float(st.need)
+            packed, ds.excl, ds.th_mask, ds.tp_win = self.round_fn(
+                ds.combined0, ds.excl, ds.th_mask, ds.tp_win,
+                torch.from_numpy(self.chosen).to(dev), torch.from_numpy(needs_np).to(dev),
+            )
+            # the round's single device→host transfer: the packed [Qb, λ+3] plan
+            packed_np = packed.cpu().numpy()
+            ds.transfers += 1
+            if obs is not None:
+                obs.event("device.transfer", n=ds.transfers, nbytes=int(packed_np.nbytes),
+                          n_active=len(active))
+        with span_or_null(obs, "plan.choose"):
+            wave_blocks = self._choose(active_slots, active, packed_np)
+            if obs is not None:
+                union = _union(wave_blocks)
+                obs.event("plan.round", site="device", n_active=len(active),
+                          n_blocks=int(union.size), choices=_choices(active),
+                          predicted_io_s=float(engine.cost.io_time(union)))
+        return active, wave_blocks
+
+    def _choose(self, active_slots: list[int], active: list[_QueryState],
+                packed_np: np.ndarray) -> list[np.ndarray]:
+        """Each occupant's blocks from the round's packed plan: its planner's
+        choice (``auto``: both costed on the host, the cheaper taken, and its
+        choice code noted for the next round's replay), less its exclusions."""
+        engine = self.engine
         th_mask, _, tps, tpe = unpack_plan(packed_np, self.lam)
         # forward_optimal occupants plan on the host DP, from the host mirror
         # of their rows (exclusions applied), as the reference does
@@ -403,12 +432,7 @@ class DeviceWave:
             if blocks.size == 0:
                 st.done = True  # plan exhausted: nothing new to read
             wave_blocks.append(blocks)
-        if obs is not None:
-            union = _union(wave_blocks)
-            obs.event("plan.round", site="device", n_active=len(active),
-                      n_blocks=int(union.size), choices=_choices(active),
-                      predicted_io_s=float(engine.cost.io_time(union)))
-        return active, wave_blocks
+        return wave_blocks
 
 
 def _union(wave_blocks: list[np.ndarray]) -> np.ndarray:
@@ -441,7 +465,7 @@ def _predicate_table(states: list[_QueryState]):
 
 
 def _wave_records(
-    slabs, union: np.ndarray, states: list[_QueryState], blocks: list[np.ndarray]
+    slabs, union: np.ndarray, states: list[_QueryState], blocks: list[np.ndarray], obs=None,
 ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Extract each query's matching records over its own blocks from the
     round's union slabs ``(dims [U, R, r], measures [U, R, s], valid [U, R])``
@@ -453,50 +477,67 @@ def _wave_records(
     (AND over the pairs from ``True``, OR from ``False``; padded slots are
     the identity), or for a Predicate tree its ``mask`` over the query's
     pairs of the group, ANDed with the valid rows.
+
+    With ``obs`` this is a ``wave.records`` span: each chunk of pairs a
+    ``records.select`` (its copies to the card, the masks, the synchronising
+    ``nonzero``) and a ``records.copy`` (the measures' gather and the two
+    copies to the host), then a ``records.split``; the span carries the
+    ``records`` and the ``d2h_bytes`` its copies to the host produced.
     """
-    dims_u, meas_u, valid_u = slabs
-    dev = dims_u.device
-    r = dims_u.shape[1]
-    sizes = np.asarray([b.size for b in blocks])
-    pos = np.concatenate([np.searchsorted(union, b) for b in blocks])
-    owner = np.repeat(np.arange(len(states)), sizes)
-    attrs, vals, is_or = _predicate_table(states)
-    trees = np.asarray([isinstance(st.query.predicates, Predicate) for st in states])
-    rows_idx = torch.arange(r, device=dev)[None, :]
-    pair_hits, rec_rows, rec_meas = [], [], []
-    for lo in range(0, pos.size, _PAIR_CHUNK):
-        p = torch.from_numpy(pos[lo:lo + _PAIR_CHUNK]).to(dev)
-        own = owner[lo:lo + _PAIR_CHUNK]
-        a_p = torch.from_numpy(attrs[own]).to(dev)  # [P, γ_max]
-        v_p = torch.from_numpy(vals[own]).to(dev)
-        acc_and = torch.ones((p.numel(), r), dtype=torch.bool, device=dev)
-        acc_or = torch.zeros_like(acc_and)
-        for g in range(attrs.shape[1]):
-            pad = (a_p[:, g] < 0)[:, None]
-            col = dims_u[p[:, None], rows_idx, a_p[:, g].clamp(min=0)[:, None]]
-            eq = col == v_p[:, g][:, None]
-            acc_and &= eq | pad
-            acc_or |= eq & ~pad
-        or_p = torch.from_numpy(is_or[own]).to(dev)[:, None]
-        mask = torch.where(or_p, acc_or, acc_and)
-        for j in np.unique(own[trees[own]]):
-            sel = torch.from_numpy(np.flatnonzero(own == j)).to(dev)
-            mask[sel] = states[j].query.predicates.mask(dims_u[p[sel]])
-        mask &= valid_u[p]
-        hit = torch.nonzero(mask)  # [n, 2] (pair, row), row-major order
-        rec_meas.append(meas_u[p[hit[:, 0]], hit[:, 1]].cpu().numpy())
-        hit = hit.cpu().numpy()
-        pair_hits.append(hit[:, 0] + lo)
-        rec_rows.append(hit[:, 1])
-    pair = np.concatenate(pair_hits)
-    row = np.concatenate(rec_rows)
-    meas = np.concatenate(rec_meas)
-    block_of_pair = np.concatenate(blocks)
-    bounds = np.searchsorted(pair, np.concatenate([[0], np.cumsum(sizes)]))
-    return [
-        (block_of_pair[pair[b0:b1]], row[b0:b1], meas[b0:b1])
-        for b0, b1 in zip(bounds[:-1], bounds[1:])
-    ]
+    with span_or_null(obs, "wave.records") as sp:
+        dims_u, meas_u, valid_u = slabs
+        dev = dims_u.device
+        r = dims_u.shape[1]
+        sizes = np.asarray([b.size for b in blocks])
+        pos = np.concatenate([np.searchsorted(union, b) for b in blocks])
+        owner = np.repeat(np.arange(len(states)), sizes)
+        attrs, vals, is_or = _predicate_table(states)
+        trees = np.asarray([isinstance(st.query.predicates, Predicate) for st in states])
+        rows_idx = torch.arange(r, device=dev)[None, :]
+        pair_hits, rec_rows, rec_meas = [], [], []
+        d2h_bytes = 0
+        for lo in range(0, pos.size, _PAIR_CHUNK):
+            with span_or_null(obs, "records.select"):
+                p = torch.from_numpy(pos[lo:lo + _PAIR_CHUNK]).to(dev)
+                own = owner[lo:lo + _PAIR_CHUNK]
+                a_p = torch.from_numpy(attrs[own]).to(dev)  # [P, γ_max]
+                v_p = torch.from_numpy(vals[own]).to(dev)
+                acc_and = torch.ones((p.numel(), r), dtype=torch.bool, device=dev)
+                acc_or = torch.zeros_like(acc_and)
+                for g in range(attrs.shape[1]):
+                    pad = (a_p[:, g] < 0)[:, None]
+                    col = dims_u[p[:, None], rows_idx, a_p[:, g].clamp(min=0)[:, None]]
+                    eq = col == v_p[:, g][:, None]
+                    acc_and &= eq | pad
+                    acc_or |= eq & ~pad
+                or_p = torch.from_numpy(is_or[own]).to(dev)[:, None]
+                mask = torch.where(or_p, acc_or, acc_and)
+                for j in np.unique(own[trees[own]]):
+                    sel = torch.from_numpy(np.flatnonzero(own == j)).to(dev)
+                    mask[sel] = states[j].query.predicates.mask(dims_u[p[sel]])
+                mask &= valid_u[p]
+                hit = torch.nonzero(mask)  # [n, 2] (pair, row), row-major order
+            with span_or_null(obs, "records.copy"):
+                m = meas_u[p[hit[:, 0]], hit[:, 1]].cpu().numpy()
+                hit = hit.cpu().numpy()
+            if obs is not None:
+                d2h_bytes += m.nbytes + hit.nbytes
+            rec_meas.append(m)
+            pair_hits.append(hit[:, 0] + lo)
+            rec_rows.append(hit[:, 1])
+        with span_or_null(obs, "records.split"):
+            pair = np.concatenate(pair_hits)
+            row = np.concatenate(rec_rows)
+            meas = np.concatenate(rec_meas)
+            block_of_pair = np.concatenate(blocks)
+            bounds = np.searchsorted(pair, np.concatenate([[0], np.cumsum(sizes)]))
+            out = [
+                (block_of_pair[pair[b0:b1]], row[b0:b1], meas[b0:b1])
+                for b0, b1 in zip(bounds[:-1], bounds[1:])
+            ]
+        if obs is not None:
+            sp.set(records=int(pair.size), d2h_bytes=d2h_bytes)
+    return out
 
 
 def _execute_wave(
@@ -529,40 +570,45 @@ def _execute_wave_body(
     touched: list[int],
     touched_set: set[int],
 ) -> tuple[bool, int]:
+    obs = engine.obs
     cache = engine.block_cache
-    union = _union(wave_blocks)
-    if union.size:
-        for b in union:
-            if int(b) not in touched_set:
-                touched_set.add(int(b))
-                touched.append(int(b))
-        cache.ensure(engine.store, union)
-    members = [(st, b) for st, b in zip(active, wave_blocks) if b.size]
-    if not members:
-        return False, 0
-    blocks = [b for _, b in members]
-    slabs = cache.get_wave(union, blocks)
+    with span_or_null(obs, "wave.read"):
+        union = _union(wave_blocks)
+        if union.size:
+            for b in union:
+                if int(b) not in touched_set:
+                    touched_set.add(int(b))
+                    touched.append(int(b))
+            cache.ensure(engine.store, union)
+        members = [(st, b) for st, b in zip(active, wave_blocks) if b.size]
+        if not members:
+            return False, 0
+        blocks = [b for _, b in members]
+        slabs = cache.get_wave(union, blocks)
     if slabs is not None:
-        recs = _wave_records(slabs, union, [st for st, _ in members], blocks)
+        recs = _wave_records(slabs, union, [st for st, _ in members], blocks, obs)
     else:  # the budget cannot hold the union: the reference's per-query reads
-        recs = [
-            engine._records(st.query.predicates, st.query.op, b,
-                            cache.get_many(engine.store, b))
-            for st, b in members
-        ]
-    requested = 0
-    for (st, b), (rb, rr, rm) in zip(members, recs):
-        st.rec_blocks.append(rb)
-        st.rec_rows.append(rr)
-        st.meas.append(rm)
-        st.planned.append(b)
-        requested += int(b.size)
-        st.got += int(rb.size)
-        st.exclude = np.concatenate([st.exclude, b])
-        st.need = st.query.k - st.got
-        st.rounds += 1
-        if st.got >= st.query.k:
-            st.done = True
+        # (a ``wave.records`` span without counters: the copies are the engine's)
+        with span_or_null(obs, "wave.records"):
+            recs = [
+                engine._records(st.query.predicates, st.query.op, b,
+                                cache.get_many(engine.store, b))
+                for st, b in members
+            ]
+    with span_or_null(obs, "wave.bookkeep"):
+        requested = 0
+        for (st, b), (rb, rr, rm) in zip(members, recs):
+            st.rec_blocks.append(rb)
+            st.rec_rows.append(rr)
+            st.meas.append(rm)
+            st.planned.append(b)
+            requested += int(b.size)
+            st.got += int(rb.size)
+            st.exclude = np.concatenate([st.exclude, b])
+            st.need = st.query.k - st.got
+            st.rounds += 1
+            if st.got >= st.query.k:
+                st.done = True
     return True, requested
 
 

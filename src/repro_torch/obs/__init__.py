@@ -12,14 +12,16 @@ The plane is host code: it reads the host clock only and never synchronises
 the card, so a span around device work measures what the host waits for.
 """
 from repro_torch.obs.metrics import MetricsRegistry
-from repro_torch.obs.trace import NULL_SPAN, TraceRecorder
+from repro_torch.obs.trace import HOST_STEP_SPANS, NULL_SPAN, TraceRecorder, span_or_null
 from repro_torch.obs.wave_stats import WAVE_STATS_KEYS, make_wave_stats, record_wave_metrics
 
 __all__ = [
+    "HOST_STEP_SPANS",
     "MetricsRegistry",
     "NULL_SPAN",
     "TraceRecorder",
     "WAVE_STATS_KEYS",
     "make_wave_stats",
     "record_wave_metrics",
+    "span_or_null",
 ]

@@ -26,7 +26,8 @@ Contract:
 
 A span opened inside another records it as its parent, so one serving tick
 is a tree (``serve.exemplar_tick`` → ``plan.round`` / ``wave.execute`` →
-fetch events).
+fetch events).  The port adds :data:`HOST_STEP_SPANS` inside the device
+wave's tick; the reference has none of them.
 """
 from __future__ import annotations
 
@@ -36,6 +37,22 @@ import time
 from collections import deque
 
 from repro_torch.obs.metrics import MetricsRegistry
+
+
+# Spans only the port records: they tile the served device-wave tick into the
+# host steps around the card (claim, the plan round's join / device / choice,
+# the union read, the record chunks' select and copy, the split, the
+# bookkeeping, the retire), so an idle gap of the card is named by the host
+# step it waited on.  The reference plans and gathers inside XLA and has no
+# such steps; a comparison of the two streams drops these names.  Listed
+# innermost first, so a reader that names a moment by the first span over it
+# finds the innermost.
+HOST_STEP_SPANS = (
+    "records.select", "records.copy", "records.split",
+    "wave.read", "wave.records", "wave.bookkeep",
+    "plan.join", "plan.device", "plan.choose", "plan.device_round",
+    "tick.claim", "tick.retire",
+)
 
 
 class _NullSpan:
@@ -54,6 +71,12 @@ class _NullSpan:
 
 
 NULL_SPAN = _NullSpan()
+
+
+def span_or_null(obs, name: str):
+    """``obs.span(name)``, or :data:`NULL_SPAN` when ``obs`` is ``None``: a
+    traced site's one line, one attribute test when untraced."""
+    return NULL_SPAN if obs is None else obs.span(name)
 
 
 class _Span:

@@ -73,6 +73,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import decode as D
 from repro_torch.models.layers import check_impl
 from repro_torch.models.lm import LM
+from repro_torch.obs.trace import span_or_null
 from repro_torch.obs.wave_stats import make_wave_stats, record_wave_metrics
 from repro_torch.serving.admission import AdmissionController, AdmissionPolicy
 
@@ -625,6 +626,13 @@ class ServeEngine:
         with obs.span("serve.exemplar_tick") as sp:
             done = self._exemplar_tick_body(engine, now, drain)
             sp.set(completed=len(done))
+        return done
+
+    def _end_exemplar_tick(self, done: list[ExemplarRequest]) -> list[ExemplarRequest]:
+        """The tick's last step, inside its last span: one ``request.done``
+        event a completed request.  Returns ``done``."""
+        obs = self.obs
+        if obs is not None:
             for req in done:
                 r = req.result
                 obs.event("request.done", rid=req.rid, kind="exemplar",
@@ -643,45 +651,52 @@ class ServeEngine:
         return adm.claim(len(free), now)
 
     def _exemplar_tick_body(self, engine, now, drain: bool) -> list[ExemplarRequest]:
+        """Traced, the tick's host steps are spans in turn: ``tick.claim``,
+        the round (``plan.device_round`` or ``plan.round``, then
+        ``wave.execute``) and ``tick.retire``; the last of them to run ends
+        with the completed requests' ``request.done`` events."""
         from repro_torch.core.multi_query import (
             BatchQuery, _execute_wave, _union, finalize_query_result, new_query_state,
             plan_round_host,
         )
 
-        adm = self._exemplar_admission()
-        self._install_admission_probes(engine, adm)
-        if self.recalibrate_every and hasattr(engine, "recalibrate"):
-            self._ticks_since_cal += 1
-            if self._ticks_since_cal >= self.recalibrate_every:
-                engine.recalibrate()
-                self._ticks_since_cal = 0
-        self._attach_mesh(engine)
-        loop = self._exemplar_loop
-        if (loop is None or loop.engine is not engine or loop.sched.n_slots != self.max_slots
-                or loop.device != self.exemplar_device):
-            loop = self._exemplar_loop = _ExemplarLoop(engine, self.max_slots,
-                                                       self.exemplar_device)
-        loop.sync_store()
-        sched = loop.sched
-        done: list[ExemplarRequest] = []
-        for req in self._claim(adm, sched, now, drain):
-            st = new_query_state(BatchQuery(req.predicates, req.k, req.op))
-            if st.done:  # k <= 0: satisfied with zero rows, never seats
-                req.result = finalize_query_result(engine, st)
-                req.done = True
-                done.append(req)
-                continue
-            slot = sched.join((req, st))
-            if loop.dwave is not None:
-                loop.dwave.join(slot, st)
-        # prefetch overlap: warm the still-pending requests' predicted round-0
-        # union now; its reads land outside the demand window below
-        pf = self._tier_prefetcher(engine)
-        if pf is not None:
-            pf.drain()
-            pf.kick(adm.peek_pending(self.max_slots))
-        if not sched.busy:
-            return done
+        obs = self.obs
+        with span_or_null(obs, "tick.claim"):
+            adm = self._exemplar_admission()
+            self._install_admission_probes(engine, adm)
+            if self.recalibrate_every and hasattr(engine, "recalibrate"):
+                self._ticks_since_cal += 1
+                if self._ticks_since_cal >= self.recalibrate_every:
+                    engine.recalibrate()
+                    self._ticks_since_cal = 0
+            self._attach_mesh(engine)
+            loop = self._exemplar_loop
+            if (loop is None or loop.engine is not engine
+                    or loop.sched.n_slots != self.max_slots
+                    or loop.device != self.exemplar_device):
+                loop = self._exemplar_loop = _ExemplarLoop(engine, self.max_slots,
+                                                           self.exemplar_device)
+            loop.sync_store()
+            sched = loop.sched
+            done: list[ExemplarRequest] = []
+            for req in self._claim(adm, sched, now, drain):
+                st = new_query_state(BatchQuery(req.predicates, req.k, req.op))
+                if st.done:  # k <= 0: satisfied with zero rows, never seats
+                    req.result = finalize_query_result(engine, st)
+                    req.done = True
+                    done.append(req)
+                    continue
+                slot = sched.join((req, st))
+                if loop.dwave is not None:
+                    loop.dwave.join(slot, st)
+            # prefetch overlap: warm the still-pending requests' predicted round-0
+            # union now; its reads land outside the demand window below
+            pf = self._tier_prefetcher(engine)
+            if pf is not None:
+                pf.drain()
+                pf.kick(adm.peek_pending(self.max_slots))
+            if not sched.busy:  # no round: the claim's own completions end the tick
+                return self._end_exemplar_tick(done)
         cache = engine.block_cache
         hits0, store0 = cache.stats.hits, cache.stats.store_blocks_fetched
         tier_fn = getattr(cache, "tier_counters", None)
@@ -699,41 +714,43 @@ class ServeEngine:
             _execute_wave(engine, active, wave_blocks, loop.touched, loop.touched_set)
         finally:
             cache.fetch_log = prev_log
-        sched.tick()
-        for slot in sched.busy_slots():
-            req, st = sched.slots[slot]
-            # a state at the refill cap leaves with what it has, where the
-            # solo loop would have stopped
-            if st.done or st.rounds >= engine.max_refills:
-                req.result = finalize_query_result(engine, st)
-                req.done = True
-                sched.leave(slot)
-                if loop.dwave is not None:
-                    loop.dwave.leave(slot)
-                done.append(req)
-        if pf is not None:
-            pf.observe_wave(_union(wave_blocks))
-        lg = engine.ledger
-        if lg is not None:
-            lg.note_wave()
-        self.last_wave_stats = make_wave_stats(
-            "exemplar",
-            wave_size=len(active),
-            rounds=1,
-            device_transfers=(loop.dwave.transfers - transfers0) if loop.dwave is not None else 0,
-            store_blocks_fetched=int(cache.stats.store_blocks_fetched - store0),
-            cache_hits=int(cache.stats.hits - hits0),
-            unique_blocks=len(loop.touched) - touched0,
-            tiers=({k: v - tier0[k] for k, v in tier_fn().items()}
-                   if tier0 is not None else None),
-            slot_occupancy=sched.occupancy,
-            modeled_store_io_s=sum(engine.cost.io_time(m) for m in missed),
-            pending=adm.pending,
-            prefetch=pf.stats.snapshot() if pf is not None else None,
-            plan_qerror=lg.qerror(site="placement") if lg is not None else None,
-        )
-        self._note_wave_stats()
-        return done
+        with span_or_null(obs, "tick.retire"):
+            sched.tick()
+            for slot in sched.busy_slots():
+                req, st = sched.slots[slot]
+                # a state at the refill cap leaves with what it has, where the
+                # solo loop would have stopped
+                if st.done or st.rounds >= engine.max_refills:
+                    req.result = finalize_query_result(engine, st)
+                    req.done = True
+                    sched.leave(slot)
+                    if loop.dwave is not None:
+                        loop.dwave.leave(slot)
+                    done.append(req)
+            if pf is not None:
+                pf.observe_wave(_union(wave_blocks))
+            lg = engine.ledger
+            if lg is not None:
+                lg.note_wave()
+            self.last_wave_stats = make_wave_stats(
+                "exemplar",
+                wave_size=len(active),
+                rounds=1,
+                device_transfers=((loop.dwave.transfers - transfers0)
+                                  if loop.dwave is not None else 0),
+                store_blocks_fetched=int(cache.stats.store_blocks_fetched - store0),
+                cache_hits=int(cache.stats.hits - hits0),
+                unique_blocks=len(loop.touched) - touched0,
+                tiers=({k: v - tier0[k] for k, v in tier_fn().items()}
+                       if tier0 is not None else None),
+                slot_occupancy=sched.occupancy,
+                modeled_store_io_s=sum(engine.cost.io_time(m) for m in missed),
+                pending=adm.pending,
+                prefetch=pf.stats.snapshot() if pf is not None else None,
+                plan_qerror=lg.qerror(site="placement") if lg is not None else None,
+            )
+            self._note_wave_stats()
+            return self._end_exemplar_tick(done)
 
     def submit_aggregate_request(
         self,

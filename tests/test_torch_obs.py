@@ -8,10 +8,14 @@ registry, the unchanged ``tools/trace_report.py`` reading the port's
 export, and fetch events with predicted and observed I/O.  One case runs
 the same traced serving schedule through both packages on injected clocks
 and compares the two event streams: same names, kinds, ids, parents and
-non-timing attributes, in the same order.
+non-timing attributes, in the same order, once the port's own host-step
+spans (``HOST_STEP_SPANS``) are taken out of its stream.  Those spans are
+checked on their own: where each sits, that each parent's children tile
+it, and their copy counts against the records returned.
 """
 import dataclasses
 import json
+import math
 
 import numpy as np
 import pytest
@@ -25,12 +29,13 @@ from repro.serving.admission import AdmissionPolicy as JaxPolicy
 from repro.serving.engine import ServeEngine as JaxServeEngine
 from repro.storage import make_tier_stack as jax_make_tier_stack
 from repro_torch.convert import cost_model_from_reference as conv
+from repro_torch.core import multi_query
 from repro_torch.core.engine import NeedleTailEngine
 from repro_torch.core.multi_query import BatchQuery
 from repro_torch.data.block_store import Table, build_block_store
 from repro_torch.obs import (
-    NULL_SPAN, WAVE_STATS_KEYS, MetricsRegistry, TraceRecorder, make_wave_stats,
-    record_wave_metrics,
+    HOST_STEP_SPANS, NULL_SPAN, WAVE_STATS_KEYS, MetricsRegistry, TraceRecorder,
+    make_wave_stats, record_wave_metrics,
 )
 from repro_torch.serving import AdmissionPolicy, ServeEngine
 from repro_torch.storage import Tier, TierStack
@@ -139,10 +144,14 @@ def test_disabled_recorder_is_free():
     assert clk.calls == 0 and len(rec.events) == 0 and rec.dropped == 0
 
 
-@pytest.mark.parametrize("device", [False, True], ids=["host", "device"])
-def test_disabled_recorder_through_full_serving_run(store, device):
+@pytest.mark.parametrize("device", [False, True, "chunked"], ids=["host", "device", "chunked"])
+def test_disabled_recorder_through_full_serving_run(store, device, monkeypatch):
     """A disabled recorder wired through the engine, a tier stack, admission
-    and both continuous pools reads the clock zero times."""
+    and both continuous pools, then ``any_k_batch``'s own loop, reads the
+    clock zero times (``chunked``: the device wave with a record chunk of
+    two (query, block) pairs, so every host-step span site runs many times)."""
+    if device == "chunked":
+        monkeypatch.setattr(multi_query, "_PAIR_CHUNK", 2)
     clk = CountingClock()
     rec = TraceRecorder(clock=clk, enabled=False)
     jstack = jax_make_tier_stack(4 * NB, None)
@@ -153,6 +162,7 @@ def test_disabled_recorder_through_full_serving_run(store, device):
     agg = serve.submit_aggregate_request([(0, 1)], 0, 200, error_slo=0.5)
     serve.run_continuous(eng)
     assert all(r.done for r in reqs) and agg.done
+    eng.any_k_batch([BatchQuery(p, k, op) for p, k, op in QUERIES], device=bool(device))
     assert clk.calls == 0 and len(rec.events) == 0
 
 
@@ -160,8 +170,11 @@ def test_disabled_recorder_through_full_serving_run(store, device):
 # Tracing observes, never steers
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("seed,k", [(0, 16), (7, 64), (23, 200), (41, 64)])
-@pytest.mark.parametrize("device", [False, True], ids=["host", "device"])
-def test_any_k_batch_identical_traced(store, seed, k, device):
+@pytest.mark.parametrize("device", [False, True, "chunked"], ids=["host", "device", "chunked"])
+def test_any_k_batch_identical_traced(store, seed, k, device, monkeypatch):
+    if device == "chunked":  # the device wave, its records in chunks of 3 pairs
+        monkeypatch.setattr(multi_query, "_PAIR_CHUNK", 3)
+        device = True
     dim = int(np.random.default_rng(seed).integers(0, 4))
     queries = [BatchQuery([(dim, 1)], k), BatchQuery([(0, 1), (1, 1)], k, "and")]
     plain = NeedleTailEngine(store, device="cpu").any_k_batch(queries, device=device)
@@ -171,9 +184,14 @@ def test_any_k_batch_identical_traced(store, seed, k, device):
         np.testing.assert_array_equal(a.record_block, b.record_block)
         np.testing.assert_array_equal(a.record_row, b.record_row)
         np.testing.assert_array_equal(a.measures, b.measures)
-    names = {e["name"] for e in rec.to_events()}
+    events = rec.to_events()
+    names = {e["name"] for e in events}
     assert {"batch.run", "wave.execute", "plan.round"} <= names
     assert ("device.transfer" in names) == device
+    by_id = {e["id"]: e["name"] for e in events if e["kind"] == "span"}
+    rounds = [by_id[e["parent"]] for e in events if e["name"] == "plan.device_round"]
+    assert rounds if device else not rounds
+    assert set(rounds) <= {"batch.run"}
 
 
 def test_anyk_round_spans_carry_plan_attrs(store):
@@ -322,16 +340,35 @@ def _shape(events):
     return out
 
 
+def _without_host_steps(events):
+    """The port's stream less its ``HOST_STEP_SPANS``, which the reference
+    does not have: each kept event's parent becomes its nearest kept
+    ancestor, and the kept ids are renumbered 1, 2, ... in their order."""
+    dropped = {e["id"]: e["parent"] for e in events
+               if e["kind"] == "span" and e["name"] in HOST_STEP_SPANS}
+
+    def kept(pid):
+        while pid in dropped:
+            pid = dropped[pid]
+        return pid
+
+    out = [e for e in events if e["id"] not in dropped]
+    new = {old: i for i, old in enumerate(sorted(e["id"] for e in out), start=1)}
+    new[0] = 0
+    return [dict(e, id=new[e["id"]], parent=new[kept(e["parent"])]) for e in out]
+
+
 @pytest.mark.parametrize("variant", ["host", "device", "tiered"])
 def test_event_stream_equals_the_reference(variant):
     """The same traced serving schedule through both packages: every event
     and span has the same name, kind, id, parent and non-timing attributes,
     in the same order (the device wave's transfer size is the packed plan's
-    bytes in each package's layout)."""
+    bytes in each package's layout), once the port's host-step spans are
+    taken out (:func:`_without_host_steps`)."""
     device, tiered = variant == "device", variant == "tiered"
     mine, reqs, agg = _traced_run("port", device, tiered)
     ref, jreqs, jagg = _traced_run("ref", device, tiered)
-    a, b = _shape(mine.to_events()), _shape(ref.to_events())
+    a, b = _shape(_without_host_steps(mine.to_events())), _shape(ref.to_events())
     assert len(a) == len(b)
     for x, y in zip(a, b):
         x["attrs"].pop("nbytes", None)
@@ -373,7 +410,12 @@ def test_trace_report_reconstructs_every_request(tmp_path):
     events = load_events(rec.export_jsonl(str(tmp_path / "trace.jsonl")))
     paths = request_paths(events)
     jrec = _traced_run("ref", device=True)[0]
-    assert paths == request_paths(load_events(jrec.export_jsonl(str(tmp_path / "ref.jsonl"))))
+    ref = request_paths(load_events(jrec.export_jsonl(str(tmp_path / "ref.jsonl"))))
+    # the port's host-step spans read the shared injected clock too, so only
+    # the paths' non-timing fields equal the reference's
+    untimed = ("kind", "reason", "ticks", "rounds")
+    assert {rid: [r[f] for f in untimed] for rid, r in paths.items()} == \
+        {rid: [r[f] for f in untimed] for rid, r in ref.items()}
     assert sorted(paths) == sorted([r.rid for r in reqs] + [agg.rid])
     for rid, r in paths.items():
         assert r["kind"] == ("aggregate" if rid == agg.rid else "exemplar")
@@ -432,3 +474,118 @@ def test_fetch_events_carry_predicted_vs_observed_io(store):
     eng.timing_backend = SyntheticTimingBackend({eng.cost.name: eng.cost})
     eng.recalibrate()
     assert rec.to_events()[-1]["name"] == "calibration.refit"
+
+
+# ---------------------------------------------------------------------------
+# The port's host-step spans inside the served device-wave tick
+# ---------------------------------------------------------------------------
+_HOST_STEP_RUNS: dict = {}
+
+
+def _host_step_run(chunk: int):
+    """The traced device-wave run of :func:`_traced_run`, its records taken
+    in chunks of ``chunk`` (query, block) pairs; cached per chunk.  Returns
+    (recorder, exemplar requests, the (query, block) pairs of each
+    ``_wave_records`` call in order)."""
+    if chunk not in _HOST_STEP_RUNS:
+        saved = multi_query._PAIR_CHUNK, multi_query._wave_records
+        pairs: list[int] = []
+
+        def counted(slabs, union, states, blocks, obs=None):
+            pairs.append(sum(int(b.size) for b in blocks))
+            return saved[1](slabs, union, states, blocks, obs)
+
+        multi_query._PAIR_CHUNK, multi_query._wave_records = chunk, counted
+        try:
+            rec, reqs, _ = _traced_run("port", device=True)
+        finally:
+            multi_query._PAIR_CHUNK, multi_query._wave_records = saved
+        _HOST_STEP_RUNS[chunk] = rec, reqs, pairs
+    return _HOST_STEP_RUNS[chunk]
+
+
+CHUNKS = [multi_query._PAIR_CHUNK, 2]
+PARENT = {"tick.claim": "serve.exemplar_tick", "plan.device_round": "serve.exemplar_tick",
+          "plan.join": "plan.device_round", "plan.device": "plan.device_round",
+          "plan.choose": "plan.device_round", "wave.read": "wave.execute",
+          "wave.records": "wave.execute", "records.select": "wave.records",
+          "records.copy": "wave.records", "records.split": "wave.records",
+          "wave.bookkeep": "wave.execute", "tick.retire": "serve.exemplar_tick"}
+
+
+def test_host_step_spans_are_listed_once():
+    """Each once, innermost first: a span's parent, where it is one of them,
+    comes after it."""
+    assert sorted(PARENT) == sorted(HOST_STEP_SPANS) and len(set(HOST_STEP_SPANS)) == 12
+    order = HOST_STEP_SPANS.index
+    assert all(order(PARENT[n]) > order(n) for n in PARENT if PARENT[n] in HOST_STEP_SPANS)
+
+
+@pytest.mark.parametrize("name", list(PARENT))
+def test_host_step_span_sits_under_its_parent(name):
+    events = _host_step_run(CHUNKS[0])[0].to_events()
+    by_id = {e["id"]: e for e in events if e["kind"] == "span"}
+    spans = [e for e in events if e["kind"] == "span" and e["name"] == name]
+    assert spans
+    assert {by_id[e["parent"]]["name"] for e in spans} == {PARENT[name]}
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("parent", ["serve.exemplar_tick", "plan.device_round", "wave.execute",
+                                    "wave.records"])
+def test_children_tile_their_parent(parent, chunk):
+    """Each parent's children follow one another with no clock read between
+    them: the injected clock, which admission shares, steps once from the
+    parent's start to its first child, from each child's end to the next
+    child's start, and from the last child's end to the parent's end."""
+    events = _host_step_run(chunk)[0].to_events()
+    dt = 0.0005  # _traced_run's clock step
+    spans = [e for e in events if e["kind"] == "span" and e["name"] == parent]
+    assert spans
+    for sp in spans:
+        kids = sorted((e for e in events if e["parent"] == sp["id"]),
+                      key=lambda e: e.get("t0", e.get("t")))
+        assert kids and all(k["kind"] == "span" for k in kids), [k["name"] for k in kids]
+        reads = [sp["t0"]] + [t for k in kids for t in (k["t0"], k["t1"])] + [sp["t1"]]
+        for a, b in zip(reads[0::2], reads[1::2]):
+            assert b == a + dt
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_record_copies_count_the_records_returned(chunk):
+    """``d2h_bytes`` of the ``wave.records`` spans is 16 B of (pair, row)
+    int64 and 4 B a measure for each record the answered requests hold;
+    ``records`` is those records; each ``wave.records`` holds a
+    ``records.select`` and a ``records.copy`` a chunk of its pairs, then one
+    ``records.split``."""
+    rec, reqs, pairs = _host_step_run(chunk)
+    events = rec.to_events()
+    s = _stores()[1].measures.shape[-1]
+    records = sum(r.result.num_records for r in reqs)
+    assert records > 0 and all(r.result.measures.shape[1] == s for r in reqs)
+    recs = [e for e in events if e["kind"] == "span" and e["name"] == "wave.records"]
+    assert sum(e["attrs"]["d2h_bytes"] for e in recs) == records * (16 + 4 * s)
+    assert sum(e["attrs"]["records"] for e in recs) == records
+    assert len(recs) == len(pairs)
+    for e, n in zip(recs, pairs):
+        kids = [k["name"] for k in events if k["parent"] == e["id"]]
+        chunks = math.ceil(n / chunk)
+        assert kids == ["records.select", "records.copy"] * chunks + ["records.split"]
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_request_done_ends_the_tick_last_span(chunk):
+    """Each request's one ``request.done`` event sits in ``tick.retire``, or
+    in ``tick.claim`` on a tick without a round, after every other record
+    of that span."""
+    rec, reqs, _ = _host_step_run(chunk)
+    events = rec.to_events()
+    by_id = {e["id"]: e for e in events if e["kind"] == "span"}
+    done = [e for e in events
+            if e["name"] == "request.done" and e["attrs"]["kind"] == "exemplar"]
+    assert sorted(e["attrs"]["rid"] for e in done) == sorted(r.rid for r in reqs)
+    for pid in {e["parent"] for e in done}:
+        assert by_id[pid]["name"] in ("tick.retire", "tick.claim")
+        names = [k["name"] for k in events if k["parent"] == pid]
+        first = names.index("request.done")
+        assert set(names[first:]) == {"request.done"}
