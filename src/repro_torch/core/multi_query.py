@@ -35,7 +35,8 @@ Counterpart of ``repro/core/multi_query.py``.  Q concurrent
    (one store read of the misses); when the cache holds the whole union, one
    gather serves the wave, each query's predicate mask is evaluated on the
    device over its own blocks, and the matching records come back to the
-   host in the reference's order (the query's blocks ascending, then rows).
+   host in the reference's order (the query's blocks ascending, then rows)
+   in one packed copy a round (:func:`_wave_records`).
    When the byte budget cannot hold the union, each query reads through
    ``get_many`` as in the reference.
 
@@ -64,14 +65,15 @@ transfer), so tracing adds no synchronisation.  The port's host steps are
 spans of their own (:data:`~repro_torch.obs.trace.HOST_STEP_SPANS`): a
 device round is a ``plan.device_round`` of ``plan.join``, ``plan.device``
 and ``plan.choose``; a union read is ``wave.read``, ``wave.records`` (a
-``records.select`` and a ``records.copy`` a chunk, then ``records.split``)
+``records.select`` a chunk, then ``records.copy`` and ``records.split``)
 and ``wave.bookkeep``.  ``wave.records`` carries the ``records`` it
-extracted and the ``d2h_bytes`` their copies to the host produced, counted
-only while tracing.
+extracted, and the ``d2h_bytes`` and the ``d2h_copies`` of their one packed
+copy to the host, counted only while tracing.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import TYPE_CHECKING, Sequence
 
@@ -373,8 +375,9 @@ class DeviceWave:
                 ds.combined0, ds.excl, ds.th_mask, ds.tp_win,
                 torch.from_numpy(self.chosen).to(dev), torch.from_numpy(needs_np).to(dev),
             )
-            # the round's single device→host transfer: the packed [Qb, λ+3] plan
-            packed_np = packed.cpu().numpy()
+            # the round's single device→host transfer: the packed [Qb, λ+3]
+            # plan, into a reused buffer that the round's choice reads
+            packed_np = _STAGING.copy("plan", packed).numpy()
             ds.transfers += 1
             if obs is not None:
                 obs.event("device.transfer", n=ds.transfers, nbytes=int(packed_np.nbytes),
@@ -464,6 +467,40 @@ def _predicate_table(states: list[_QueryState]):
     return attrs, vals, is_or
 
 
+class _HostStaging(threading.local):
+    """Reused host buffers that a device round's int32 results land in, one
+    a use and thread, grown by doubling and never shrunk, so a serving
+    loop's warm-up sizes them and its later rounds reuse them.  Pinned where
+    the source is on a card, so its one copy runs at the card's copy
+    bandwidth (the choice ``storage.tiers.stage`` makes); plain memory on
+    the CPU.  What :meth:`copy` returns is valid until the next copy to the
+    same use."""
+
+    def __init__(self):
+        self.bufs: dict[tuple[str, bool], torch.Tensor] = {}
+        self.copies = 0  # copies made, which ``wave.records`` counts
+
+    def copy(self, use: str, src: torch.Tensor) -> torch.Tensor:
+        """``src`` (int32) copied into the buffer of ``use``, on the current
+        stream, then that stream synchronised; returns the filled part in
+        ``src``'s shape."""
+        pinned = src.device.type == "cuda"
+        n = src.numel()
+        buf = self.bufs.get((use, pinned))
+        if buf is None or buf.numel() < n:
+            cap = max(n, 2 * (0 if buf is None else buf.numel()))
+            buf = self.bufs[use, pinned] = torch.empty(cap, dtype=torch.int32, pin_memory=pinned)
+        host = buf[:n].view(src.shape)
+        host.copy_(src, non_blocking=True)
+        self.copies += 1
+        if pinned:
+            torch.cuda.current_stream(src.device).synchronize()
+        return host
+
+
+_STAGING = _HostStaging()
+
+
 def _wave_records(
     slabs, union: np.ndarray, states: list[_QueryState], blocks: list[np.ndarray], obs=None,
 ) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
@@ -472,30 +509,42 @@ def _wave_records(
     on the device.
 
     Returns, per query, ``(record_block, record_row, measures)`` in the
-    reference's order (the query's blocks ascending, then rows).  Each
+    reference's order (the query's blocks ascending, then rows): int64,
+    int64 and float32 ``[n, s]``, slices of arrays the round owns.  Each
     (query, block) pair's mask is the reference's ``predicate_mask`` fold
     (AND over the pairs from ``True``, OR from ``False``; padded slots are
     the identity), or for a Predicate tree its ``mask`` over the query's
     pairs of the group, ANDed with the valid rows.
 
-    With ``obs`` this is a ``wave.records`` span: each chunk of pairs a
-    ``records.select`` (its copies to the card, the masks, the synchronising
-    ``nonzero``) and a ``records.copy`` (the measures' gather and the two
-    copies to the host), then a ``records.split``; the span carries the
-    ``records`` and the ``d2h_bytes`` its copies to the host produced.
+    ``nonzero`` already yields the records in that order (pairs grouped by
+    query, rows ascending), so nothing is reordered: on the device each
+    record's pair index and row (int64, as ``nonzero`` gives them) and its
+    measures' bits are packed into one buffer, a column after the other; the
+    round makes one copy of it into a reused host buffer, then one owned
+    copy (each record's block id taken from its pair) whose slices, at the
+    queries' pair bounds, are the queries' records.  Results keep that copy
+    alive, so it is fresh memory each round, and one array a column a round
+    fills far faster than one small array a query and column.
+
+    With ``obs`` this is a ``wave.records`` span: a ``records.select`` a
+    chunk of pairs (its copies to the card, the masks, the synchronising
+    ``nonzero``), then one ``records.copy`` (the packing and the one copy
+    to the host) and one ``records.split`` (the round's owned copy); the
+    span carries the ``records``, the ``d2h_bytes`` and the ``d2h_copies``
+    of the copy to the host.
     """
     with span_or_null(obs, "wave.records") as sp:
+        copies0 = _STAGING.copies
         dims_u, meas_u, valid_u = slabs
         dev = dims_u.device
-        r = dims_u.shape[1]
+        r, s = dims_u.shape[1], meas_u.shape[2]
         sizes = np.asarray([b.size for b in blocks])
         pos = np.concatenate([np.searchsorted(union, b) for b in blocks])
         owner = np.repeat(np.arange(len(states)), sizes)
         attrs, vals, is_or = _predicate_table(states)
         trees = np.asarray([isinstance(st.query.predicates, Predicate) for st in states])
         rows_idx = torch.arange(r, device=dev)[None, :]
-        pair_hits, rec_rows, rec_meas = [], [], []
-        d2h_bytes = 0
+        chunks = []
         for lo in range(0, pos.size, _PAIR_CHUNK):
             with span_or_null(obs, "records.select"):
                 p = torch.from_numpy(pos[lo:lo + _PAIR_CHUNK]).to(dev)
@@ -517,26 +566,36 @@ def _wave_records(
                     mask[sel] = states[j].query.predicates.mask(dims_u[p[sel]])
                 mask &= valid_u[p]
                 hit = torch.nonzero(mask)  # [n, 2] (pair, row), row-major order
-            with span_or_null(obs, "records.copy"):
-                m = meas_u[p[hit[:, 0]], hit[:, 1]].cpu().numpy()
-                hit = hit.cpu().numpy()
-            if obs is not None:
-                d2h_bytes += m.nbytes + hit.nbytes
-            rec_meas.append(m)
-            pair_hits.append(hit[:, 0] + lo)
-            rec_rows.append(hit[:, 1])
+                chunks.append((lo, p, hit))
+        with span_or_null(obs, "records.copy"):
+            # int32 words: the round's pair indices, then the rows (int64
+            # each), then the measures' float32 bits [n, s]
+            n = sum(int(hit.shape[0]) for _, _, hit in chunks)
+            packed = torch.empty(n * (4 + s), dtype=torch.int32, device=dev)
+            pair_col = packed[:2 * n].view(torch.int64)
+            row_col = packed[2 * n:4 * n].view(torch.int64)
+            meas_col = packed[4 * n:].view(n, s)
+            o = 0
+            for lo, p, hit in chunks:
+                m = hit.shape[0]
+                torch.add(hit[:, 0], lo, out=pair_col[o:o + m])
+                row_col[o:o + m].copy_(hit[:, 1])
+                meas_col[o:o + m].copy_(meas_u[p[hit[:, 0]], hit[:, 1]].view(torch.int32))
+                o += m
+            host = _STAGING.copy("records", packed)
         with span_or_null(obs, "records.split"):
-            pair = np.concatenate(pair_hits)
-            row = np.concatenate(rec_rows)
-            meas = np.concatenate(rec_meas)
-            block_of_pair = np.concatenate(blocks)
-            bounds = np.searchsorted(pair, np.concatenate([[0], np.cumsum(sizes)]))
-            out = [
-                (block_of_pair[pair[b0:b1]], row[b0:b1], meas[b0:b1])
-                for b0, b1 in zip(bounds[:-1], bounds[1:])
-            ]
+            # the round's own copy (the next round overwrites the staging
+            # buffer); each query's records are slices of it
+            h = host.numpy()
+            ids = h[:4 * n].view(np.int64)
+            pair = ids[:n]
+            blk = np.concatenate(blocks)[pair]
+            rows = ids[n:].copy()
+            meas = h[4 * n:].view(np.float32).reshape(n, s).copy()
+            rb = np.searchsorted(pair, np.concatenate([[0], np.cumsum(sizes)]))
+            out = [(blk[b0:b1], rows[b0:b1], meas[b0:b1]) for b0, b1 in zip(rb[:-1], rb[1:])]
         if obs is not None:
-            sp.set(records=int(pair.size), d2h_bytes=d2h_bytes)
+            sp.set(records=n, d2h_bytes=int(packed.nbytes), d2h_copies=_STAGING.copies - copies0)
     return out
 
 
@@ -910,16 +969,23 @@ def finalize_query_result(
     cpu_time_s: float = 0.0,
 ):
     """The public :class:`~repro_torch.core.engine.QueryResult` of a
-    finished refill state."""
+    finished refill state.  A state's record parts are nothing else's (no
+    staging buffer lies under them), so one part is the result as it is;
+    more are concatenated."""
     from repro_torch.core.engine import QueryResult
+
+    def joined(parts: list[np.ndarray], empty: np.ndarray) -> np.ndarray:
+        if len(parts) == 1:
+            return parts[0]
+        return np.concatenate(parts) if parts else empty
 
     all_blocks = (
         np.concatenate(st.planned) if st.planned else np.asarray([], dtype=np.int64)
     )
     return QueryResult(
-        record_block=np.concatenate(st.rec_blocks) if st.rec_blocks else np.asarray([], np.int64),
-        record_row=np.concatenate(st.rec_rows) if st.rec_rows else np.asarray([], np.int64),
-        measures=np.concatenate(st.meas) if st.meas else np.zeros((0, 0), np.float32),
+        record_block=joined(st.rec_blocks, np.asarray([], np.int64)),
+        record_row=joined(st.rec_rows, np.asarray([], np.int64)),
+        measures=joined(st.meas, np.zeros((0, 0), np.float32)),
         blocks_fetched=all_blocks,
         algo=st.used_algo or (st.query.algo or default_algo),
         cpu_time_s=cpu_time_s,  # the wave's time; a per-query share is not meaningful

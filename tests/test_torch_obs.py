@@ -553,11 +553,13 @@ def test_children_tile_their_parent(parent, chunk):
 
 @pytest.mark.parametrize("chunk", CHUNKS)
 def test_record_copies_count_the_records_returned(chunk):
-    """``d2h_bytes`` of the ``wave.records`` spans is 16 B of (pair, row)
-    int64 and 4 B a measure for each record the answered requests hold;
-    ``records`` is those records; each ``wave.records`` holds a
-    ``records.select`` and a ``records.copy`` a chunk of its pairs, then one
-    ``records.split``."""
+    """Each round copies its records to the host once: a (pair, row) int64
+    and the measures' 4 B each for each record, packed into one buffer.  So
+    a ``wave.records`` span's ``d2h_bytes`` is (16 + 4·s) a record,
+    ``d2h_copies`` is 1, and the spans' ``d2h_bytes`` and ``records`` sum to
+    those of the records the answered requests hold; each span holds a
+    ``records.select`` a chunk of its pairs, then one ``records.copy`` and
+    one ``records.split``."""
     rec, reqs, pairs = _host_step_run(chunk)
     events = rec.to_events()
     s = _stores()[1].measures.shape[-1]
@@ -568,9 +570,12 @@ def test_record_copies_count_the_records_returned(chunk):
     assert sum(e["attrs"]["records"] for e in recs) == records
     assert len(recs) == len(pairs)
     for e, n in zip(recs, pairs):
+        a = e["attrs"]
+        assert a["d2h_bytes"] == a["records"] * (16 + 4 * s)
+        assert a["d2h_copies"] == 1
         kids = [k["name"] for k in events if k["parent"] == e["id"]]
         chunks = math.ceil(n / chunk)
-        assert kids == ["records.select", "records.copy"] * chunks + ["records.split"]
+        assert kids == ["records.select"] * chunks + ["records.copy", "records.split"]
 
 
 @pytest.mark.parametrize("chunk", CHUNKS)
