@@ -23,7 +23,9 @@ Admission fills the slots of the fetched misses with one copy per tensor,
 and a read is one ``block_gather`` launch per tensor over the slots, so the
 slabs never leave the card.  An unbounded cache (``capacity_bytes=None``)
 can therefore grow to the store's own size in device memory (3.2 GB for the
-10⁸-record airline-like store), plus a transient copy while the pool grows.
+10⁸-record airline-like store), plus a transient copy while the pool grows;
+:meth:`BlockLRUCache.ensure` grows it once and fills it a piece at a time,
+so filling it with a whole store holds one piece's gather beside the pool.
 
 Invalidation contract: entries only go stale when the store's blocks are
 rewritten; the store reports the dirtied ids to its listeners
@@ -73,6 +75,10 @@ class CacheStats:
         d = dataclasses.asdict(self)
         d["hit_rate"] = round(self.hit_rate, 4)
         return d
+
+
+# ``ensure`` fetches and admits its misses this many blocks at a time
+_ENSURE_BLOCKS = 1024
 
 
 def _slab_nbytes(slabs: Slabs) -> int:
@@ -163,11 +169,12 @@ class BlockLRUCache:
             self.stats.evictions += 1
         self.stats.blocks_cached = len(self._slabs)
 
-    def _grow(self, like: Slabs, limit: int) -> None:
-        """Double the slot pool (at least 16 slots, at most ``limit``),
-        keeping the cached slabs; ``like`` gives the per-block shapes."""
+    def _grow(self, like: Slabs, limit: int, need: int = 0) -> None:
+        """Double the slot pool, or grow it to ``need`` slots if that is
+        more (at least 16 slots, at most ``limit``), keeping the cached
+        slabs; ``like`` gives the per-block shapes."""
         old = 0 if self._pool is None else self._pool[0].shape[0]
-        new = min(limit, max(16, 2 * old))
+        new = min(limit, max(16, 2 * old, need))
         pool = tuple(torch.empty((new, *t.shape[1:]), dtype=t.dtype, device=t.device)
                      for t in like)
         if self._pool is not None:
@@ -210,18 +217,27 @@ class BlockLRUCache:
         return (block_gather(dims, ids), block_gather(meas, ids),
                 block_gather(valid.view(torch.int8), ids) != 0)
 
-    def _read(self, store: "BlockStore", ids: np.ndarray) -> Slabs:
-        """One store read, booked."""
+    def _book_read(self, ids: np.ndarray) -> None:
+        """Book one store read of ``ids``."""
         self.stats.store_fetch_calls += 1
         self.stats.store_blocks_fetched += int(ids.size)
         if self.fetch_log is not None:
             self.fetch_log.append(ids.copy())
+
+    def _read(self, store: "BlockStore", ids: np.ndarray) -> Slabs:
+        """One store read, booked."""
+        self._book_read(ids)
         return store.fetch(ids)
 
     # ------------------------------------------------------------------ fetch
     def ensure(self, store: "BlockStore", block_ids) -> int:
-        """Admit every miss among ``block_ids`` with one ascending-id store
-        read, without gathering.  Returns the number of blocks read."""
+        """Admit every miss among ``block_ids``, booked as one ascending-id
+        store read, without gathering.  The misses are fetched and admitted
+        :data:`_ENSURE_BLOCKS` at a time, an unbounded pool first grown once
+        to hold them all, so that filling the cache with a whole store holds
+        the pool and one piece beside the store, not a second copy of it.
+        The bookkeeping is the one-read call's.  Returns the number of
+        blocks read."""
         if self.capacity_bytes == 0:
             return 0
         miss_set = {int(b) for b in np.asarray(block_ids).ravel()} - self._slabs.keys()
@@ -231,7 +247,13 @@ class BlockLRUCache:
         re_ids = self._split_rereads(miss_set)
         self.stats.misses += int(miss.size) - len(re_ids)
         self.stats.invalidation_rereads += len(re_ids)
-        self._admit(store, miss, self._read(store, miss))
+        self._book_read(miss)
+        for lo in range(0, miss.size, _ENSURE_BLOCKS):
+            part = miss[lo:lo + _ENSURE_BLOCKS]
+            fetched = store.fetch(part)
+            if lo == 0 and self.capacity_bytes is None and len(self._free) < miss.size:
+                self._grow(fetched, store.num_blocks, len(self._slabs) + int(miss.size))
+            self._admit(store, part, fetched)
         return int(miss.size)
 
     def get_many(self, store: "BlockStore", block_ids) -> Slabs:

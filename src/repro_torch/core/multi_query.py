@@ -66,9 +66,11 @@ spans of their own (:data:`~repro_torch.obs.trace.HOST_STEP_SPANS`): a
 device round is a ``plan.device_round`` of ``plan.join``, ``plan.device``
 and ``plan.choose``; a union read is ``wave.read``, ``wave.records`` (a
 ``records.select`` a chunk, then ``records.copy`` and ``records.split``)
-and ``wave.bookkeep``.  ``wave.records`` carries the ``records`` it
-extracted, and the ``d2h_bytes`` and the ``d2h_copies`` of their one packed
-copy to the host, counted only while tracing.
+and ``wave.bookkeep``.  ``wave.read`` carries the round's ``union_blocks``
+and the ``gather_bytes`` its one union gather wrote; ``wave.records`` the
+``records`` it extracted, the ``d2h_bytes`` and the ``d2h_copies`` of their
+one packed copy to the host, and the ``pair_rows`` its masks covered; all
+counted only while tracing.
 """
 from __future__ import annotations
 
@@ -531,7 +533,8 @@ def _wave_records(
     ``nonzero``), then one ``records.copy`` (the packing and the one copy
     to the host) and one ``records.split`` (the round's owned copy); the
     span carries the ``records``, the ``d2h_bytes`` and the ``d2h_copies``
-    of the copy to the host.
+    of the copy to the host, and the ``pair_rows`` its masks covered ((query,
+    block) pairs × rows a block).
     """
     with span_or_null(obs, "wave.records") as sp:
         copies0 = _STAGING.copies
@@ -595,7 +598,8 @@ def _wave_records(
             rb = np.searchsorted(pair, np.concatenate([[0], np.cumsum(sizes)]))
             out = [(blk[b0:b1], rows[b0:b1], meas[b0:b1]) for b0, b1 in zip(rb[:-1], rb[1:])]
         if obs is not None:
-            sp.set(records=n, d2h_bytes=int(packed.nbytes), d2h_copies=_STAGING.copies - copies0)
+            sp.set(records=n, d2h_bytes=int(packed.nbytes), d2h_copies=_STAGING.copies - copies0,
+                   pair_rows=int(pos.size) * r)
     return out
 
 
@@ -631,7 +635,7 @@ def _execute_wave_body(
 ) -> tuple[bool, int]:
     obs = engine.obs
     cache = engine.block_cache
-    with span_or_null(obs, "wave.read"):
+    with span_or_null(obs, "wave.read") as sp:
         union = _union(wave_blocks)
         if union.size:
             for b in union:
@@ -644,6 +648,9 @@ def _execute_wave_body(
             return False, 0
         blocks = [b for _, b in members]
         slabs = cache.get_wave(union, blocks)
+        if obs is not None:  # no union gather where the budget cannot hold the union
+            sp.set(union_blocks=int(union.size),
+                   gather_bytes=0 if slabs is None else sum(int(t.nbytes) for t in slabs))
     if slabs is not None:
         recs = _wave_records(slabs, union, [st for st, _ in members], blocks, obs)
     else:  # the budget cannot hold the union: the reference's per-query reads

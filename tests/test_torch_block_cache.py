@@ -111,6 +111,42 @@ def test_get_many_bytes_and_counters_equal_the_reference(seq, budget):
     assert mine.stats.snapshot() == ref.stats.snapshot()
 
 
+@pytest.mark.parametrize("budget", [None, 5], ids=["unbounded", "five_blocks"])
+def test_ensure_in_pieces_books_one_read_and_ends_as_the_reference(budget, monkeypatch):
+    """``ensure`` fetches its misses a few blocks at a time, yet books one
+    store read and ends in the reference's state; unbounded, its pool grows
+    once for a whole store's fill, to the store's block count."""
+    import repro_torch.core.block_cache as bc
+
+    monkeypatch.setattr(bc, "_ENSURE_BLOCKS", 3)
+    jstore, pstore = _stores("uniform")
+    cap = None if budget is None else budget * _block_nbytes(pstore)
+    mine, ref = BlockLRUCache(cap), JaxCache(cap)
+    mine.fetch_log, ref.fetch_log = [], []
+    grows = []
+    grow = mine._grow
+    monkeypatch.setattr(mine, "_grow", lambda *a: (grows.append(a[1:]), grow(*a)))
+    everything = np.arange(pstore.num_blocks)[::-1]
+    for op, ids in [("ens", [0, 1]), ("inv", [1]), ("ens", everything), ("get", [4, 0, 7])]:
+        ids = np.asarray(ids, dtype=np.int64)
+        if op == "ens":
+            n_grows = len(grows)
+            assert mine.ensure(pstore, ids) == ref.ensure(jstore, ids)
+        elif op == "inv":
+            assert mine.invalidate(ids) == ref.invalidate(ids)
+        else:
+            _assert_slabs(mine.get_many(pstore, ids), ref.get_many(jstore, ids))
+        _assert_stats(mine, ref)
+        assert list(mine._slabs) == list(ref._slabs)
+    assert [list(a) for a in mine.fetch_log] == [list(a) for a in ref.fetch_log]
+    kept = np.asarray(list(mine._slabs), dtype=np.int64)
+    _assert_slabs(mine.get_many(pstore, kept), jstore.fetch(kept))
+    if budget is None:
+        assert len(grows) - n_grows == 1 and mine._pool[0].shape[0] == pstore.num_blocks
+    else:
+        assert mine._pool[0].shape[0] <= budget
+
+
 def test_byte_budget_never_exceeded_and_bytes_hold_under_churn():
     jstore, pstore = _stores("uniform", 1)
     nb = _block_nbytes(pstore)
