@@ -187,8 +187,12 @@ launches, peak memory logged):
    as the path launches it, one whole bisection (3 rounds of 16), and as
    one round at 16 thresholds; #1 with host ids
    (by value) without and with a refill's exclusion list, each beside the
-   path it replaced, by CUDA events and host clock.  The build must show
-   no spills for the kernels of the last two redesigns (``NEW_KERNELS``).
+   path it replaced, by CUDA events and host clock.  #10, the round's
+   record selection and packing, at each benchmark cell's round shapes
+   (``RECORD_ROUNDS``: tpch 16,600 pairs over 11,000 blocks, γ = 3, s = 20;
+   synth 340 over 226, s = 2), bit for bit its plain op chain, then timed.
+   The build must show no spills for the kernels of the last redesigns
+   (``NEW_KERNELS``).
 
 Then tiered block storage (``repro_torch.storage``) on the same table, the
 LMs freed, each phase's store reads through #7:
@@ -380,6 +384,8 @@ KERNELS = {
     "block_gather": ("csrc/block_gather.cu", "src/repro/kernels/plan_wave.py:325"),
     "flash_attention": ("csrc/flash_attention.cu", "src/repro/kernels/flash_attention.py:108"),
     "ssd_scan": ("csrc/ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:78"),
+    "record_select": ("csrc/record_select.cu",
+                      "none: the reference finds and gathers records with numpy on the host"),
 }
 LM_KERNELS = ("flash_attention", "ssd_scan")
 # the CUDA kernels each redesign launches (the last two slices'): their
@@ -388,11 +394,14 @@ NEW_KERNELS = {"theta_stats": ("theta_bisect_kernel",),
                "density_combine": ("density_combine_excl_kernel",),
                "theta_stats_batch": ("theta_batch_kernel<1>", "theta_batch_kernel<16>"),
                "density_combine_batch": ("density_combine_wave_kernel",),
-               "density_combine_batch_sharded": ("density_combine_wave_kernel",)}
+               "density_combine_batch_sharded": ("density_combine_wave_kernel",),
+               "record_select": ("record_count_kernel<2>", "record_scan_kernel",
+                                 "record_pack_kernel")}
 # the kernels each path must launch; a kernel's "launches" in the JSON line
 # are those of the first path listed here that runs it
 PHASE_KERNELS = {
-    "wave": ("density_combine_batch", "theta_stats_batch", "prefix_sum", "block_gather"),
+    "wave": ("density_combine_batch", "theta_stats_batch", "prefix_sum", "block_gather",
+             "record_select"),
     "host_mirror": ("density_combine_batch", "prefix_sum", "block_gather"),
     "single": ("density_combine", "prefix_sum", "block_gather"),
     "bisect": ("theta_stats",),
@@ -1690,10 +1699,124 @@ def kernel_phase(store, queries, batch, phase_launches: dict, rows) -> list[dict
         2 * ids.numel() * block_bytes + ids.numel() * 4,
         0.0,
     )
+    rounds = RECORD_ROUNDS if on_card(dev) else {
+        name: (8, 12, s, g) for name, (_, _, s, g) in RECORD_ROUNDS.items()}
+    entries["record_select"] = record_select_row(phase_launches, dev, rounds, rpb)
     log(f"kernel shapes: Q={Q} λ={lam} γ_max={rm_np.shape[1]} rows={n_rows} "
         f"T=1 (wave), 8 (given), {BISECT_FANOUT} (sharded bisection; single {T}) "
         f"U={ids.numel()} R={rpb} d={store.dims.shape[2]}")
     return [entries[name] for name in KERNELS if name not in LM_KERNELS]
+
+
+# a round of each benchmark cell as its traced runs show it: union blocks,
+# (query, block) pairs of 64 AND queries, measures, tests a query; tpch's
+# tests keep ~0.7% of the rows (~0.9·10⁶ records), synth's ~86%
+RECORD_ROUNDS = {"tpch": (11_000, 16_600, 20, 3), "synth": (226, 340, 2, 2)}
+RECORD_CARDS = (3, 2, 4, 7, 50, 11, 9, 7)  # TPC-H LINEITEM's eight dims
+
+
+def record_round(dev, n_union: int, n_pairs: int, s: int, gamma: int, rpb: int, seed: int = 0):
+    """Union slabs on ``dev`` and a round's pairs over them: γ = 3 draws
+    LINEITEM's dims and tests flag, mode and ship year; γ = 2 draws binary
+    dims at 93% ones and tests two of them at 1.  The last block is half
+    invalid.  Returns ``(dims, meas, valid)`` and the wrapper's arguments."""
+    import torch
+
+    from repro_torch.core.multi_query import _predicate_table
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (n_union, rpb, len(RECORD_CARDS))
+    if gamma == 3:
+        cards = torch.tensor(RECORD_CARDS, dtype=torch.float32, device=dev)
+        dims = (torch.rand(shape, generator=g, device=dev) * cards).to(torch.int32)
+    else:
+        dims = (torch.rand(shape, generator=g, device=dev) < 0.93).to(torch.int32)
+    meas = torch.randn((n_union, rpb, s), generator=g, device=dev)
+    valid = torch.ones((n_union, rpb), dtype=torch.bool, device=dev)
+    valid[-1, rpb // 2:] = False
+    rng = np.random.default_rng(seed)
+    sizes = np.full(Q, n_pairs // Q)
+    sizes[:n_pairs % Q] += 1
+    blocks = [np.sort(rng.choice(n_union, size=min(int(k), n_union), replace=False))
+              for k in sizes]
+    if gamma == 3:
+        preds = [[(0, 1), (3, 2), (7, 3)]] * Q
+    else:
+        preds = [[(int(a), 1) for a in rng.choice(len(RECORD_CARDS), 2, replace=False)]
+                 for _ in range(Q)]
+    states = [SimpleNamespace(query=SimpleNamespace(predicates=p, op="and")) for p in preds]
+    pos = np.concatenate(blocks).astype(np.int64)
+    owner = np.repeat(np.arange(Q), [b.size for b in blocks])
+    attrs, vals, is_or = _predicate_table(states)
+    return (dims, meas, valid), (pos, owner, attrs, vals, is_or, [None] * Q)
+
+
+def record_select_row(phase_launches: dict, dev, rounds: dict, rpb: int) -> dict:
+    """#10 at each cell's round shapes: the kernels' packed buffer and count
+    equal the plain op chain's on the same slabs, bit for bit; then the
+    count pass with its scan and the write pass timed by CUDA events as
+    one launch each (the table built and uploaded once; ``count_ms`` and
+    ``pack_ms`` apart), the plain op chain, and the wrappers as the path
+    calls them by host clock (table, upload and the count's read
+    included).  The bound counts the union blocks' dims and valid bytes
+    once, the mask words and tile counts written and read, the table, the
+    records' measures read and their packed bytes written."""
+    import torch
+
+    from repro_torch.core.multi_query import _PAIR_CHUNK
+    from repro_torch.kernels import record_select as rs
+
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > 50 MB L2
+    out = {}
+    for name, (n_union, n_pairs, s, gamma) in rounds.items():
+        (dims, meas, valid), args = record_round(dev, n_union, n_pairs, s, gamma, rpb)
+        pos = args[0]
+        plain_sel = rs.record_select_plain(dims, valid, *args, _PAIR_CHUNK)
+        want = rs.record_pack_plain(plain_sel, meas)
+        sel = rs.record_select(dims, valid, *args, _PAIR_CHUNK)
+        if sel.n != plain_sel.n or not torch.equal(rs.record_pack(sel, meas), want):
+            raise AssertionError(f"record_select differs from its plain version ({name})")
+
+        def plain():
+            return rs.record_pack_plain(rs.record_select_plain(dims, valid, *args, _PAIR_CHUNK),
+                                        meas)
+
+        def path():
+            return rs.record_pack(rs.record_select(dims, valid, *args, _PAIR_CHUNK), meas)
+
+        if on_card(dev):
+            table, at, tree_rows = rs.kernel_table(dims, *args)
+            launch = (dims, valid, table, at, tree_rows, pos.size, args[2].shape[1])
+            bits, offsets = rs.select_launch(*launch)
+
+            def both():
+                return rs.pack_launch(*rs.select_launch(*launch), table, meas, sel.n)
+
+            ms = time_ms(both, flush=scrub.zero_)
+            count_ms = time_ms(lambda: rs.select_launch(*launch), flush=scrub.zero_)
+            pack_ms = time_ms(lambda: rs.pack_launch(bits, offsets, table, meas, sel.n),
+                              flush=scrub.zero_)
+            table_bytes = table.nbytes
+        else:
+            ms = count_ms = pack_ms = time_ms(path)
+            table_bytes = 0
+        words, tiles = -(-rpb // 32), -(-rpb // 1024)
+        read_blocks = int(np.unique(pos).size)
+        nbytes = (read_blocks * rpb * (4 * dims.shape[2] + 1) + 2 * pos.size * (words + tiles) * 4
+                  + 2 * (pos.size + 1) * 8 + table_bytes + sel.n * (16 + 8 * s))
+        b, by = bound_ms(nbytes, float(pos.size * rpb * (gamma + 1)))
+        out[name] = {"union": n_union, "pairs": int(pos.size), "blocks_read": read_blocks,
+                     "s": s, "gamma": gamma, "records": sel.n, "ms": ms, "count_ms": count_ms,
+                     "pack_ms": pack_ms, "plain_ms": time_ms(plain),
+                     "path_host_ms": host_ms(path, dev, runs=5), "bound_ms": b, "bound_by": by,
+                     "bytes": nbytes}
+        log(f"kernel record_select ({name}): {out[name]}")
+        del dims, meas, valid, plain_sel, want, sel
+    main = out["tpch"]
+    return kernel_row("record_select", phase_launches, 0.0, main["ms"], main["plain_ms"], None,
+                      main["bytes"], float(main["pairs"] * rpb * (main["gamma"] + 1)),
+                      roofline=main["bound_ms"] / main["ms"] if main["ms"] else None,
+                      rounds=out)
 
 
 def sync(dev) -> None:

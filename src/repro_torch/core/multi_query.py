@@ -65,12 +65,14 @@ transfer), so tracing adds no synchronisation.  The port's host steps are
 spans of their own (:data:`~repro_torch.obs.trace.HOST_STEP_SPANS`): a
 device round is a ``plan.device_round`` of ``plan.join``, ``plan.device``
 and ``plan.choose``; a union read is ``wave.read``, ``wave.records`` (a
-``records.select`` a chunk, then ``records.copy`` and ``records.split``)
+``records.select`` a round on the card or a chunk on the CPU, then
+``records.copy`` and ``records.split``)
 and ``wave.bookkeep``.  ``wave.read`` carries the round's ``union_blocks``
 and the ``gather_bytes`` its one union gather wrote; ``wave.records`` the
 ``records`` it extracted, the ``d2h_bytes`` and the ``d2h_copies`` of their
-one packed copy to the host, and the ``pair_rows`` its masks covered; all
-counted only while tracing.
+one packed copy to the host, the ``pair_rows`` its masks covered, and the
+``kernel_pairs`` and ``tree_pairs`` that say how; all counted only while
+tracing.
 """
 from __future__ import annotations
 
@@ -91,14 +93,16 @@ from repro_torch.kernels.density_combine import exclusion_ids
 from repro_torch.kernels.plan_wave import (
     apply_chosen, join_wave_slots, pack_plan, plan_wave_from_combined, unpack_plan,
 )
+from repro_torch.kernels.record_select import record_pack, record_select
 from repro_torch.obs.trace import span_or_null
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.core.engine import NeedleTailEngine, QueryResult
 
 _ALGOS = ("threshold", "two_prong", "auto", "forward_optimal")
-# (query, block) pairs whose predicate masks are evaluated per launch group;
-# bounds the [pairs, R] temporaries (4096 × 8192 rows × 4 B = 128 MiB)
+# (query, block) pairs whose predicate masks the plain (CPU) version
+# evaluates per launch group; bounds its [pairs, R] temporaries (4096 × 8192
+# rows × 4 B = 128 MiB).  The kernel masks a round at once.
 _PAIR_CHUNK = 4096
 
 
@@ -518,73 +522,44 @@ def _wave_records(
     the identity), or for a Predicate tree its ``mask`` over the query's
     pairs of the group, ANDed with the valid rows.
 
-    ``nonzero`` already yields the records in that order (pairs grouped by
-    query, rows ascending), so nothing is reordered: on the device each
-    record's pair index and row (int64, as ``nonzero`` gives them) and its
-    measures' bits are packed into one buffer, a column after the other; the
-    round makes one copy of it into a reused host buffer, then one owned
+    The masks and the packing are :func:`~repro_torch.kernels.record_select.
+    record_select` and ``record_pack``: on the card one count pass over the
+    union, one read of the round's record count and one write pass; on the
+    CPU the plain op chain, ``_PAIR_CHUNK`` pairs at a time.  Records come
+    in that order (pairs grouped by query, rows ascending), so nothing is
+    reordered: each record's pair index and row (int64) and its measures'
+    bits are packed into one buffer on the device, a column after the other;
+    the round makes one copy of it into a reused host buffer, then one owned
     copy (each record's block id taken from its pair) whose slices, at the
     queries' pair bounds, are the queries' records.  Results keep that copy
     alive, so it is fresh memory each round, and one array a column a round
     fills far faster than one small array a query and column.
 
-    With ``obs`` this is a ``wave.records`` span: a ``records.select`` a
-    chunk of pairs (its copies to the card, the masks, the synchronising
-    ``nonzero``), then one ``records.copy`` (the packing and the one copy
-    to the host) and one ``records.split`` (the round's owned copy); the
-    span carries the ``records``, the ``d2h_bytes`` and the ``d2h_copies``
-    of the copy to the host, and the ``pair_rows`` its masks covered ((query,
-    block) pairs × rows a block).
+    With ``obs`` this is a ``wave.records`` span: ``records.select`` (the
+    masks up to the read of the record count: one span a round on the card,
+    one a chunk of pairs on the CPU), then one ``records.copy`` (the packing
+    and the one copy to the host) and one ``records.split`` (the round's
+    owned copy); the span carries the ``records``, the ``d2h_bytes`` and the
+    ``d2h_copies`` of the copy to the host, the ``pair_rows`` its masks
+    covered ((query, block) pairs × rows a block), and how those pairs were
+    masked: ``kernel_pairs`` by the kernel from their query's tests (0 on
+    the CPU), ``tree_pairs`` by their Predicate tree's own ``mask``.
     """
     with span_or_null(obs, "wave.records") as sp:
         copies0 = _STAGING.copies
         dims_u, meas_u, valid_u = slabs
-        dev = dims_u.device
-        r, s = dims_u.shape[1], meas_u.shape[2]
+        r = dims_u.shape[1]
         sizes = np.asarray([b.size for b in blocks])
         pos = np.concatenate([np.searchsorted(union, b) for b in blocks])
         owner = np.repeat(np.arange(len(states)), sizes)
         attrs, vals, is_or = _predicate_table(states)
-        trees = np.asarray([isinstance(st.query.predicates, Predicate) for st in states])
-        rows_idx = torch.arange(r, device=dev)[None, :]
-        chunks = []
-        for lo in range(0, pos.size, _PAIR_CHUNK):
-            with span_or_null(obs, "records.select"):
-                p = torch.from_numpy(pos[lo:lo + _PAIR_CHUNK]).to(dev)
-                own = owner[lo:lo + _PAIR_CHUNK]
-                a_p = torch.from_numpy(attrs[own]).to(dev)  # [P, γ_max]
-                v_p = torch.from_numpy(vals[own]).to(dev)
-                acc_and = torch.ones((p.numel(), r), dtype=torch.bool, device=dev)
-                acc_or = torch.zeros_like(acc_and)
-                for g in range(attrs.shape[1]):
-                    pad = (a_p[:, g] < 0)[:, None]
-                    col = dims_u[p[:, None], rows_idx, a_p[:, g].clamp(min=0)[:, None]]
-                    eq = col == v_p[:, g][:, None]
-                    acc_and &= eq | pad
-                    acc_or |= eq & ~pad
-                or_p = torch.from_numpy(is_or[own]).to(dev)[:, None]
-                mask = torch.where(or_p, acc_or, acc_and)
-                for j in np.unique(own[trees[own]]):
-                    sel = torch.from_numpy(np.flatnonzero(own == j)).to(dev)
-                    mask[sel] = states[j].query.predicates.mask(dims_u[p[sel]])
-                mask &= valid_u[p]
-                hit = torch.nonzero(mask)  # [n, 2] (pair, row), row-major order
-                chunks.append((lo, p, hit))
+        trees = [st.query.predicates if isinstance(st.query.predicates, Predicate) else None
+                 for st in states]
+        sel = record_select(dims_u, valid_u, pos, owner, attrs, vals, is_or, trees,
+                            _PAIR_CHUNK, obs)
+        n, s = sel.n, meas_u.shape[2]
         with span_or_null(obs, "records.copy"):
-            # int32 words: the round's pair indices, then the rows (int64
-            # each), then the measures' float32 bits [n, s]
-            n = sum(int(hit.shape[0]) for _, _, hit in chunks)
-            packed = torch.empty(n * (4 + s), dtype=torch.int32, device=dev)
-            pair_col = packed[:2 * n].view(torch.int64)
-            row_col = packed[2 * n:4 * n].view(torch.int64)
-            meas_col = packed[4 * n:].view(n, s)
-            o = 0
-            for lo, p, hit in chunks:
-                m = hit.shape[0]
-                torch.add(hit[:, 0], lo, out=pair_col[o:o + m])
-                row_col[o:o + m].copy_(hit[:, 1])
-                meas_col[o:o + m].copy_(meas_u[p[hit[:, 0]], hit[:, 1]].view(torch.int32))
-                o += m
+            packed = record_pack(sel, meas_u)
             host = _STAGING.copy("records", packed)
         with span_or_null(obs, "records.split"):
             # the round's own copy (the next round overwrites the staging
@@ -599,7 +574,8 @@ def _wave_records(
             out = [(blk[b0:b1], rows[b0:b1], meas[b0:b1]) for b0, b1 in zip(rb[:-1], rb[1:])]
         if obs is not None:
             sp.set(records=n, d2h_bytes=int(packed.nbytes), d2h_copies=_STAGING.copies - copies0,
-                   pair_rows=int(pos.size) * r)
+                   pair_rows=int(pos.size) * r, kernel_pairs=sel.kernel_pairs,
+                   tree_pairs=sel.tree_pairs)
     return out
 
 

@@ -33,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("density_combine.cu", "theta_stats.cu", "block_gather.cu", "window_scan.cu",
-           "flash_attention.cu", "ssd_chunk.cu")
+           "flash_attention.cu", "ssd_chunk.cu", "record_select.cu")
 # -fmad=false: no multiply-add contraction, so the plan-path kernels' f32
 # results keep the plain versions' rounding bit for bit; no fast-math flag
 # for the same reason.  One flag set serves every source: the LM kernels
@@ -49,7 +49,7 @@ LAUNCHES: dict[str, int] = {
     "density_combine": 0, "density_combine_batch": 0, "density_combine_batch_sharded": 0,
     "theta_stats": 0,
     "theta_stats_batch": 0, "prefix_sum": 0, "block_gather": 0,
-    "flash_attention": 0, "ssd_scan": 0,
+    "flash_attention": 0, "ssd_scan": 0, "record_select": 0, "record_pack": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -78,6 +78,12 @@ _SIGNATURES = {
                               ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P),
     # (slab, ids, u, nbytes, out, stream)
     "nt_block_gather": (_P, _P, _I64, _I64, _P, _P),
+    # (dims, valid, tree masks or None, pos, owner, tree, ub_off, ub_pairs, attrs, is_or,
+    #  vals, P, U, R, r, G, bits, tile_counts, offsets, stream)
+    "nt_record_select": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                         _I64, _P, _P, _P, _P),
+    # (bits, offsets, pos, meas, P, R, s, n, out, stream)
+    "nt_record_pack": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P, _P),
     # (x, rows, n, out, scratch or None, scratch_stride, stream)
     "nt_prefix_sum": (_P, _I64, _I64, _P, _P, _I64, _P),
     # (q, k, v, o, B, Hq, Hkv, S, T, D, causal, window, scale, bf16, stream)
